@@ -1,0 +1,95 @@
+"""LimeServer: the serving front door (counterpart of
+``repro.serving.server``).
+
+Composes a RequestQueue clients submit to, the execution backend and the
+continuous-batching scheduler behind one call:
+
+    srv = LimeServer(cfg, params, pattern="bursty")
+    srv.queue.submit(prompt, max_new_tokens=32)
+    finished = srv.serve_all()
+
+The paper's request patterns map to slot counts: sporadic serves one
+request at a time, bursty fills 4 batch slots.
+"""
+from __future__ import annotations
+
+from collections import deque
+from typing import List, Optional
+
+import numpy as np
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.serving.backend import EngineBackend
+from repro_torch.serving.sampling import SamplerConfig
+from repro_torch.serving.scheduler import (ContinuousBatchingScheduler,
+                                           Request, SchedulerConfig)
+
+
+class RequestQueue:
+    """Client-facing submission queue (rid assignment + FIFO order)."""
+
+    def __init__(self):
+        self._q: deque[Request] = deque()
+        self._next = 0
+
+    def submit(self, prompt, max_new_tokens: int, now: float = 0.0) -> Request:
+        r = Request(self._next, np.asarray(prompt, np.int32),
+                    max_new_tokens, arrival_s=now)
+        self._next += 1
+        self._q.append(r)
+        return r
+
+    def drain(self) -> List[Request]:
+        out = list(self._q)
+        self._q.clear()
+        return out
+
+    def __len__(self):
+        return len(self._q)
+
+
+class LimeServer:
+    """Pattern-aware serving over the single-device decode path. Runs on
+    the card unless ``device='cpu'``; ``impl`` picks the hand-written
+    kernels ("kernel", the default) or the reference math ("ref")."""
+
+    def __init__(self, cfg: ModelConfig, params, *, max_len: int = 512,
+                 sampler: SamplerConfig = SamplerConfig(),
+                 pattern: str = "sporadic", impl: str = "kernel",
+                 device=None):
+        self.cfg = cfg
+        self.params = params
+        self.max_len = max_len
+        self.sampler = sampler
+        self.pattern = pattern
+        self.impl = impl
+        self.device = resolve_device(device)
+        self.queue = RequestQueue()
+        self._backend: Optional[EngineBackend] = None
+
+    @property
+    def slots(self) -> int:
+        return 1 if self.pattern == "sporadic" else 4
+
+    def make_backend(self) -> EngineBackend:
+        # cached so the backend's clock keeps running across serve_all()
+        if self._backend is None:
+            self._backend = EngineBackend(
+                self.cfg, self.params, n_slots=self.slots,
+                max_len=self.max_len, sampler=self.sampler, impl=self.impl,
+                device=self.device)
+        return self._backend
+
+    def serve_all(self) -> List[Request]:
+        """Drain the queue through the scheduler. Submitted arrival times
+        are relative to this call, re-based onto the backend's clock."""
+        reqs = self.queue.drain()
+        if not reqs:
+            return []
+        backend = self.make_backend()
+        base = backend.now()
+        for r in reqs:
+            r.arrival_s += base
+        sched = ContinuousBatchingScheduler(backend, SchedulerConfig())
+        return sched.serve(reqs)
