@@ -1,0 +1,557 @@
+"""LIME's interleaved offload engine on one CUDA device (counterpart of
+``repro.core.engine``).
+
+The paper's mechanism on an H100: a model too large for HBM runs as
+C = n_seg chunks of contiguous layers; chunk c runs its k_res resident
+layers from HBM, then its k_off streamed layers, each copied from pinned
+host memory (the paper's SSD; its read bandwidth is PCIe here) into one of
+two one-layer device buffers on a side CUDA stream. The copy of streamed
+layer j+1 is issued before layer j computes, and the first streamed layer
+of a chunk is fetched while the chunk's resident layers compute: the
+paper's interleave. A copy waits on the compute stream's "buffer free"
+event for its buffer, compute waits on the copy's "copy done" event.
+
+Of the JAX package's two streaming designs this is fetch_mode="slot"
+(each streamed layer fetched when its chunk runs) on one stage; the
+multi-stage ring (n_stage > 1) and fetch_mode="step" are not ported.
+
+Placement: ``plan_layout`` / ``split_layer_stack`` give the JAX package's
+index maps (same results for the same plan). Resident layers live in HBM,
+one flat bf16 tensor each; streamed layers in a pinned host store of
+n_seg x (retier_headroom + k_off) one-layer slots. Pinned memory is plain
+host memory registered with cudaHostRegister: PyTorch's pinned allocator
+rounds each block up to a power of two (a 1.71 GB layer would take 2 GiB).
+
+The KV cache stays in HBM in the model's layout (L, B, S_c, KV, dh),
+indexed by real layer id whichever tier holds the layer, so ``retier``
+moves weights only: unlike the JAX package's per-stage grid (where a
+demoted layer's cache rows move with it) no cache row moves. The engine
+state *is* the model's cache dict (``pos``, ``pos_ids``, ``k``, ``v``),
+so engine and model steps run on the same state; the weights belong to
+the engine (``init_state`` loads them once from a layer source).
+"""
+from __future__ import annotations
+
+import math
+import pathlib
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import Family, ModelConfig
+from repro_torch.core.cost_model import ExecutionPlan
+from repro_torch.device import resolve_device
+from repro_torch.models import model as M
+from repro_torch.models.modules import rms_norm, round_up, unembed
+
+
+def UniformPlan(n_stage: int, n_seg: int, k_res: int,
+                k_off: int) -> ExecutionPlan:
+    return ExecutionPlan.uniform(n_stage, n_seg, k_res, k_off)
+
+
+def plan_for(cfg: ModelConfig, n_stage: int, *, hbm_frac_for_weights: float,
+             hbm_bytes: float = 16e9) -> ExecutionPlan:
+    """Pick (n_seg, k_res, k_off) so resident weights fit the per-stage
+    budget hbm_bytes · hbm_frac_for_weights (the JAX package's rule, same
+    plan for the same inputs): everything resident when it fits, else the
+    fewest segments whose chunk keeps at least one resident layer, else a
+    2-segment plan sized by the budget."""
+    budget = hbm_bytes * hbm_frac_for_weights
+    l_bytes = cfg.layer_params() * 2
+    total_per_stage = cfg.n_layers / n_stage * l_bytes
+    if total_per_stage <= budget:
+        return UniformPlan(n_stage, 1, math.ceil(cfg.n_layers / n_stage), 0)
+    res_layers = int(budget // l_bytes) * n_stage
+    off_layers = cfg.n_layers - res_layers
+    for n_seg in range(2, max(3, cfg.n_layers // n_stage + 1)):
+        c = n_seg * n_stage
+        if cfg.n_layers % c:
+            continue
+        k = cfg.n_layers // c
+        k_off = max(math.ceil(off_layers / c), 1)
+        if k_off < k:
+            return UniformPlan(n_stage, n_seg, k - k_off, k_off)
+    c = 2 * n_stage
+    k = math.ceil(cfg.n_layers / c)
+    k_res = max(min(int(budget // l_bytes) // 2, k - 1), 0)
+    return UniformPlan(n_stage, 2, k_res, k - k_res)
+
+
+def weight_budget(cfg: ModelConfig, *, batch: int, max_len: int,
+                  free_bytes: float) -> float:
+    """HBM left for resident layers out of free_bytes: less the KV cache
+    (every layer, batch x S_c slots, bf16), the two one-layer load buffers
+    and the shared weights (embedding, lm_head, final norm)."""
+    kv = 2 * cfg.n_layers * batch * M.kv_cache_len(cfg, max_len) \
+        * cfg.n_kv_heads * cfg.head_dim * 2
+    pv = round_up(cfg.vocab_size, 256)
+    shared = (pv * cfg.d_model * (1 if cfg.tie_embeddings else 2)
+              + cfg.d_model) * 2
+    return free_bytes - kv - 2 * cfg.layer_params() * 2 - shared
+
+
+def plan_layout(plan: ExecutionPlan, headroom: int = 0, k_res_live=None):
+    """Index maps from the flat layer stack into the padded per-stage grid:
+    (res_ids (n_seg, n_stage, k_res_cap), off_ids (n_seg, n_stage,
+    headroom + k_off_cap)) of flat layer ids, or plan.n_layers for a dead
+    slot. Chunk c = s·n_stage + d holds its k_res_d resident layers, then
+    its streamed tail. With k_res_live (per stage, <= k_res_d) the demoted
+    resident slot j moves its layer into headroom slot
+    headroom - (k_res_d - j): demotions fill the headroom right to left,
+    so the streamed tier keeps layer order."""
+    kr, ko = plan.k_res_list, plan.k_off_list
+    n_seg, S = plan.n_seg, plan.n_stage
+    kr_cap = max(kr) if kr else 0
+    ko_cap = headroom + (max(ko) if ko else 0)
+    live = list(kr) if k_res_live is None else [int(x) for x in k_res_live]
+    assert all(0 <= lv <= k and k - lv <= headroom
+               for lv, k in zip(live, kr)), (live, kr, headroom)
+    dead = plan.n_layers
+    res_ids = np.full((n_seg, S, max(kr_cap, 1)), dead, np.int32)
+    off_ids = np.full((n_seg, S, max(ko_cap, 1)), dead, np.int32)
+    flat = 0
+    for c in range(n_seg * S):
+        s, d = c // S, c % S
+        for j in range(kr[d]):
+            if j < live[d]:
+                res_ids[s, d, j] = flat + j
+            else:
+                off_ids[s, d, headroom - (kr[d] - j)] = flat + j
+        for j in range(ko[d]):
+            off_ids[s, d, headroom + j] = flat + kr[d] + j
+        flat += kr[d] + ko[d]
+    return res_ids[:, :, :kr_cap], off_ids[:, :, :ko_cap]
+
+
+def split_layer_stack(stacked: dict, plan: ExecutionPlan, *,
+                      headroom: int = 0, k_res_live=None):
+    """(L, ...) tree -> (resident (n_seg, n_stage, k_res_cap, ...),
+    offloaded (n_seg, n_stage, headroom + k_off_cap, ...)) by plan_layout;
+    dead slots are zero (identity) layers."""
+    res_ids, off_ids = plan_layout(plan, headroom, k_res_live)
+    res_ix = torch.from_numpy(res_ids).long()
+    off_ix = torch.from_numpy(off_ids).long()
+
+    def do(t):
+        if isinstance(t, dict):
+            pairs = {k: do(v) for k, v in t.items()}
+            return ({k: p[0] for k, p in pairs.items()},
+                    {k: p[1] for k, p in pairs.items()})
+        pad = plan.n_layers + 1 - t.shape[0]
+        t = torch.cat([t, t.new_zeros((pad,) + tuple(t.shape[1:]))]) \
+            if pad > 0 else t
+        return t[res_ix], t[off_ix]
+    return do(stacked)
+
+
+def _leaves(specs: dict, prefix=()):
+    for k in sorted(specs):
+        v = specs[k]
+        if isinstance(v, dict):
+            yield from _leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), tuple(v.shape)
+
+
+def _mem_available_bytes() -> Optional[int]:
+    try:
+        for line in pathlib.Path("/proc/meminfo").read_text().splitlines():
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    except OSError:
+        pass
+    return None
+
+
+class PinnedStore:
+    """A bf16 host tensor of `shape`; on a CUDA engine registered with
+    cudaHostRegister (page-locked, so the side stream's H2D copies run
+    asynchronously at the link's rate) and unregistered by close()."""
+
+    def __init__(self, shape: Tuple[int, ...], device: torch.device):
+        need = math.prod(shape) * 2
+        avail = _mem_available_bytes()
+        if device.type == "cuda" and avail is not None and need > avail:
+            raise MemoryError(
+                f"the streamed tier needs {need / 1e9:.2f} GB of pinned host "
+                f"memory; MemAvailable is {avail / 1e9:.2f} GB")
+        self.data = torch.empty(shape, dtype=torch.bfloat16)
+        self.registered = False
+        if device.type == "cuda" and self.data.numel():
+            torch.cuda.check_error(torch.cuda.cudart().cudaHostRegister(
+                self.data.data_ptr(), need, 0))
+            self.registered = True
+
+    @property
+    def nbytes(self) -> int:
+        return self.data.numel() * 2
+
+    def close(self) -> None:
+        if self.registered:
+            torch.cuda.check_error(torch.cuda.cudart().cudaHostUnregister(
+                self.data.data_ptr()))
+            self.registered = False
+        self.data = self.data.new_empty((0,))
+
+
+class _Streamer:
+    """Two one-layer device buffers fed from the pinned store on a side
+    stream. fetch(i, src) fills buffer i once the compute stream has
+    released it; acquire(i) makes the compute stream wait for that copy;
+    release(i) marks the buffer free after the work enqueued so far. On
+    the CPU the copy is immediate and the events are no-ops."""
+
+    def __init__(self, numel: int, device: torch.device):
+        self.bufs = [torch.zeros(numel, dtype=torch.bfloat16, device=device)
+                     for _ in range(2)]
+        self.cuda = device.type == "cuda"
+        if self.cuda:
+            self.stream = torch.cuda.Stream(device)
+            self.done = [torch.cuda.Event() for _ in range(2)]
+            self.free = [torch.cuda.Event() for _ in range(2)]
+
+    def fetch(self, i: int, src: torch.Tensor) -> None:
+        if not self.cuda:
+            self.bufs[i].copy_(src)
+            return
+        with torch.cuda.stream(self.stream):
+            self.stream.wait_event(self.free[i])
+            self.bufs[i].copy_(src, non_blocking=True)
+            self.done[i].record(self.stream)
+
+    def acquire(self, i: int) -> None:
+        if self.cuda:
+            torch.cuda.current_stream().wait_event(self.done[i])
+
+    def release(self, i: int) -> None:
+        if self.cuda:
+            self.free[i].record(torch.cuda.current_stream())
+
+
+class InterleavedEngine:
+    """LIME decode engine on one device (n_stage = 1): resident layers in
+    HBM, streamed layers copied in from pinned host memory per pass."""
+
+    def __init__(self, cfg: ModelConfig, plan: ExecutionPlan, *, mb: int = 1,
+                 max_len: int = 256, retier_headroom: int = 0,
+                 impl: str = "kernel", device=None):
+        if plan.n_stage != 1:
+            raise NotImplementedError(
+                "the port runs one stage; the multi-stage ring waits until a "
+                "run shows more than one card")
+        if cfg.family != Family.DENSE or cfg.parallel_block:
+            raise NotImplementedError(
+                f"the port's engine runs the dense family, not {cfg.family}")
+        self.cfg, self.plan = cfg, plan
+        self.mb = mb
+        self.max_len = max_len
+        self.impl = impl
+        self.device = resolve_device(device)
+        self.k_res_b = plan.k_res_list
+        self.k_off_b = plan.k_off_list
+        self.k_res_cap = max(self.k_res_b)
+        self.H = max(int(retier_headroom), 0)
+        self.k_off_cap = self.H + max(self.k_off_b)
+        self.k_res_live = list(self.k_res_b)
+        self.S_c = M.kv_cache_len(cfg, max_len)
+        self.windows = M.layer_windows(cfg, cfg.n_layers)
+        # flat packing of one layer: every leaf at a 256-byte aligned
+        # offset of one bf16 tensor (one H2D copy per streamed layer)
+        self._slots: List[Tuple[Tuple[str, ...], tuple, int]] = []
+        off = 0
+        for path, shape in _leaves(M._dense_layer_specs(cfg)):
+            self._slots.append((path, shape, off))
+            off += -(-math.prod(shape) // 128) * 128
+        self.layer_numel = off
+        self._loaded_from = None
+        self._res: Dict[int, torch.Tensor] = {}
+        self._res_views: Dict[int, dict] = {}
+        self._store: Optional[PinnedStore] = None
+        self._streamer: Optional[_Streamer] = None
+        self._buf_views: List[dict] = []
+        self._shared: dict = {}
+        self._refresh_tier_inputs()
+
+    # -- tiers -----------------------------------------------------------------
+    def _refresh_tier_inputs(self) -> None:
+        self._res_ids, self._off_ids = plan_layout(self.plan, self.H,
+                                                   self.k_res_live)
+
+    def _real(self, l) -> bool:
+        return int(l) < self.cfg.n_layers
+
+    def _order(self, resident_only: bool) -> List[Tuple[int, Optional[Tuple[int, int]]]]:
+        """Execution order of one pass: (layer id, None) for a resident
+        layer, (layer id, (segment, store slot)) for a streamed one."""
+        order = []
+        for s in range(self.plan.n_seg):
+            order += [(int(l), None) for l in self._res_ids[s, 0]
+                      if self._real(l)]
+            if not resident_only:
+                order += [(int(l), (s, h))
+                          for h, l in enumerate(self._off_ids[s, 0])
+                          if self._real(l)]
+        return order
+
+    def _views(self, flat: torch.Tensor) -> dict:
+        tree: dict = {}
+        for path, shape, off in self._slots:
+            node = tree
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = flat[off:off + math.prod(shape)].view(shape)
+        return tree
+
+    def _pack(self, p: dict, flat: torch.Tensor) -> None:
+        for path, shape, off in self._slots:
+            leaf = p
+            for k in path:
+                leaf = leaf[k]
+            if tuple(leaf.shape) != shape or leaf.dtype != torch.bfloat16:
+                raise ValueError(f"layer leaf {'/'.join(path)}: "
+                                 f"{tuple(leaf.shape)} {leaf.dtype}, want "
+                                 f"{shape} bfloat16")
+            flat[off:off + math.prod(shape)].view(shape).copy_(leaf)
+
+    @property
+    def store(self) -> Optional[PinnedStore]:
+        """The streamed tier's pinned host store (None before loading)."""
+        return self._store
+
+    @property
+    def streamed_store_bytes(self) -> int:
+        return self.plan.n_seg * self.k_off_cap * self.layer_numel * 2
+
+    def _load(self, params: dict) -> None:
+        """Resident layers into HBM, streamed ones into the pinned store,
+        one layer at a time from params' layer source (or its stacked
+        tree): the whole model never sits on the card."""
+        self.close()
+        dev = self.device
+        self._shared = {k: v.to(dev) for k, v in params.items()
+                        if k != "layers"}
+        self._store = PinnedStore((self.plan.n_seg, self.k_off_cap,
+                                   self.layer_numel), dev)
+        self._streamer = _Streamer(self.layer_numel, dev)
+        self._buf_views = [self._views(b) for b in self._streamer.bufs]
+        staging = self._streamer.bufs[0]
+        for l in range(self.cfg.n_layers):
+            p = M.layer_params(params, l)
+            if (self._res_ids[:, 0] == l).any():
+                flat = torch.zeros(self.layer_numel, dtype=torch.bfloat16,
+                                   device=dev)
+                self._pack(p, flat)
+                self._res[l] = flat
+                self._res_views[l] = self._views(flat)
+            else:
+                s, h = np.argwhere(self._off_ids[:, 0] == l)[0]
+                self._pack(p, staging)
+                self._store.data[s, h].copy_(staging)
+            del p
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        self._loaded_from = params
+
+    def close(self) -> None:
+        """Free the tiers (the pinned store is unregistered first)."""
+        if self._store is not None:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self._store.close()
+        self._store = self._streamer = None
+        self._res, self._res_views, self._shared = {}, {}, {}
+        self._buf_views = []
+        self._loaded_from = None
+
+    # -- state -----------------------------------------------------------------
+    def init_state(self, params: dict) -> dict:
+        """Load the weights from params (shared leaves plus "layers", a
+        stacked tree or a layer source, see M.init_params_by_layer) unless
+        this params object is already loaded, and return a fresh state:
+        an empty KV cache for mb sequences at pos 0."""
+        if self._loaded_from is not params:
+            self._load(params)
+        return M.init_cache(self.cfg, self.mb, self.max_len,
+                            device=self.device)
+
+    # -- passes ----------------------------------------------------------------
+    def _pass(self, state: dict, tokens: torch.Tensor, *, multi: bool,
+              resident_only: bool = False):
+        if self._loaded_from is None:
+            raise RuntimeError("init_state(params) loads the weights first")
+        cfg = self.cfg
+        pos = state["pos"]
+        x = M.embed(self._shared, tokens).to(torch.bfloat16)
+        slot = M.new_positions(state, tokens.shape[1])
+        order = self._order(resident_only)
+        streamed = [where for _, where in order if where is not None]
+        st, store = self._streamer, self._store.data
+        if streamed:
+            st.fetch(0, store[streamed[0]])
+        i = 0
+        for l, where in order:
+            if where is None:
+                x = M.decode_layer(cfg, self._res_views[l], x, state, l, slot,
+                                   self.windows[l], impl=self.impl,
+                                   multi=multi)
+                continue
+            if i + 1 < len(streamed):       # interleave: next copy first
+                st.fetch((i + 1) % 2, store[streamed[i + 1]])
+            b = i % 2
+            st.acquire(b)
+            x = M.decode_layer(cfg, self._buf_views[b], x, state, l, slot,
+                               self.windows[l], impl=self.impl, multi=multi)
+            st.release(b)
+            i += 1
+        state["pos"] = pos + tokens.shape[1]
+        x = rms_norm(x, self._shared["final_norm"], cfg.norm_eps)
+        return unembed(self._shared, x)
+
+    def decode_step(self, state: dict, tokens: torch.Tensor):
+        """tokens: (mb, 1) -> (logits (mb, PV), state), pos advanced by 1."""
+        return self._pass(state, tokens, multi=False)[:, 0], state
+
+    @staticmethod
+    def _masked(tokens, active):
+        active = torch.as_tensor(active, dtype=torch.bool,
+                                 device=tokens.device)
+        return torch.where(active[:, None], tokens, torch.zeros_like(tokens))
+
+    def decode_requests(self, state, tokens, active):
+        """decode_step where only the `active` slots are live: inactive
+        slots ride as padding with zeroed tokens; their logits are to be
+        ignored."""
+        return self.decode_step(state, self._masked(tokens, active))
+
+    def verify_step(self, state: dict, tokens: torch.Tensor):
+        """Score q_len positions per slot in one pass (one weight stream).
+        tokens: (mb, q_len), column 0 the last committed token, the rest
+        drafted. Returns (logits (mb, q_len, PV), state) with pos advanced
+        by q_len and all q_len K/V written; rollback() commits a prefix."""
+        q_len = tokens.shape[1]
+        if not 1 <= q_len < max(self.S_c, 2):
+            raise ValueError(f"q_len {q_len} must be in [1, {self.S_c})")
+        return self._pass(state, tokens, multi=True), state
+
+    def verify_requests(self, state, tokens, active):
+        return self.verify_step(state, self._masked(tokens, active))
+
+    def draft_step(self, state: dict, tokens: torch.Tensor):
+        """One decode step through only the live resident tier (nothing
+        streamed), the final norm and lm_head as the early-exit draft
+        head. tokens: (mb, 1) -> (logits (mb, PV), state), pos advanced by
+        1. Its K/V land in resident layers only; after rollback the verify
+        pass overwrites every layer's rows at the drafted positions before
+        reading them, so drafting leaks nothing into the verified stream."""
+        if self.k_res_cap == 0:
+            raise ValueError("resident self-draft needs a resident tier "
+                             "(this plan streams every layer)")
+        return self._pass(state, tokens, multi=False,
+                          resident_only=True)[:, 0], state
+
+    def draft_requests(self, state, tokens, active):
+        return self.draft_step(state, self._masked(tokens, active))
+
+    def prefill_partial(self, state: dict, tokens: torch.Tensor, *,
+                        chunk: int = 0):
+        """Prefill (mb, T) prompt positions from the state's pos through
+        the engine itself: ceil(T / chunk) verify rounds, each one pass
+        (one weight stream) over `chunk` positions. Returns (the last
+        round's logits (mb, q, PV), state) with pos advanced by T."""
+        T = int(tokens.shape[1])
+        chunk = T if chunk <= 0 else min(chunk, T)
+        logits = None
+        for off in range(0, T, chunk):
+            logits, state = self.verify_step(state,
+                                             tokens[:, off:off + chunk])
+        return logits, state
+
+    def rollback(self, state: dict, pos: int) -> dict:
+        """Reset the decode position to `pos` (commit an accepted prefix of
+        a verify round): rejected positions' entries hold pos_ids > pos,
+        invisible to attention until decoding overwrites them."""
+        state["pos"] = int(pos)
+        return state
+
+    def note_committed(self, pos: int, active) -> None:
+        """Paged bookkeeping after a spec round; the port's engine keeps a
+        dense per-slot cache (paged KV is a later slice)."""
+
+    # -- online memory adaptation ----------------------------------------------
+    def demoted(self, stage: int) -> int:
+        return self.k_res_b[stage] - self.k_res_live[stage]
+
+    def demote_capacity(self, stage: int) -> int:
+        return min(self.k_res_b[stage], self.H) - self.demoted(stage)
+
+    def slot_hbm_bytes(self) -> float:
+        """HBM one demoted resident slot returns (Eq. 7's (#Seg - 1)
+        factor: the slot holds one layer per segment, and the streamed
+        tier keeps a one-layer load buffer)."""
+        return max(self.plan.n_seg - 1, 1) * self.cfg.layer_params() * 2.0
+
+    def resident_layer_ids(self) -> List[int]:
+        ids = np.unique(self._res_ids[self._res_ids < self.cfg.n_layers])
+        return [int(i) for i in ids]
+
+    def resident_fraction(self) -> float:
+        return len(self.resident_layer_ids()) / max(self.cfg.n_layers, 1)
+
+    def retier_stats(self) -> Dict[str, list]:
+        return {"k_res_build": list(self.k_res_b),
+                "k_res_live": list(self.k_res_live),
+                "demoted": [self.demoted(d) for d in range(self.plan.n_stage)]}
+
+    def retier(self, state, stage: int, delta: int):
+        """Move `delta` resident slots of `stage` across the tier boundary
+        (positive: demote resident -> streamed, negative: promote back),
+        between steps of a live serve. A demoted slot's layer (one per
+        segment) is copied into its headroom slot of the pinned store and
+        its HBM released; a promotion copies it back. The KV cache does not
+        move (it is indexed by layer id), so the next pass reads the same
+        rows. Returns (state, freed_bytes), freed_bytes < 0 on promotion.
+        Before init_state loads weights only the counters move."""
+        if delta == 0:
+            return state, 0.0
+        if stage != 0:
+            raise ValueError("the port's engine has one stage (0)")
+        assert self.H > 0 or delta < 0, \
+            "retier needs retier_headroom > 0 at engine build"
+        loaded = self._loaded_from is not None
+        if loaded and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        kr_b = self.k_res_b[stage]
+        freed, moves = 0.0, 0
+        for _ in range(abs(delta)):
+            if delta > 0:
+                if self.k_res_live[stage] <= 0 or self.demote_capacity(stage) <= 0:
+                    break
+                j = self.k_res_live[stage] - 1
+                h = self.H - (kr_b - j)
+                for s in range(self.plan.n_seg):
+                    l = int(self._res_ids[s, stage, j])
+                    if loaded and self._real(l):
+                        self._store.data[s, h].copy_(self._res.pop(l))
+                        del self._res_views[l]
+                self.k_res_live[stage] = j
+                freed += self.slot_hbm_bytes()
+            else:
+                if self.k_res_live[stage] >= kr_b:
+                    break
+                j = self.k_res_live[stage]
+                h = self.H - (kr_b - j)
+                for s in range(self.plan.n_seg):
+                    l = int(self._off_ids[s, stage, h])
+                    if loaded and self._real(l):
+                        flat = self._store.data[s, h].to(self.device)
+                        self._res[l] = flat
+                        self._res_views[l] = self._views(flat)
+                self.k_res_live[stage] = j + 1
+                freed -= self.slot_hbm_bytes()
+            moves += 1
+            self._refresh_tier_inputs()
+        if loaded and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return state, (freed if moves else 0.0)

@@ -41,41 +41,6 @@ constexpr int FA_BM = 64;
 constexpr int FA_BN = 64;
 constexpr int FA_THREADS = 128;
 
-__device__ __forceinline__ void mma_bf16_16816(float (&c)[4], const uint32_t (&a)[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&t);
-}
-
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Load 8 consecutive elements of row `r` (of n_rows) starting at column d0,
-// zero past the row count or past dh.
-__device__ __forceinline__ void load8(__nv_bfloat16 (&t)[8], const __nv_bfloat16* src,
-                                      size_t stride, int r, int n_rows, int d0, int dh,
-                                      bool vec) {
-  if (r < n_rows && vec && d0 + 8 <= dh) {
-    *reinterpret_cast<uint4*>(t) =
-        *reinterpret_cast<const uint4*>(src + (size_t)r * stride + d0);
-  } else {
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const int d = d0 + e;
-      t[e] = (r < n_rows && d < dh) ? src[(size_t)r * stride + d] : __float2bfloat16(0.f);
-    }
-  }
-}
-
 template <int DHP>
 __global__ void __launch_bounds__(FA_THREADS) flash_mma_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,

@@ -33,6 +33,8 @@ SIGNATURES = {
                                I, I, I, P],
     "repro_flash_attention": [P, P, P, P, I, I, I, I, I, I, I, I, I, F, I,
                               I, P],
+    "repro_mq_decode_attention": [P, P, P, P, P, P, P, I, I, I, I, I, I, I,
+                                  I, F, I, I, I, P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,7 +1,8 @@
 """GQA attention, dense subset (counterpart of ``repro.models.attention``).
 
-Projections, rope and the two attention paths of the model: the chunked
-reference used for prefill and the cached one-token decode. ``impl``
+Projections, rope and the attention paths of the model: the chunked
+reference used for prefill, the cached one-token decode, and the cached
+multi-query decode of verification and chunked prefill. ``impl``
 selects "ref" (the reference's own jnp-style math, here in PyTorch) or
 "kernel" (the hand-written CUDA kernels; on CPU tensors their plain
 versions). Layouts are the JAX package's: q (B, S, H, dh), cache
@@ -11,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.decode_attention import multiquery as mq_ops
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models.modules import apply_rope
@@ -118,4 +120,33 @@ def attn_decode(params, x, cache_k, cache_v, pos_ids, pos: int, slot: int, *,
     else:
         out = da_ops.decode_attention_plain(q, cache_k, cache_v, pos_ids, pos,
                                             window=window)
+    return _out_proj(out, params["wo"])
+
+
+def attn_decode_multi(params, x, cache_k, cache_v, pos_ids, pos: int,
+                      slot: int, *, rope_theta, window=None,
+                      impl: str = "ref"):
+    """q_len-token decode (speculative verification, chunked prefill).
+    x: (B, q_len, D), query i at position pos + i. The q_len new K/V are
+    written IN PLACE at slots slot .. slot + q_len - 1 before attention
+    reads them (contiguous: callers keep the window off the ring's end);
+    pos_ids already holds pos + i at slot + i. The queries see each other
+    through the cache, and causality between them is the per-query
+    validity pos_ids <= pos + i: the arithmetic of q_len sequential
+    attn_decode steps."""
+    B, Q, _ = x.shape
+    q = _proj(x, params["wq"])
+    k = _proj(x, params["wk"])
+    v = _proj(x, params["wv"])
+    posb = pos + torch.arange(Q, device=x.device)[None, :].expand(B, Q)
+    q = apply_rope(q, posb, rope_theta)
+    k = apply_rope(k, posb, rope_theta)
+    cache_k[:, slot:slot + Q] = k
+    cache_v[:, slot:slot + Q] = v
+    if impl == "kernel":
+        out = mq_ops.mq_decode_attention(q, cache_k, cache_v, pos_ids, pos,
+                                         window=window)
+    else:
+        out = mq_ops.mq_decode_attention_plain(q, cache_k, cache_v, pos_ids,
+                                               pos, window=window)
     return _out_proj(out, params["wo"])

@@ -13,10 +13,11 @@ The port's copy keeps the reserve policy, whole:
               epoch backends (the model's cache fixes batch membership at
               prefill) drain a batch, then form the next.
 
+Speculative backends emit a list of committed tokens per round; the
+backend's spec and retier counters join the stats at the end of a run.
 What the JAX scheduler also carries comes back with the slice that needs
-it: the paged KV policy with preemption and the prefix-cache and chunked
-prefill hooks with the paged-KV slice, retier reclaim with the
-interleaved-engine slice, tracer calls, SLO feeds and bounded-memory
+it: the paged KV policy with preemption, the prefix-cache and chunked
+prefill hooks and retier reclaim with the paged-KV slice, tracer calls, SLO feeds and bounded-memory
 histograms (`hist_capacity`) with the observability slice, and the
 fleet's live load signals with the fleet slice.
 
@@ -233,11 +234,17 @@ class ContinuousBatchingScheduler:
             self.metrics.set_gauge("peak_active", len(batch))
             return True
 
-        # one decode step for every live slot
+        # one decode round for every live slot; speculative backends emit
+        # several committed tokens per round, and tokens past max_new are
+        # dropped (the backend over-decodes padding, never user output)
         emitted = self.backend.decode_active(sorted(active))
         t = self.backend.now()
-        for slot, tok in emitted.items():
-            if slot in active:
+        for slot, toks in emitted.items():
+            if not isinstance(toks, (list, tuple)):
+                toks = [toks]
+            for tok in toks:
+                if slot not in active:
+                    break
                 self._emit(active[slot], slot, tok, t)
 
         # continuous batching: refill freed slots mid-flight
@@ -264,4 +271,8 @@ class ContinuousBatchingScheduler:
         return self.finish_run()
 
     def finish_run(self) -> List[Request]:
+        for name in ("spec_stats", "adapt_stats"):
+            stats = getattr(self.backend, name, None)
+            if stats:             # drafted/accepted, retier counters
+                self.metrics.update(stats)
         return self._done + self._shed

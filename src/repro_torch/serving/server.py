@@ -9,7 +9,9 @@ continuous-batching scheduler behind one call:
     finished = srv.serve_all()
 
 The paper's request patterns map to slot counts: sporadic serves one
-request at a time, bursty fills 4 batch slots.
+request at a time, bursty fills the batch (4 slots, or the engine's batch
+width). With an InterleavedEngine the backend prefills and decodes through
+it, and a SpecConfig turns on resident self-speculation.
 """
 from __future__ import annotations
 
@@ -50,34 +52,44 @@ class RequestQueue:
 
 
 class LimeServer:
-    """Pattern-aware serving over the single-device decode path. Runs on
-    the card unless ``device='cpu'``; ``impl`` picks the hand-written
-    kernels ("kernel", the default) or the reference math ("ref")."""
+    """Pattern-aware serving over an InterleavedEngine, or the
+    single-device decode path when engine is None. Runs on the card unless
+    ``device='cpu'``; ``impl`` picks the hand-written kernels ("kernel",
+    the default) or the reference math ("ref") of the single-device path
+    (an engine carries its own)."""
 
-    def __init__(self, cfg: ModelConfig, params, *, max_len: int = 512,
-                 sampler: SamplerConfig = SamplerConfig(),
-                 pattern: str = "sporadic", impl: str = "kernel",
-                 device=None):
+    def __init__(self, cfg: ModelConfig, params, *, engine=None,
+                 max_len: int = 512, sampler: SamplerConfig = SamplerConfig(),
+                 pattern: str = "sporadic", impl: str = "kernel", spec=None,
+                 prefill_chunk_tokens: int = 0, device=None):
         self.cfg = cfg
         self.params = params
+        self.engine = engine
         self.max_len = max_len
         self.sampler = sampler
         self.pattern = pattern
         self.impl = impl
-        self.device = resolve_device(device)
+        self.spec = spec
+        self.prefill_chunk_tokens = prefill_chunk_tokens
+        self.device = engine.device if engine is not None \
+            else resolve_device(device)
         self.queue = RequestQueue()
         self._backend: Optional[EngineBackend] = None
 
     @property
     def slots(self) -> int:
-        return 1 if self.pattern == "sporadic" else 4
+        if self.pattern == "sporadic":
+            return 1
+        return 4 if self.engine is None else self.engine.mb
 
     def make_backend(self) -> EngineBackend:
         # cached so the backend's clock keeps running across serve_all()
         if self._backend is None:
             self._backend = EngineBackend(
-                self.cfg, self.params, n_slots=self.slots,
-                max_len=self.max_len, sampler=self.sampler, impl=self.impl,
+                self.cfg, self.params, engine=self.engine,
+                n_slots=self.slots, max_len=self.max_len,
+                sampler=self.sampler, impl=self.impl, spec=self.spec,
+                prefill_chunk_tokens=self.prefill_chunk_tokens,
                 device=self.device)
         return self._backend
 

@@ -35,6 +35,22 @@ DECODE_CASES = [
     (3, 96, 6, 2, 32, 10, None, False),     # mostly-empty cache
 ]
 
+MQ_CASES = [
+    # B, q_len, S_c, H, KV, dh, pos, window, cache kind: "linear" (slots
+    # up to pos + q_len - 1 filled), "ring" (a ring buffer after position
+    # pos + q_len - 1), "stale" (slots past the window hold positions of a
+    # rejected round, pos_ids > every query's), "masked" (every slot after
+    # every query: all rows see nothing), "first-masked" (row 0 sees
+    # nothing, later rows see the slots they reach)
+    (2, 3, 24, 4, 2, 16, 11, None, "linear"),
+    (2, 5, 64, 8, 2, 64, 40, None, "stale"),
+    (1, 4, 64, 4, 1, 80, 30, 16, "linear"),          # dh 80, window
+    (2, 4, 64, 4, 2, 64, 200, 48, "ring"),
+    (1, 9, 96, 16, 2, 128, 60, None, "stale"),       # q_len 9, G 8
+    (1, 3, 32, 4, 2, 32, 5, None, "masked"),
+    (1, 3, 32, 4, 2, 32, 5, None, "first-masked"),
+]
+
 NP_DT = {"bf16": ml_dtypes.bfloat16, "f32": np.float32}
 TORCH_DT = {"bf16": torch.bfloat16, "f32": torch.float32}
 
@@ -68,6 +84,30 @@ def decode_ids(S_c, pos, ring):
     else:
         ids = np.where(ar <= pos, ar, -1)
     return ids.astype(np.int32)
+
+
+def mq_ids(S_c, pos, Q, kind):
+    """pos_ids of a cache holding the q_len new positions pos .. pos+Q-1."""
+    ar = np.arange(S_c)
+    last = pos + Q - 1
+    if kind == "ring":
+        return decode_ids(S_c, last, True)
+    if kind == "stale":
+        ids = np.where(ar <= last + 6, ar, -1)
+    elif kind == "masked":
+        ids = ar + pos + Q
+    elif kind == "first-masked":
+        ids = np.where(ar < Q - 1, pos + 1 + ar, -1)
+    else:
+        ids = np.where(ar <= last, ar, -1)
+    return ids.astype(np.int32)
+
+
+def mq_inputs(case, seed=0):
+    B, Q, S_c, H, KV, dh, pos, window, kind = case
+    rng = np.random.default_rng(seed)
+    return (np_rand(rng, (B, Q, H, dh), "bf16"), np_rand(rng, (B, S_c, KV, dh), "bf16"),
+            np_rand(rng, (B, S_c, KV, dh), "bf16"), mq_ids(S_c, pos, Q, kind))
 
 
 def flash_inputs(case, seed=0):

@@ -36,8 +36,8 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
 
 def test_port_has_sources_for_both_kernels():
     csrc = ROOT / "src" / "repro_torch" / "csrc"
-    assert {"decode_attention.cu", "flash_attention.cu"} \
-        <= {p.name for p in csrc.glob("*.cu")}
+    assert {"decode_attention.cu", "flash_attention.cu",
+            "mq_decode_attention.cu"} <= {p.name for p in csrc.glob("*.cu")}
 
 
 @pytest.fixture
@@ -50,6 +50,7 @@ def test_entry_points_raise_without_a_card(no_cuda):
     from repro_torch.convert import params_from_numpy
     from repro_torch.device import resolve_device
     from repro_torch.models import model as M
+    from repro_torch.core.engine import InterleavedEngine, UniformPlan
     from repro_torch.serving import EngineBackend, LimeServer
 
     cfg = get_smoke_config("gemma3-1b")
@@ -61,6 +62,8 @@ def test_entry_points_raise_without_a_card(no_cuda):
                  lambda: M.init_cache(cfg, 1, 8),
                  lambda: LimeServer(cfg, params),
                  lambda: EngineBackend(cfg, params),
+                 lambda: M.init_params_by_layer(cfg),
+                 lambda: InterleavedEngine(cfg, UniformPlan(1, 2, 0, 1)),
                  lambda: params_from_numpy({"w": np.zeros(2, np.float32)})):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
