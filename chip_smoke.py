@@ -15,7 +15,12 @@ Phases; any failure exits non-zero without the final ``ok`` line:
    at the main path's shapes the kernel's median device time (CUDA
    events, L2 flushed and host enqueue hidden before each call), its
    bound, the plain version's time and one PyTorch library call's time as
-   a yardstick.
+   a yardstick. The paged kernels (3: decode, 5: multi-query) run at phase
+   2b's shapes (page 64, 16 pages, ctx 1019; q_len 128 and 5) with
+   shuffled non-contiguous block tables, ragged ctx, windows and dh 80 /
+   page 16, reject planted faults (page index +-1, ctx - 1, row // G off
+   by one, window - 1), and equal kernels 1 and 4 bit for bit on the
+   gathered cache.
 2. the single-device path: LLaMA-3.3-70B at full width, depth cut to 8
    of 80 layers, random weights from a seed, served through LimeServer ->
    ContinuousBatchingScheduler -> EngineBackend under bursty and sporadic
@@ -26,6 +31,19 @@ Phases; any failure exits non-zero without the final ``ok`` line:
    reference's (or a near tie) with its logits within the limit; a
    profiler breakdown of one bursty serve gives device time by kernel
    class and the device's idle share.
+2b. paged KV and the radix prefix cache on phase 2's weights, through
+   LimeServer(prefix_cache=True, prefill_chunk_tokens=128, page_size=64):
+   two epochs of 4 shared-prefix requests (one template, 384 of 512 prompt
+   tokens) and one epoch of unequal lengths. Every step launches exactly
+   what it implies (8 paged multi-query kernels per prefill round of the
+   uncached suffix, 8 paged decode kernels per decode step, 8 flash for the
+   unequal epoch's dense prefill, nothing of kernels 1 and 4), the warm
+   epoch saves 4 x 384 prompt tokens, the block table is uploaded only
+   when a table changed, warm tokens equal a cold serve's (or differ at a
+   near tie), and decode on a paged cache seeded from the dense prefill is
+   bit-equal to the contiguous decode_step (kernel 1) at every step.
+   Printed: pool pages and bytes, peak HBM, cold vs warm prefill time, the
+   paged kernels' µs per call in a profiled serve.
 3a. the interleaved engine against the model on phase 2's weights, in a
    plan forced to stream (2 chunks of 2 resident + 2 streamed layers):
    decode and verify logits bit-equal to the model's kernel path, the
@@ -299,6 +317,7 @@ def kernel_phase():
                 bytes=byts, flops=flops, bytes_bound_ms=byts / HBM_BYTES_PER_S * 1e3,
                 ops_bound_ms=flops / BF16_TENSOR_FLOPS * 1e3)
     mq_phase(gen, rows)
+    paged_phase(gen, rows)
     for name, r in rows.items():
         bound = max(r["bytes_bound_ms"], r["ops_bound_ms"])
         r["bound_ms"] = bound
@@ -410,6 +429,162 @@ def mq_phase(gen, rows):
     b = da.decode_attention(q, k, v, ids, pos)
     torch.cuda.synchronize()
     check("q_len 1 against the decode kernel", a, b, BF16_REL)
+
+
+# ----------------------------------------------------------------------------
+# phase 1: the paged kernels (3: paged decode, 5: paged multi-query)
+# ----------------------------------------------------------------------------
+PAGE, MAX_PAGES = 64, 16          # phase 2b's pool geometry: max_len 1024
+
+
+def shuffled_tables(ctx, ps, max_pages, gen):
+    """(block_tables (B, max_pages) int32 on the card, pool pages): each
+    sequence's pages drawn from a shuffled pool (non-contiguous), -1 past
+    the pages its ctx needs."""
+    import torch
+    need = [-(-c // ps) for c in ctx]
+    P = sum(need) + 8
+    perm = torch.randperm(P, generator=gen, device="cuda").cpu()
+    bt = torch.full((len(ctx), max_pages), -1, dtype=torch.int32)
+    i = 0
+    for b, n in enumerate(need):
+        bt[b, :n] = perm[i:i + n].to(torch.int32)
+        i += n
+    return bt.cuda(), P
+
+
+def gathered(pool, bt, ctx):
+    """Each sequence's pages laid out contiguously, and the pos_ids of one
+    sequence at ctx (slot t holds position t below ctx)."""
+    import torch
+    from repro_torch.kernels.decode_attention import paged as pg
+    S = bt.shape[1] * pool.shape[1]
+    ar = torch.arange(S, device="cuda", dtype=torch.int32)
+    return (pg.gather_pages(pool, bt).contiguous(),
+            torch.where(ar < ctx, ar, torch.full_like(ar, -1)))
+
+
+def paged_bitwise(name, q, k, v, bt, ctx, window, Q):
+    """The paged kernel against the contiguous one (kernel 1 at q_len 1,
+    kernel 4 otherwise) on the gathered cache, bit for bit: per sequence
+    (B = 1 calls, so any ctx), and as one batch when ctx is uniform."""
+    import torch
+    from repro_torch.kernels.decode_attention import multiquery as mq
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.decode_attention import paged as pg
+
+    def both(qb, btb, ctxb):
+        c = int(ctxb[0])
+        kc, ids = gathered(k, btb, c)
+        vc, _ = gathered(v, btb, c)
+        if Q == 1:
+            return (pg.paged_decode_attention(qb, k, v, btb, ctxb, window=window),
+                    da.decode_attention(qb, kc, vc, ids, c - 1, window=window))
+        return (mq.mq_paged_decode_attention(qb, k, v, btb, ctxb, window=window),
+                mq.mq_decode_attention(qb, kc, vc, ids, c - Q, window=window))
+    pairs = [both(q[b:b + 1], bt[b:b + 1], ctx[b:b + 1]) for b in range(q.shape[0])]
+    if bool((ctx == ctx[0]).all()):
+        pairs.append(both(q, bt, ctx))
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in pairs)
+    log(f"    bit-equal to kernel {1 if Q == 1 else 4} on the gathered cache "
+        f"({len(pairs)} calls): {same}")
+    if not same:
+        raise AssertionError(f"{name}: the paged kernel differs from the "
+                             "contiguous one on the gathered cache")
+
+
+def paged_phase(gen, rows):
+    """Kernels 3 and 5 against their plain versions at the main path's
+    shapes (B 4, page 64, max_pages 16, H 64, KV 8, dh 128, ctx 1019; q_len
+    128 and 5 for kernel 5) with shuffled non-contiguous tables, and at
+    ragged-ctx, window and dh 80 / page 16 cases; planted faults in the
+    plain version; bit-equality against kernels 1 and 4 on the gathered
+    cache; device times at the main shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import multiquery as mq
+    from repro_torch.kernels.decode_attention import paged as pg
+
+    bf16 = torch.bfloat16
+    main = (1019,) * 4
+    ragged = (1019, 700, 300, 130)
+    # name, q_len, H, KV, dh, ps, max_pages, ctx, window, planted faults
+    # (label, changes to the plain version's arguments: "page" shifts every
+    # allocated page id by +-1, "ctx" adds to every ctx, "window")
+    cases = [
+        ("paged decode main B4 ps64 P16 H64 KV8 dh128 ctx1019", 1, 64, 8, 128, PAGE,
+         MAX_PAGES, main, None, [("page index + 1", dict(page=1)),
+                                 ("page index - 1", dict(page=-1)),
+                                 ("ctx - 1", dict(ctx=-1))]),
+        ("paged decode ragged ctx", 1, 64, 8, 128, PAGE, MAX_PAGES, ragged, None,
+         [("ctx - 1", dict(ctx=-1))]),
+        ("paged decode window 700", 1, 64, 8, 128, PAGE, MAX_PAGES, main, 700,
+         [("window - 1", dict(window=699))]),
+        ("paged decode dh80 ps16", 1, 16, 2, 80, 16, 64, (1000, 517), 300,
+         [("page index + 1", dict(page=1))]),
+        ("mq paged prefill round q128 ctx1019", 128, 64, 8, 128, PAGE, MAX_PAGES, main,
+         None, [("page index + 1", dict(page=1)), ("ctx - 1", dict(ctx=-1)),
+                ("row // G off by one", dict(ctx=1))]),
+        ("mq paged verify q5 ctx1019", 5, 64, 8, 128, PAGE, MAX_PAGES, main, None,
+         [("page index - 1", dict(page=-1)), ("ctx - 1", dict(ctx=-1)),
+          ("row // G off by one", dict(ctx=1))]),
+        ("mq paged q128 ragged ctx", 128, 64, 8, 128, PAGE, MAX_PAGES, ragged, None,
+         [("ctx - 1", dict(ctx=-1))]),
+        ("mq paged q5 window 700", 5, 64, 8, 128, PAGE, MAX_PAGES, main, 700,
+         [("window - 1", dict(window=699))]),
+        ("mq paged q9 dh80 ps16", 9, 16, 2, 80, 16, 64, (1000, 517), 300,
+         [("page index + 1", dict(page=1))]),
+    ]
+    for name, Q, H, KV, dh, ps, maxp, ctx_t, window, planted in cases:
+        log(f"phase 1: {name}")
+        bt, P = shuffled_tables(ctx_t, ps, maxp, gen)
+        B = len(ctx_t)
+        ctx = torch.tensor(ctx_t, dtype=torch.int32, device="cuda")
+        q = randn((B, Q, H, dh), bf16, gen)
+        k = randn((P, ps, KV, dh), bf16, gen)
+        v = randn((P, ps, KV, dh), bf16, gen)
+        kern = pg.paged_decode_attention if Q == 1 else mq.mq_paged_decode_attention
+        plain = pg.paged_decode_attention_plain if Q == 1 \
+            else mq.mq_paged_decode_attention_plain
+        out = kern(q, k, v, bt, ctx, window=window)
+        torch.cuda.synchronize()
+        ref = plain(q, k, v, bt, ctx, window=window)
+        faults = []
+        for label, kw in planted:
+            bad_bt = torch.where(bt >= 0, (bt + kw.get("page", 0)) % P, bt)
+            faults.append((label, plain(q, k, v, bad_bt, ctx + kw.get("ctx", 0),
+                                        window=kw.get("window", window))))
+        err = check(name, out, ref, BF16_REL, faults)
+        paged_bitwise(name, q, k, v, bt, ctx, window, Q)
+        if not name.endswith("ctx1019"):
+            continue
+        # device times at the main shapes; the library yardstick is SDPA on
+        # the gathered cache (the gather itself not counted)
+        kc, _ = gathered(k, bt, ctx_t[0])
+        vc, _ = gathered(v, bt, ctx_t[0])
+        S = maxp * ps
+        qpos = ctx[:, None] - Q + torch.arange(Q, device="cuda")[None, :]   # (B, Q)
+        vis = torch.arange(S, device="cuda")[None, None, :] <= qpos[:, :, None]
+        ms = time_ms(lambda: kern(q, k, v, bt, ctx))
+        plain_ms = time_ms(lambda: plain(q, k, v, bt, ctx), reps=10)
+        lib = library_time_ms(lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2),
+            attn_mask=vis[:, None], enable_gqa=True))
+        n_read = int(vis.any(1).sum())                  # (b, slot) some row sees
+        pairs = int(vis.sum())                          # visible (b, qi, slot)
+        byts = 2 * n_read * KV * dh * k.element_size() \
+            + nbytes(q, bt, ctx) + nbytes(q)            # K, V rows; q, tables; out
+        flops = 2 * 2 * pairs * H * dh
+        key = "paged_decode_attention" if Q == 1 else (
+            "mq_paged_decode_attention" if Q == 128 else "mq_paged_decode_attention@verify")
+        rows[key] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib,
+            bytes=byts, flops=flops, bytes_bound_ms=byts / HBM_BYTES_PER_S * 1e3,
+            ops_bound_ms=flops / (FP32_SIMT_FLOPS if Q == 1 else BF16_TENSOR_FLOPS) * 1e3)
+        log(f"    sdpa yardstick on the cache gathered beforehand (gather not "
+            f"counted): {lib} ms")
 
 
 # ----------------------------------------------------------------------------
@@ -639,6 +814,335 @@ def breakdown(cfg, params, card):
         f"{wall_us / 1e3:.2f} ms wall, idle share {1 - busy / wall_us:.1%} "
         f"[{card}; {cfg.n_layers} of 80 layers]")
 
+
+# ----------------------------------------------------------------------------
+# phase 2b: paged KV and the radix prefix cache, 8 layers
+# ----------------------------------------------------------------------------
+PREFIX_PROMPT, PREFIX_LEN, PREFIX_NEW, PREFIX_CHUNK = 512, 384, 16, 128
+UNEQUAL_LENS = (512, 480, 400, 300)
+
+
+def prefix_requests(cfg):
+    """Two epochs of 4 shared-prefix requests (one template: 384 of 512
+    prompt tokens, 16 new tokens each), all arriving at t = 0 so each epoch
+    fills the 4 slots, then one epoch of unequal prompt lengths."""
+    import numpy as np
+    from repro_torch.serving import (Request, make_arrivals,
+                                     requests_from_arrivals)
+    arr = make_arrivals("shared_prefix", 8, n_templates=1, prefix_len=PREFIX_LEN,
+                        prompt_len=PREFIX_PROMPT, max_new_tokens=PREFIX_NEW,
+                        seed=0)
+    arr = [dataclasses.replace(a, time_s=0.0) for a in arr]
+    reqs = requests_from_arrivals(arr, vocab_size=cfg.vocab_size, seed=0)
+    rng = np.random.default_rng(11)
+    reqs += [Request(8 + i, rng.integers(1, cfg.vocab_size, n).astype(np.int32),
+                     PREFIX_NEW) for i, n in enumerate(UNEQUAL_LENS)]
+    return reqs
+
+
+def prefix_server(cfg, params):
+    from repro_torch.serving import LimeServer
+    return LimeServer(cfg, params, max_len=MAX_LEN, pattern="bursty",
+                      prefix_cache=True, prefill_chunk_tokens=PREFIX_CHUNK,
+                      page_size=PAGE)
+
+
+def kernel_counters():
+    from repro_torch.kernels.decode_attention import multiquery as mq
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.decode_attention import paged as pg
+    from repro_torch.kernels.flash_attention import ops as fa
+    return {"decode_attention": (da, "launches"), "flash_attention": (fa, "launches"),
+            "mq_decode_attention": (mq, "launches"),
+            "paged_decode_attention": (pg, "launches"),
+            "mq_paged_decode_attention": (mq, "paged_launches")}
+
+
+def read_counts():
+    return {k: getattr(m, a) for k, (m, a) in kernel_counters().items()}
+
+
+def zero_counts():
+    for m, a in kernel_counters().values():
+        setattr(m, a, 0)
+
+
+def drive_prefix(srv, reqs, n_layers):
+    """Serve reqs one scheduler step at a time. Each step launches exactly
+    what it implies: an equal-length epoch's prefill n_layers paged
+    multi-query kernels per 128-position round (the uncached suffix only),
+    an unequal one n_layers flash kernels (dense prefill, scattered into
+    pages), a decode step n_layers paged decode kernels, and nothing of the
+    contiguous kernels. The device block table is uploaded only when a
+    table changed. Returns (requests, stats, per-epoch records)."""
+    import torch
+    from repro_torch.serving import ContinuousBatchingScheduler, SchedulerConfig
+    be = srv.make_backend()
+    sched = ContinuousBatchingScheduler(be, SchedulerConfig())
+    sched.begin(reqs)
+    epochs = []
+    while True:
+        n_rounds = len(be.rounds)
+        c0 = read_counts()
+        up0 = be._paged_cache.bt_uploads if be._paged_cache is not None else 0
+        saved0 = be._saved_tokens
+        if not sched.step():
+            break
+        torch.cuda.synchronize()
+        got = {k: v - c0[k] for k, v in read_counts().items()}
+        want = dict.fromkeys(got, 0)
+        pc = be._paged_cache
+        if len(be.rounds) > n_rounds:                  # a decode step
+            want["paged_decode_attention"] = n_layers
+            ep = epochs[-1]
+            ep["decode_steps"] += 1
+            ep["uploads"] += pc.bt_uploads - up0
+            if pc.pos - 1 > ep["pos0"] and (pc.pos - 1) % PAGE == 0:
+                ep["crossings"] += 1                   # a new page
+        else:                                          # an epoch's prefill
+            seen = {r.rid for e in epochs for r in e["reqs"]}
+            batch = [r for r in reqs
+                     if r.admitted_s is not None and r.rid not in seen]
+            equal = len({r.prompt_len for r in batch}) == 1
+            saved = be._saved_tokens - saved0
+            rounds = math.ceil((pc.pos - saved // len(batch)) / PREFIX_CHUNK) \
+                if equal else 0
+            if equal:
+                want["mq_paged_decode_attention"] = n_layers * rounds
+            else:
+                want["flash_attention"] = n_layers
+            epochs.append(dict(reqs=batch, equal=equal, rounds=rounds, saved=saved,
+                               decode_steps=0, uploads=pc.bt_uploads - up0,
+                               pos0=pc.pos, crossings=0))
+        if got != want:
+            raise AssertionError(f"prefix serve step: launches {got}, expected {want}")
+    done = sched.finish_run()
+    for ep in epochs:
+        # one upload per prefill round (each round grows every table), one
+        # for an unequal epoch's first step (seed rebuilt the tables), one
+        # per page boundary a decode step crosses after that
+        want = (ep["rounds"] if ep["equal"] else 1) + ep["crossings"] \
+            + (1 if ep["equal"] and ep["pos0"] % PAGE == 0 else 0)
+        if ep["uploads"] != want:
+            raise AssertionError(f"block-table uploads {ep['uploads']}, expected {want}")
+    return done, sched.stats, epochs
+
+
+def prefix_forced_logits(cfg, params, donor_prompts, prompts, feed):
+    """Logits (T, 4, V) of `prompts` fed `feed` (4, T) through two paged
+    caches, built as the backend builds them: cold (the whole prompt in
+    128-position rounds) and warm (the template's pages computed for row 0
+    of a donor batch, forked into every row, then the 128-token suffix)."""
+    import numpy as np
+    import torch
+    from repro_torch.kvcache.allocator import BlockTable
+    from repro_torch.kvcache.paged_decode import PagedDecodeCache
+    from repro_torch.kvcache.pool import PagedKVConfig, PagePool
+    V = cfg.vocab_size
+    toks = torch.from_numpy(np.stack(prompts)).long().cuda()
+    cold = PagedDecodeCache(cfg, 4, MAX_LEN, page_size=PAGE, impl="kernel")
+    pool = PagePool(PagedKVConfig(page_size=PAGE, device_pages=8 * MAX_PAGES))
+    donor = PagedDecodeCache(cfg, 4, MAX_LEN, page_size=PAGE, pool=pool, impl="kernel")
+    donor.prefill(params, torch.from_numpy(np.stack(donor_prompts)).long().cuda(),
+                  chunk=PREFIX_CHUNK)
+    warm = PagedDecodeCache(cfg, 4, MAX_LEN, page_size=PAGE, pool=pool, impl="kernel")
+    del warm.k_pool, warm.v_pool
+    warm.k_pool, warm.v_pool = donor.k_pool, donor.v_pool   # one pool, as served
+    shared = donor.tables[0].pages[:PREFIX_LEN // PAGE]
+    tables = []
+    for _ in range(4):
+        for pid in shared:
+            pool.incref_page(pid)
+        tables.append(BlockTable(PAGE, list(shared), PREFIX_LEN))
+    warm.adopt_tables(tables, PREFIX_LEN)
+    lc = [cold.prefill(params, toks, chunk=PREFIX_CHUNK)[:, :V].float()]
+    lw = [warm.prefill(params, toks[:, PREFIX_LEN:], chunk=PREFIX_CHUNK)[:, :V].float()]
+    feed = torch.from_numpy(np.asarray(feed)).long().cuda()
+    for t in range(feed.shape[1] - 1):
+        lc.append(cold.step(params, feed[:, t:t + 1])[:, 0, :V].float())
+        lw.append(warm.step(params, feed[:, t:t + 1])[:, 0, :V].float())
+    return torch.stack(lc), torch.stack(lw)
+
+
+def seeded_bitwise(cfg, params, prompts, card, steps=8):
+    """Decode on a paged cache seeded from the dense (flash) prefill, its
+    tables non-contiguous, against the contiguous decode_step through
+    kernel 1 on the same cache: bit-equal logits at every step (max_len is
+    a multiple of the page size, so both walk the same 1024 slots in the
+    same splits and tiles); then one 5-position verify (kernel 5 against
+    kernel 4), bit-equal too."""
+    import numpy as np
+    import torch
+    from repro_torch.kvcache.paged_decode import PagedDecodeCache
+    from repro_torch.kvcache.pool import PagedKVConfig, PagePool
+    from repro_torch.models import model as M
+    V = cfg.vocab_size
+    toks = torch.from_numpy(np.stack(prompts)).long().cuda()
+    cache = M.init_cache(cfg, 4, MAX_LEN)
+    lg, cache = M.prefill(cfg, params, toks, cache, impl="kernel")
+    pool = PagePool(PagedKVConfig(page_size=PAGE, device_pages=4 * MAX_PAGES + 16))
+    churn = pool.alloc_pages(40)
+    for pid in np.random.default_rng(5).permutation(churn):
+        pool.decref_page(int(pid))                    # LIFO: shuffled reuse
+    pc = PagedDecodeCache(cfg, 4, MAX_LEN, page_size=PAGE, pool=pool, impl="kernel")
+    pc.seed(cache)
+    contiguous = all(np.all(np.diff(t.pages) == 1) for t in pc.tables)
+    tok = lg[:, -1, :V].argmax(-1, keepdim=True)
+    same = []
+    for _ in range(steps):
+        lm, cache = M.decode_step(cfg, params, cache, tok, impl="kernel")
+        lp = pc.step(params, tok)
+        same.append(torch.equal(lm, lp))
+        tok = lm[:, -1, :V].argmax(-1, keepdim=True)
+    mat = torch.cat([tok, toks[:, :SPEC_K]], 1)
+    lv, cache = M.verify_step(cfg, params, cache, mat, impl="kernel")
+    same_v = torch.equal(lv, pc.verify(params, mat))
+    log(f"  seeded paged decode (tables non-contiguous: {not contiguous}) vs "
+        f"contiguous decode_step through kernel 1: bit-equal at "
+        f"{sum(same)}/{steps} steps; 5-position verify (kernel 5 vs kernel 4) "
+        f"bit-equal {same_v} [{card}; {cfg.n_layers} layers]")
+    if contiguous or not all(same) or not same_v:
+        raise AssertionError("paged decode on a seeded cache is not the "
+                             "contiguous decode bit for bit")
+    pc.release()
+
+
+def prefix_profile(cfg, params, reqs, card):
+    """Device time by class over one cold shared-prefix epoch on a fresh
+    server (4 prefill rounds, 15 decode steps), and the device's idle
+    share: the paged kernels' µs per call in the serve."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    srv = prefix_server(cfg, params)
+    for r in reqs:
+        srv.queue.submit(r.prompt, r.max_new_tokens)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        srv.serve_all()
+        torch.cuda.synchronize()
+        wall_us = (time.monotonic() - t0) * 1e6
+    by = {"paged_decode": 0.0, "mq_paged": 0.0, "gemm": 0.0, "other": 0.0}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        name = e.key.lower()
+        # only the paged kernels of csrc/ run in this serve: decode_* is
+        # kernel 3 (and its combine pass), mq_* kernel 5
+        m = re.search(r"(decode|mq)_[a-z0-9_]*?kernel", name) if "repro" in name else None
+        if m is not None:
+            cls = "paged_decode" if m.group(1) == "decode" else "mq_paged"
+        elif any(x in name for x in ("gemm", "nvjet", "xmma", "cutlass")):
+            cls = "gemm"
+        else:
+            cls = "other"
+        by[cls] += us
+    for cls in ("paged_decode", "mq_paged"):
+        if by[cls] <= 0:
+            raise AssertionError(f"prefix profile: no device time for {cls}")
+    busy = sum(by.values())
+    n_dec = cfg.n_layers * (PREFIX_NEW - 1)
+    n_mq = cfg.n_layers * PREFIX_PROMPT // PREFIX_CHUNK
+    parts = ", ".join(f"{k} {v / 1e3:.2f} ms ({v / busy:.1%})" for k, v in by.items())
+    log(f"  profiled cold epoch: paged decode {by['paged_decode'] / n_dec:.2f} us per "
+        f"call ({n_dec} calls), paged mq {by['mq_paged'] / n_mq:.2f} us per call "
+        f"({n_mq} calls); device time {parts}; busy {busy / 1e3:.2f} ms of "
+        f"{wall_us / 1e3:.2f} ms wall, idle share {1 - busy / wall_us:.1%} [{card}]")
+    return {"paged_decode_attention": by["paged_decode"] / n_dec,
+            "mq_paged_decode_attention": by["mq_paged"] / n_mq}
+
+
+def prefix_phase(cfg, params, card):
+    """The paged KV path with the radix prefix cache through LimeServer ->
+    ContinuousBatchingScheduler -> EngineBackend on phase 2's 8 layers:
+    two shared-prefix epochs (cold, then warm: each request matches the
+    template's 6 pages, 384 tokens) and one unequal-length epoch."""
+    import numpy as np
+    import torch
+    from repro_torch.serving import summarize
+    log(f"phase 2b: paged KV + radix prefix cache, {cfg.name} full width, "
+        f"{cfg.n_layers} layers: page {PAGE}, prefill rounds of {PREFIX_CHUNK}, "
+        f"prompt {PREFIX_PROMPT} (template {PREFIX_LEN}), {PREFIX_NEW} new tokens")
+    # warm-up (allocator, cuBLAS heuristics at these shapes), not measured
+    warm_srv = prefix_server(cfg, params)
+    for r in prefix_requests(cfg)[:4]:
+        warm_srv.queue.submit(r.prompt, 2)
+    warm_srv.serve_all()
+    del warm_srv
+    torch.cuda.synchronize()
+
+    reqs = prefix_requests(cfg)
+    srv = prefix_server(cfg, params)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    done, stats, epochs = drive_prefix(srv, reqs, cfg.n_layers)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    be = srv.make_backend()
+    pc = be._paged_cache
+    st = be.prefix_stats
+    want_saved = 4 * PREFIX_LEN
+    for i, ep in enumerate(epochs):
+        pre = [r.first_token_s - r.admitted_s for r in ep["reqs"]]
+        ttft = [r.ttft_s for r in ep["reqs"]]
+        log(f"  epoch {i + 1} ({'equal' if ep['equal'] else 'unequal'} lengths): "
+            f"{len(ep['reqs'])} requests, {ep['saved']} prompt tokens from the "
+            f"cache, {ep['rounds']} prefill rounds; TTFT p50 "
+            f"{statistics.median(ttft) * 1e3:.1f} ms (all arrived at 0), of it "
+            f"prefill {statistics.median(pre) * 1e3:.1f} ms; {ep['decode_steps']} "
+            f"decode steps; {ep['uploads']} block-table uploads [{card}]")
+    log(f"  launches {launches}; prefix_stats {st}")
+    log(f"  pool: {pc.pool.alloc.n_pages} pages of {PAGE} slots, {pc.pool_bytes / 1e9:.3f} "
+        f"GB of K/V ({cfg.n_layers} layers), {pc.pool.alloc.used_pages} pages in use at "
+        f"the end ({st['prefix_pages']} held by the radix tree); peak HBM "
+        f"{peak / 1e9:.2f} GB [{card}]")
+    if [ep["equal"] for ep in epochs] != [True, True, False] \
+            or [ep["saved"] for ep in epochs] != [0, want_saved, 0]:
+        raise AssertionError(f"epochs {[(e['equal'], e['saved']) for e in epochs]}")
+    if st["prefill_tokens_saved"] != want_saved or st["prefix_hits"] != 4:
+        raise AssertionError(f"prefix stats {st}: expected 4 hits saving {want_saved}")
+    rep = summarize(done, pattern="shared_prefix", backend="paged-prefix", stats=stats)
+    if rep.prefill_tokens_saved != want_saved:
+        raise AssertionError("the report misses the saved prefill tokens")
+    cold_ttft = statistics.median(r.first_token_s - r.admitted_s for r in epochs[0]["reqs"])
+    warm_ttft = statistics.median(r.first_token_s - r.admitted_s for r in epochs[1]["reqs"])
+    log(f"  prefill of an epoch: cold {cold_ttft * 1e3:.1f} ms, warm {warm_ttft * 1e3:.1f} "
+        f"ms ({cold_ttft / warm_ttft:.2f}x); report prefix_hit_rate "
+        f"{rep.prefix_hit_rate:.3f}, prefill_tokens_saved {rep.prefill_tokens_saved} [{card}]")
+
+    # warm against cold: the epoch-2 prompts on a fresh cache
+    by_rid = {r.rid: r for r in done}
+    warm_reqs = [by_rid[i] for i in range(4, 8)]
+    cold_srv = prefix_server(cfg, params)
+    for r in warm_reqs:
+        cold_srv.queue.submit(r.prompt, r.max_new_tokens)
+    cold = sorted(cold_srv.serve_all(), key=lambda r: r.rid)
+    feed = np.array([r.output for r in cold])
+    lc, lw = prefix_forced_logits(cfg, params, [by_rid[i].prompt for i in range(4)],
+                                  [r.prompt for r in warm_reqs], feed)
+    if not (lc.argmax(-1).T.cpu().numpy() == feed).all():
+        raise AssertionError("the forced cold run does not reproduce the cold serve")
+    err = (lw - lc).abs().amax(-1)                        # (T, 4)
+    n_same = 0
+    for j, r in enumerate(warm_reqs):
+        a, b = r.output, cold[j].output
+        if a == b:
+            n_same += 1
+            continue
+        t = next(t for t in range(len(a)) if a[t] != b[t])
+        gap = (lc[t, j, b[t]] - lc[t, j, a[t]]).item()
+        log(f"  warm req {r.rid}: diverges from cold at {t}: gap {gap:.4f}, err "
+            f"{err[t, j].item():.4f}")
+        if gap > err[t, j].item():
+            raise AssertionError(f"warm req {r.rid} diverges outside a near tie")
+    log(f"  warm vs cold: {n_same}/4 requests token-identical; max |warm - cold| "
+        f"logit {err.max().item():.4g} over {feed.shape[1]} positions [{card}]")
+    seeded_bitwise(cfg, params, [by_rid[i].prompt for i in range(4)], card)
+    us = prefix_profile(cfg, params, reqs[:4], card)
+    return launches, us
 
 # ----------------------------------------------------------------------------
 # phase 3a: the engine against the model, 8 layers
@@ -1148,6 +1652,9 @@ def main() -> int:
 
         rows = kernel_phase()
         launches, cfg8, params8 = main_path_phase(card)
+        prefix_launches, serve_us = prefix_phase(cfg8, params8, card)
+        for k, n in prefix_launches.items():
+            launches[k] = launches.get(k, 0) + n
         engine_check_phase(cfg8, params8, card)
         del params8
         gc.collect()
@@ -1163,7 +1670,12 @@ def main() -> int:
                 ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
                  "src/repro/kernels/flash_attention/kernel.py:104"),
                 ("mq_decode_attention", "src/repro_torch/csrc/mq_decode_attention.cu",
-                 "src/repro/kernels/decode_attention/multiquery.py:107")):
+                 "src/repro/kernels/decode_attention/multiquery.py:107"),
+                ("paged_decode_attention", "src/repro_torch/csrc/paged_decode_attention.cu",
+                 "src/repro/kernels/decode_attention/paged.py:119"),
+                ("mq_paged_decode_attention",
+                 "src/repro_torch/csrc/mq_paged_decode_attention.cu",
+                 "src/repro/kernels/decode_attention/multiquery.py:248")):
             r = rows[name]
             if launches[name] <= 0:
                 raise AssertionError(f"{name} never launched on the main path")

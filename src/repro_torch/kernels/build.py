@@ -35,6 +35,10 @@ SIGNATURES = {
                               I, P],
     "repro_mq_decode_attention": [P, P, P, P, P, P, P, I, I, I, I, I, I, I,
                                   I, F, I, I, I, P],
+    "repro_paged_decode_attention": [P, P, P, P, P, P, P, P, I, I, I, I, I, I,
+                                     I, F, I, I, I, P],
+    "repro_mq_paged_decode_attention": [P, P, P, P, P, P, P, P, I, I, I, I, I,
+                                        I, I, I, F, I, I, I, P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

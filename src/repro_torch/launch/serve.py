@@ -17,6 +17,13 @@ Otherwise the single-device path serves it.
       --smoke --layers 4 --device cpu --hbm-bytes 3e6 --spec \\
       --spec-draft resident --spec-k 3 --pattern bursty
 
+  # paged KV with the radix prefix cache (single-device path) on
+  # template-sharing traffic:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.3-70b \\
+      --smoke --device cpu --prefix-cache --page-size 8 --prefill-chunk 8 \\
+      --pattern shared_prefix --n-templates 1 --prefix-len 24 \\
+      --prompt-len 32 --requests 8 --max-new 8
+
 Prints one line per request, then the JSON ServingReport.
 """
 from __future__ import annotations
@@ -37,7 +44,8 @@ def main(argv=None):
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--layers", type=int, default=0,
                     help="depth cut (0: the config's own)")
-    ap.add_argument("--pattern", choices=("sporadic", "bursty", "poisson"),
+    ap.add_argument("--pattern", choices=("sporadic", "bursty", "poisson",
+                                          "shared_prefix", "multiturn"),
                     default="sporadic")
     ap.add_argument("--requests", type=int, default=2)
     ap.add_argument("--max-new", type=int, default=16)
@@ -53,8 +61,20 @@ def main(argv=None):
                          "the card: free memory less the KV cache, two "
                          "layer buffers and the shared weights)")
     ap.add_argument("--prefill-chunk", type=int, default=0,
-                    help="engine prefill positions per round (0: the "
-                         "whole prompt)")
+                    help="prefill positions per round, through the engine "
+                         "or the prefix cache's paged pool (0: the whole "
+                         "prompt)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="radix prefix cache over a paged KV pool "
+                         "(single-device path)")
+    ap.add_argument("--page-size", type=int, default=64,
+                    help="KV page size (prefix sharing is page-granular: "
+                         "pick <= the prefix length for short prompts)")
+    ap.add_argument("--n-templates", type=int, default=4,
+                    help="shared prompt templates (--pattern shared_prefix)")
+    ap.add_argument("--prefix-len", type=int, default=32,
+                    help="template tokens per prompt (--pattern "
+                         "shared_prefix)")
     ap.add_argument("--spec", action="store_true",
                     help="speculative decoding: draft k tokens, verify "
                          "them in one pass")
@@ -102,17 +122,23 @@ def main(argv=None):
         raise SystemExit("--spec drafts on the engine's resident tier: the "
                          "weights fit the budget, so no engine runs (lower "
                          "--hbm-bytes)")
+    if args.prefix_cache and engine is not None:
+        raise SystemExit("--prefix-cache shares pages of the single-device "
+                         "paged pool; this model runs through the engine")
     srv = LimeServer(cfg, params, engine=engine, max_len=args.max_len,
                      pattern="sporadic" if args.pattern == "sporadic"
                      else "bursty",
                      sampler=SamplerConfig(temperature=args.temperature,
                                            seed=args.seed),
-                     spec=spec, prefill_chunk_tokens=args.prefill_chunk,
-                     device=dev)
+                     spec=spec, prefix_cache=args.prefix_cache,
+                     prefill_chunk_tokens=args.prefill_chunk,
+                     page_size=args.page_size, device=dev)
     arrivals = cli_arrivals(args.pattern, args.requests, seed=args.seed,
                             prompt_len=args.prompt_len,
                             max_new_tokens=args.max_new, gap_s=2.0,
-                            burst_size=srv.slots, rate_rps=1.0)
+                            burst_size=srv.slots, rate_rps=1.0,
+                            n_templates=args.n_templates,
+                            prefix_len=args.prefix_len)
     sched = ContinuousBatchingScheduler(srv.make_backend(), SchedulerConfig())
     done = sched.serve(requests_from_arrivals(arrivals,
                                               vocab_size=cfg.vocab_size))
@@ -122,7 +148,8 @@ def main(argv=None):
             f"out[:8]={r.output[:8]}"
         print(f"req {r.rid}: {status}")
     report = summarize(done, pattern=args.pattern,
-                       backend="engine" if engine else "fallback",
+                       backend="engine" if engine else
+                       ("paged-prefix" if args.prefix_cache else "fallback"),
                        stats=sched.stats)
     print(json.dumps(report.to_dict(), indent=2))
     if engine is not None:

@@ -6,7 +6,8 @@ multi-query decode of verification and chunked prefill. ``impl``
 selects "ref" (the reference's own jnp-style math, here in PyTorch) or
 "kernel" (the hand-written CUDA kernels; on CPU tensors their plain
 versions). Layouts are the JAX package's: q (B, S, H, dh), cache
-(B, S_c, KV, dh), wq (D, H, dh), wo (H, dh, D).
+(B, S_c, KV, dh), paged pool (P, page_size, KV, dh), wq (D, H, dh),
+wo (H, dh, D).
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import torch
 
 from repro_torch.kernels.decode_attention import multiquery as mq_ops
 from repro_torch.kernels.decode_attention import ops as da_ops
+from repro_torch.kernels.decode_attention import paged as pg_ops
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models.modules import apply_rope
 from repro_torch.models.spec import ParamSpec
@@ -149,4 +151,56 @@ def attn_decode_multi(params, x, cache_k, cache_v, pos_ids, pos: int,
     else:
         out = mq_ops.mq_decode_attention_plain(q, cache_k, cache_v, pos_ids,
                                                pos, window=window)
+    return _out_proj(out, params["wo"])
+
+
+def paged_attn_decode(params, x, k_pool, v_pool, page_ids, slot: int,
+                      block_tables, ctx_lens, pos: int, *, rope_theta,
+                      window=None, impl: str = "ref"):
+    """Single-token decode against a paged KV pool. x: (B, 1, D);
+    k_pool/v_pool: (P, page_size, KV, dh), one layer's pages, updated IN
+    PLACE at (page_ids[b], slot) before attention reads them (the JAX
+    reference returns new pools); page_ids: (B,) int64 page receiving this
+    token; slot: its row inside the page (all sequences share `pos`);
+    block_tables: (B, max_pages) int32; ctx_lens: (B,) int32 tokens live
+    including this one. "ref" takes the plain page walk, "kernel" the
+    paged decode kernel."""
+    B = x.shape[0]
+    q = _proj(x, params["wq"])
+    k = _proj(x, params["wk"])
+    v = _proj(x, params["wv"])
+    posb = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
+    q = apply_rope(q, posb, rope_theta)
+    k = apply_rope(k, posb, rope_theta)
+    k_pool[page_ids, slot] = k[:, 0]
+    v_pool[page_ids, slot] = v[:, 0]
+    fn = pg_ops.paged_decode_attention if impl == "kernel" \
+        else pg_ops.paged_decode_attention_plain
+    out = fn(q, k_pool, v_pool, block_tables, ctx_lens, window=window)
+    return _out_proj(out, params["wo"])
+
+
+def paged_attn_decode_multi(params, x, k_pool, v_pool, page_ids, slots,
+                            block_tables, ctx_lens, pos: int, *, rope_theta,
+                            window=None, impl: str = "ref"):
+    """q_len-token decode against a paged KV pool (verification, chunked
+    and suffix prefill). x: (B, q_len, D), query i at position pos + i;
+    page_ids: (B, q_len) int64 page of each new token; slots: (q_len,)
+    int64 rows inside those pages; ctx_lens: (B,) int32 tokens live
+    including the q_len new ones. The new K/V are written IN PLACE before
+    attention reads them; causality between the queries is the per-row
+    mask of the paged multi-query attention."""
+    B, Q, _ = x.shape
+    q = _proj(x, params["wq"])
+    k = _proj(x, params["wk"])
+    v = _proj(x, params["wv"])
+    posb = pos + torch.arange(Q, device=x.device)[None, :].expand(B, Q)
+    q = apply_rope(q, posb, rope_theta)
+    k = apply_rope(k, posb, rope_theta)
+    rows = slots[None, :].expand(B, Q)
+    k_pool[page_ids, rows] = k
+    v_pool[page_ids, rows] = v
+    fn = mq_ops.mq_paged_decode_attention if impl == "kernel" \
+        else mq_ops.mq_paged_decode_attention_plain
+    out = fn(q, k_pool, v_pool, block_tables, ctx_lens, window=window)
     return _out_proj(out, params["wo"])

@@ -20,8 +20,17 @@ HBM) it prefills through the engine's chunked multi-query rounds
 (prefill_partial) and decodes through its interleaved passes; with a
 SpecConfig (draft="resident") each decode round drafts k greedy tokens on
 the engine's live resident tier and verifies them in one pass. retier()
-moves the engine's tier boundary between steps. Paged KV and the prefix
-cache come with their slices.
+moves the engine's tier boundary between steps.
+
+Without an engine, `paged` routes the single-device path through a paged
+KV cache (kvcache/paged_decode: one pool, block tables, the paged decode
+and multi-query kernels), and `prefix_cache` adds a radix prefix cache
+over that pool, persistent across epochs: an epoch of equal-length
+prompts forks its matched page-aligned prefix into fresh block tables and
+prefills only the uncached suffix (in chunks of prefill_chunk_tokens),
+and a finished request donates its pages to the tree. The JAX backend
+builds its paged cache with the reference math; this one passes its own
+`impl` through, so the default runs the paged kernels.
 """
 from __future__ import annotations
 
@@ -32,7 +41,11 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.kvcache.allocator import BlockTable
+from repro_torch.kvcache.paged_decode import PagedDecodeCache
+from repro_torch.kvcache.pool import PagedKVConfig, PagePool
 from repro_torch.models import model as M
+from repro_torch.prefixcache import RadixPrefixCache
 from repro_torch.serving.sampling import SamplerConfig, sample
 from repro_torch.specdec import DepthController, SpecDecodeController
 
@@ -57,7 +70,9 @@ class EngineBackend:
     def __init__(self, cfg, params, *, engine=None, n_slots: int = 0,
                  max_len: int = 512, sampler: Optional[SamplerConfig] = None,
                  prompt_seed: int = 0, impl: str = "kernel", spec=None,
-                 prefill_chunk_tokens: int = 0, device=None):
+                 prefill_chunk_tokens: int = 0, paged: bool = False,
+                 prefix_cache: bool = False, page_size: int = 64,
+                 cache_pages: int = 0, device=None):
         self.cfg = cfg
         self.params = params
         self.engine = engine
@@ -67,6 +82,26 @@ class EngineBackend:
             else resolve_device(device)
         self.sampler = sampler if sampler is not None else SamplerConfig()
         self.chunk = max(int(prefill_chunk_tokens), 0)
+        # radix prefix cache over the real paged pool: prompts matched
+        # against cached pages, only the uncached suffix prefilled,
+        # finished requests donate their pages back. It rides the
+        # single-device paged path (the engine keeps a dense cache per
+        # slot: there is no shared pool to fork from).
+        if prefix_cache and engine is not None:
+            raise NotImplementedError(
+                "prefix_cache shares real KV pages through the "
+                "single-device paged pool; the engine's cache layout has "
+                "no shared pool to fork from")
+        self.prefix_cache = prefix_cache
+        self.paged = (paged or prefix_cache) and engine is None
+        self.page_size = page_size
+        self._cache_pages = cache_pages   # radix headroom (0: one full
+                                          # batch's worth of extra pages)
+        self._paged_cache = None
+        self._radix = None
+        self._slot_tokens = None          # per-slot donatable prompt ids
+        self._slot_out = None             # per-slot committed output ids
+        self._saved_tokens = 0            # prompt tokens seeded from cache
         self.spec = spec
         self._ctl = None
         self._depth = None
@@ -202,18 +237,32 @@ class EngineBackend:
                 [toks, np.tile(toks[-1:], (self.batch_width - toks.shape[0],
                                            1))], 0)
         toks_t = torch.from_numpy(toks).long().to(self.device)
-        if self.engine is not None:
+        if self.prefix_cache:
+            last = self._start_batch_prefix(reqs, prompts, toks_t)
+        elif self.engine is not None:
             # chunked prefill through the engine itself: the weights do not
             # fit the card, so there is no prefill over all of them at once
             state = self.engine.init_state(self.params)
             logits, self._state = self.engine.prefill_partial(
                 state, toks_t, chunk=self.chunk)
+            last = logits[:, -1]
         else:
             cache = M.init_cache(self.cfg, toks.shape[0], self.max_len,
                                  device=self.device)
-            logits, self._state = M.prefill(self.cfg, self.params, toks_t,
-                                            cache, impl=self.impl)
-        tok = self._sample(logits[:, -1])
+            logits, cache = M.prefill(self.cfg, self.params, toks_t, cache,
+                                      impl=self.impl)
+            last = logits[:, -1]
+            self._state = cache
+            if self.paged:                # the dense prefill, into pages
+                if self._paged_cache is not None:
+                    self._paged_cache.release()
+                self._paged_cache = PagedDecodeCache(
+                    self.cfg, toks.shape[0], self.max_len,
+                    page_size=self.page_size, impl=self.impl,
+                    device=self.device)
+                self._paged_cache.seed(cache)
+                self._state = None
+        tok = self._sample(last)
         self._cur = tok[:, None]
         if self.spec is not None:
             if self._ctl is None:
@@ -221,6 +270,9 @@ class EngineBackend:
                                                  self.cfg.vocab_size)
             self._pos = int(toks.shape[1])    # left-padded prompt span
         host = tok.tolist()
+        if self.prefix_cache:
+            for slot in range(len(reqs)):
+                self._slot_out[slot].append(host[slot])
         return [host[slot] for slot in range(len(reqs))]
 
     def decode_active(self, slots: Sequence[int]):
@@ -240,6 +292,10 @@ class EngineBackend:
         if self.engine is not None:
             lg, self._state = self.engine.decode_requests(self._state,
                                                           self._cur, active)
+        elif self.paged:
+            if self.prefix_cache:
+                self._ensure_room(self._paged_cache, 1)
+            lg = self._paged_cache.step(self.params, self._cur)[:, 0]
         else:
             lg, self._state = M.decode_step(self.cfg, self.params,
                                             self._state, self._cur,
@@ -250,6 +306,9 @@ class EngineBackend:
         # freed slots keep replaying their last token as batch padding
         self._cur = torch.where(active[:, None], tok[:, None], self._cur)
         host = tok.tolist()
+        if self.prefix_cache:
+            for s in slots:
+                self._slot_out[s].append(host[s])
         return {s: host[s] for s in slots}
 
     def _decode_active_spec(self, slots: Sequence[int], k: int):
@@ -305,4 +364,108 @@ class EngineBackend:
         raise NotImplementedError("batches are fixed at prefill time")
 
     def release(self, slot: int) -> None:
-        """The slot keeps padding the fixed batch until the epoch drains."""
+        """The slot keeps padding the fixed batch until the epoch drains.
+        With the prefix cache, its committed pages become future prefix
+        hits now (the table itself lives until the next epoch's
+        reset_tables; the tree's increfs carry the pages on)."""
+        if self.prefix_cache:
+            self._donate_slot(slot)
+
+    # -- radix prefix cache over the real paged pool ---------------------------
+    def _prefix_structures(self):
+        """Persistent pool + paged cache + radix tree, built at first use:
+        they outlive epochs, which is the whole point of the cache."""
+        if self._radix is None:
+            B = self.batch_width
+            max_pages = -(-self.max_len // self.page_size)
+            extra = self._cache_pages or B * max_pages
+            pool = PagePool(PagedKVConfig(page_size=self.page_size,
+                                          device_pages=B * max_pages + extra))
+            self._paged_cache = PagedDecodeCache(
+                self.cfg, B, self.max_len, page_size=self.page_size,
+                pool=pool, impl=self.impl, device=self.device)
+            self._radix = RadixPrefixCache(pool)
+        return self._paged_cache, self._radix
+
+    def _ensure_room(self, pc, n_new_tokens: int) -> None:
+        """Free device pages for the coming growth: unpinned radix pages
+        are evicted first. Cached prefixes are reclaimable, live tables
+        are not (the pool is sized so that this always suffices)."""
+        need = sum(pc.pool.pages_for(pc.pos + n_new_tokens) - len(t.pages)
+                   for t in pc.tables)
+        short = need - pc.pool.free_pages()
+        if short > 0:
+            self._radix.evict(short)
+
+    def _start_batch_prefix(self, reqs, prompts, toks):
+        """Seed the epoch from shared pages where the radix tree has them,
+        then prefill only the uncached suffix (chunked when configured).
+        The shared-pos cache layout forces one matched length for the
+        whole batch, so hits need equal-length prompts and align on the
+        batch-minimum match; the batch's replica rows ride the last
+        request's match. Unequal-length epochs run cold through the dense
+        prefill, scattered into pages (their left-padded prefixes would
+        key pad tokens, so they never donate). Returns the last
+        position's logits (B, PV)."""
+        pc, radix = self._prefix_structures()
+        B = self.batch_width
+        pc.reset_tables()                 # radix increfs keep shared pages
+        self._slot_tokens = [None] * B
+        self._slot_out = [[] for _ in range(B)]
+        ps = self.page_size
+        lens = {len(p) for p in prompts}
+        if len(lens) != 1:
+            cache = M.init_cache(self.cfg, B, self.max_len,
+                                 device=self.device)
+            logits, cache = M.prefill(self.cfg, self.params, toks, cache,
+                                      impl=self.impl)
+            self._ensure_room(pc, int(cache["pos"]))
+            pc.seed(cache)
+            self._state = None
+            return logits[:, -1]
+        L = lens.pop()
+        matches = [radix.match(p, max_pages=(L - 1) // ps) for p in prompts]
+        m = min(n for _, n in matches)    # shared pos: batch-min match
+        self._saved_tokens += m * len(reqs)
+        for r in reqs:                    # visibility in serving reports
+            r.cached_tokens = max(r.cached_tokens, m)
+        while len(matches) < B:           # padded replicas ride the last
+            matches.append(matches[-1])   # request's match
+        if m > 0:
+            tables = []
+            for pages, _ in matches:
+                t = BlockTable(ps)
+                for pid in pages[:m // ps]:
+                    pc.pool.incref_page(pid)
+                t.pages = list(pages[:m // ps])
+                t.tokens = m
+                tables.append(t)
+            pc.adopt_tables(tables, m)
+        self._ensure_room(pc, L - pc.pos)
+        last = pc.prefill(self.params, toks[:, pc.pos:], chunk=self.chunk)
+        for slot, p in enumerate(prompts):
+            self._slot_tokens[slot] = [int(x) for x in p]
+        self._state = None
+        return last
+
+    def _donate_slot(self, slot: int) -> None:
+        """Insert `slot`'s committed pages (prompt + sampled output so
+        far) into the radix tree. Slots whose prompt rode left-padding
+        have no donatable tokens: their early positions hold pad KV."""
+        if self._radix is None or self._slot_tokens is None \
+                or self._slot_tokens[slot] is None:
+            return
+        toks = self._slot_tokens[slot] + self._slot_out[slot]
+        table = self._paged_cache.tables[slot]
+        self._radix.insert(toks, table.pages,
+                           n_tokens=min(len(toks), table.tokens))
+
+    @property
+    def prefix_stats(self):
+        if self._radix is None:
+            return None
+        r = self._radix
+        return {"prefix_lookups": r.lookups, "prefix_hits": r.hits,
+                "cached_tokens": r.cached_tokens(),
+                "prefix_pages": r.n_pages,
+                "prefill_tokens_saved": self._saved_tokens}

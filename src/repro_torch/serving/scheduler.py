@@ -14,10 +14,12 @@ The port's copy keeps the reserve policy, whole:
               prefill) drain a batch, then form the next.
 
 Speculative backends emit a list of committed tokens per round; the
-backend's spec and retier counters join the stats at the end of a run.
-What the JAX scheduler also carries comes back with the slice that needs
-it: the paged KV policy with preemption, the prefix-cache and chunked
-prefill hooks and retier reclaim with the paged-KV slice, tracer calls, SLO feeds and bounded-memory
+backend's spec, retier and radix prefix-cache counters (a backend that
+keeps its own radix tree over real KV pages) join the stats at the end of
+a run. What the JAX scheduler also carries comes back with the slice that
+needs it: the paged KV policy with preemption, its own prefix cache over
+the admission pool, chunked mixed rounds and retier reclaim with the
+online memory adaptation, tracer calls, SLO feeds and bounded-memory
 histograms (`hist_capacity`) with the observability slice, and the
 fleet's live load signals with the fleet slice.
 
@@ -53,6 +55,8 @@ class Request:
                                         # queue wait vs prefill compute)
     finish_s: Optional[float] = None
     session_id: Optional[int] = None    # multiturn conversation id
+    cached_tokens: int = 0          # prompt tokens served from a prefix
+                                    # cache instead of a prefill round
 
     def __post_init__(self):
         if self.prompt is not None:
@@ -271,8 +275,8 @@ class ContinuousBatchingScheduler:
         return self.finish_run()
 
     def finish_run(self) -> List[Request]:
-        for name in ("spec_stats", "adapt_stats"):
+        for name in ("prefix_stats", "spec_stats", "adapt_stats"):
             stats = getattr(self.backend, name, None)
-            if stats:             # drafted/accepted, retier counters
+            if stats:             # radix hits, drafted/accepted, retier
                 self.metrics.update(stats)
         return self._done + self._shed

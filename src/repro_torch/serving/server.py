@@ -11,7 +11,10 @@ continuous-batching scheduler behind one call:
 The paper's request patterns map to slot counts: sporadic serves one
 request at a time, bursty fills the batch (4 slots, or the engine's batch
 width). With an InterleavedEngine the backend prefills and decodes through
-it, and a SpecConfig turns on resident self-speculation.
+it, and a SpecConfig turns on resident self-speculation. Without one,
+prefix_cache=True serves through a paged KV pool with a radix prefix cache
+over it (page_size tokens per page, the uncached suffix prefilled in
+rounds of prefill_chunk_tokens).
 """
 from __future__ import annotations
 
@@ -61,7 +64,8 @@ class LimeServer:
     def __init__(self, cfg: ModelConfig, params, *, engine=None,
                  max_len: int = 512, sampler: SamplerConfig = SamplerConfig(),
                  pattern: str = "sporadic", impl: str = "kernel", spec=None,
-                 prefill_chunk_tokens: int = 0, device=None):
+                 prefix_cache: bool = False, prefill_chunk_tokens: int = 0,
+                 page_size: int = 64, device=None):
         self.cfg = cfg
         self.params = params
         self.engine = engine
@@ -70,7 +74,9 @@ class LimeServer:
         self.pattern = pattern
         self.impl = impl
         self.spec = spec
+        self.prefix_cache = prefix_cache      # radix KV reuse, paged pool
         self.prefill_chunk_tokens = prefill_chunk_tokens
+        self.page_size = page_size
         self.device = engine.device if engine is not None \
             else resolve_device(device)
         self.queue = RequestQueue()
@@ -89,8 +95,9 @@ class LimeServer:
                 self.cfg, self.params, engine=self.engine,
                 n_slots=self.slots, max_len=self.max_len,
                 sampler=self.sampler, impl=self.impl, spec=self.spec,
+                prefix_cache=self.prefix_cache and self.engine is None,
                 prefill_chunk_tokens=self.prefill_chunk_tokens,
-                device=self.device)
+                page_size=self.page_size, device=self.device)
         return self._backend
 
     def serve_all(self) -> List[Request]:

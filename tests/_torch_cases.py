@@ -124,3 +124,73 @@ def decode_inputs(case, seed=0):
             np_rand(rng, (B, S_c, KV, dh), "bf16"), decode_ids(S_c, pos, ring))
 
 
+
+
+# Paged cases. Tables come from the port's PageAllocator after a churn of
+# allocations and LIFO frees, handed out page by page across the batch, so
+# they are non-contiguous and interleaved; a table's tail past its
+# sequence's pages is -1; ctx_lens are ragged.
+PAGED_CASES = [
+    # B, H, KV, dh, page_size, max_pages, ctx_lens, window
+    (3, 8, 2, 64, 8, 5, (33, 17, 40), None),
+    (2, 4, 1, 80, 16, 4, (50, 64), 20),              # dh 80, window
+    (2, 16, 2, 128, 16, 3, (5, 48), None),           # G 8
+    (1, 4, 4, 64, 8, 6, (41,), 9),                   # window in a page
+    (2, 8, 2, 64, 16, 4, (1, 30), None),             # one live slot
+]
+
+MQ_PAGED_CASES = [
+    # B, q_len, H, KV, dh, page_size, max_pages, ctx_lens (incl. the q_len
+    # new tokens), window
+    (2, 1, 8, 2, 64, 8, 5, (33, 17), None),
+    (2, 4, 8, 2, 64, 16, 4, (50, 9), None),
+    (1, 4, 4, 1, 80, 8, 6, (44,), 12),               # dh 80, window
+    (2, 9, 16, 2, 64, 16, 4, (64, 20), None),        # q_len 9, G 8
+    (3, 9, 4, 2, 80, 8, 5, (9, 25, 40), 7),          # window < q_len
+]
+
+
+def lifo_tables(ctx_lens, page_size, max_pages, seed=0):
+    """(block_tables (B, max_pages) int32 with -1 tails, pool page count)."""
+    from repro_torch.kvcache.allocator import PageAllocator
+    rng = np.random.default_rng(seed)
+    need = [-(-c // page_size) for c in ctx_lens]
+    n_pages = sum(need) + 3
+    alloc = PageAllocator(n_pages, page_size)
+    churn = alloc.alloc_many(n_pages // 2)
+    rng.shuffle(churn)
+    for pid in churn:                   # LIFO: the last freed goes out first
+        alloc.decref(pid)
+    bt = np.full((len(ctx_lens), max_pages), -1, np.int32)
+    for j in range(max(need)):
+        for b, n in enumerate(need):
+            if j < n:
+                bt[b, j] = alloc.alloc()
+    return bt, n_pages
+
+
+def paged_inputs(B, Q, H, KV, dh, ps, maxp, ctx, seed=0):
+    """q (B, Q, H, dh), k/v pools (P, ps, KV, dh) bf16 numpy, tables, ctx."""
+    bt, P = lifo_tables(ctx, ps, maxp, seed)
+    rng = np.random.default_rng(seed + 1)
+    return (np_rand(rng, (B, Q, H, dh), "bf16"),
+            np_rand(rng, (P, ps, KV, dh), "bf16"),
+            np_rand(rng, (P, ps, KV, dh), "bf16"), bt,
+            np.asarray(ctx, np.int32))
+
+
+def paged_case_inputs(case, seed=0):
+    B, H, KV, dh, ps, maxp, ctx, window = case
+    return paged_inputs(B, 1, H, KV, dh, ps, maxp, ctx, seed)
+
+
+def mq_paged_case_inputs(case, seed=0):
+    B, Q, H, KV, dh, ps, maxp, ctx, window = case
+    return paged_inputs(B, Q, H, KV, dh, ps, maxp, ctx, seed)
+
+
+def gathered_ids(n_slots, ctx):
+    """pos_ids of one sequence's cache gathered from its pages: slot t holds
+    position t below ctx, nothing past it."""
+    ar = np.arange(n_slots)
+    return np.where(ar < ctx, ar, -1).astype(np.int32)

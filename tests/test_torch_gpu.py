@@ -14,12 +14,15 @@ import pytest
 import torch
 
 from _torch_cases import (BF16_REL, DECODE_CASES, F32_REL, FLASH_CASES,
-                          MQ_CASES, decode_inputs, flash_inputs, mq_inputs,
-                          rel_err, to_torch)
+                          MQ_CASES, MQ_PAGED_CASES, PAGED_CASES, decode_inputs,
+                          flash_inputs, gathered_ids, mq_inputs,
+                          mq_paged_case_inputs, paged_case_inputs,
+                          paged_inputs, rel_err, to_torch)
 from repro_torch.configs import get_smoke_config
 from repro_torch.core.engine import InterleavedEngine, UniformPlan
 from repro_torch.kernels.decode_attention import multiquery as mq
 from repro_torch.kernels.decode_attention import ops as da
+from repro_torch.kernels.decode_attention import paged as pg
 from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.models import model as M
 from repro_torch.serving import LimeServer
@@ -200,3 +203,190 @@ def test_engine_streams_and_matches_model(cuda_device):
         assert torch.equal(el, ml[:, 0])
         tok = el[:, :cfg.vocab_size].argmax(-1, keepdim=True)
     eng.close()
+
+
+# ----------------------------------------------------------------------------
+# paged kernels (3: paged decode, 5: paged multi-query)
+# ----------------------------------------------------------------------------
+def _paged_on(device, q, k, v, bt, ctx, dt="bf16"):
+    return (*(to_torch(a, dt, device) for a in (q, k, v)),
+            torch.from_numpy(bt).to(device), torch.from_numpy(ctx).to(device))
+
+
+@pytest.mark.parametrize("case", PAGED_CASES,
+                         ids=lambda c: f"H{c[1]}kv{c[2]}d{c[3]}ps{c[4]}w{c[7]}")
+def test_paged_kernel_vs_plain(case, cuda_device):
+    window = case[-1]
+    q, k, v, bt, ctx = _paged_on(cuda_device, *paged_case_inputs(case))
+    n0 = pg.launches
+    out = pg.paged_decode_attention(q, k, v, bt, ctx, window=window)
+    torch.cuda.synchronize()
+    assert pg.launches == n0 + 1
+    ref = pg.paged_decode_attention_plain(q, k, v, bt, ctx, window=window)
+    assert rel_err(out, ref) <= BF16_REL
+
+
+@pytest.mark.parametrize("case", MQ_PAGED_CASES,
+                         ids=lambda c: f"q{c[1]}H{c[2]}kv{c[3]}d{c[4]}ps{c[5]}w{c[8]}")
+def test_mq_paged_kernel_vs_plain(case, cuda_device):
+    window = case[-1]
+    q, k, v, bt, ctx = _paged_on(cuda_device, *mq_paged_case_inputs(case))
+    n0 = mq.paged_launches
+    out = mq.mq_paged_decode_attention(q, k, v, bt, ctx, window=window)
+    torch.cuda.synchronize()
+    assert mq.paged_launches == n0 + 1
+    ref = mq.mq_paged_decode_attention_plain(q, k, v, bt, ctx, window=window)
+    assert rel_err(out, ref) <= BF16_REL
+
+
+def _uniform(case, Q):
+    """A case's shapes with every sequence at the largest ctx (the shared
+    position the contiguous kernels take)."""
+    B, H, KV, dh, ps, maxp, ctx, window = case
+    c = max(max(ctx), Q)
+    return paged_inputs(B, Q, H, KV, dh, ps, maxp, (c,) * B, seed=3), window
+
+
+@pytest.mark.parametrize("dt", ["bf16", "f32"])
+@pytest.mark.parametrize("case", PAGED_CASES,
+                         ids=lambda c: f"H{c[1]}kv{c[2]}d{c[3]}ps{c[4]}w{c[7]}")
+def test_paged_kernel_bitwise_vs_decode_kernel(case, dt, cuda_device):
+    """The paged kernel over the pool equals the contiguous decode kernel
+    on the gathered cache bit for bit: one body, one split, one tile
+    order; only the slot addressing differs."""
+    (q, k, v, bt, ctx), window = _uniform(case, 1)
+    q, k, v, bt, ctx = _paged_on(cuda_device, q, k, v, bt, ctx, dt)
+    c = int(ctx[0])
+    out = pg.paged_decode_attention(q, k, v, bt, ctx, window=window)
+    ids = torch.from_numpy(gathered_ids(bt.shape[1] * k.shape[1], c)) \
+        .to(cuda_device)
+    ref = da.decode_attention(q, pg.gather_pages(k, bt).contiguous(),
+                              pg.gather_pages(v, bt).contiguous(), ids, c - 1,
+                              window=window)
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("case", MQ_PAGED_CASES,
+                         ids=lambda c: f"q{c[1]}H{c[2]}kv{c[3]}d{c[4]}ps{c[5]}w{c[8]}")
+def test_mq_paged_kernel_bitwise_vs_mq_kernel(case, cuda_device):
+    B, Q, H, KV, dh, ps, maxp, ctx, window = case
+    (q, k, v, bt, ctx), _ = _uniform((B, H, KV, dh, ps, maxp, ctx, window), Q)
+    q, k, v, bt, ctx = _paged_on(cuda_device, q, k, v, bt, ctx)
+    c = int(ctx[0])
+    out = mq.mq_paged_decode_attention(q, k, v, bt, ctx, window=window)
+    ids = torch.from_numpy(gathered_ids(maxp * ps, c)).to(cuda_device)
+    ref = mq.mq_decode_attention(q, pg.gather_pages(k, bt).contiguous(),
+                                 pg.gather_pages(v, bt).contiguous(), ids,
+                                 c - Q, window=window)
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("q_len", [1, 5, 128])
+def test_paged_kernels_read_only_filled_slots(q_len, cuda_device):
+    """NaN in every page no table names and in every slot past ctx (the
+    tail of each last page): a kernel that read one would return NaN, so
+    the output must equal the clean pool's bit for bit. Main-path widths:
+    page 64, H 64, KV 8, dh 128; ragged ctx."""
+    ctx = (1019, 700, 300, 130)
+    q, k, v, bt, ctxn = paged_inputs(4, q_len, 64, 8, 128, 64, 16, ctx,
+                                     seed=5)
+    q, k, v, bt, ctxn = _paged_on(cuda_device, q, k, v, bt, ctxn)
+    dirty = torch.ones(k.shape[:2], dtype=torch.bool, device=cuda_device)
+    for b, c in enumerate(ctx):
+        t = torch.arange(c, device=cuda_device)
+        dirty[bt[b, t // 64].long(), t % 64] = False
+    kd, vd = k.clone(), v.clone()
+    kd[dirty] = float("nan")
+    vd[dirty] = float("nan")
+    if q_len == 1:
+        fn = pg.paged_decode_attention
+    else:
+        fn = mq.mq_paged_decode_attention
+    clean = fn(q, k, v, bt, ctxn)
+    got = fn(q, kd, vd, bt, ctxn)
+    assert torch.isfinite(got.float()).all() and torch.equal(got, clean)
+
+
+def test_paged_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+    q, k, v, bt, ctx = _paged_on(cuda_device,
+                                 *paged_case_inputs(PAGED_CASES[0]))
+    with pytest.raises(ValueError):           # page size not a multiple of 8
+        pg.paged_decode_attention(q, k[:, :6].contiguous(),
+                                  v[:, :6].contiguous(), bt, ctx)
+    with pytest.raises(ValueError):           # int64 tables
+        pg.paged_decode_attention(q, k, v, bt.long(), ctx)
+    with pytest.raises(ValueError):           # ctx of another batch
+        pg.paged_decode_attention(q, k, v, bt, ctx[:1])
+    with pytest.raises(ValueError):           # dh of q and pool differ
+        pg.paged_decode_attention(q[..., :32].contiguous(), k, v, bt, ctx)
+    with pytest.raises(ValueError):           # two query positions
+        pg.paged_decode_attention(torch.cat([q, q], 1), k, v, bt, ctx)
+    with pytest.raises(TypeError):            # the mq kernel is bf16 only
+        mq.mq_paged_decode_attention(q.float(), k.float(), v.float(), bt, ctx)
+    with pytest.raises(ValueError):           # page size 4
+        mq.mq_paged_decode_attention(q, k[:, :4].contiguous(),
+                                     v[:, :4].contiguous(), bt, ctx)
+    with pytest.raises(ValueError):           # tables on the CPU
+        mq.mq_paged_decode_attention(q, k, v, bt.cpu(), ctx)
+
+
+def test_paged_cache_is_contiguous_decode_bit_for_bit(cuda_device):
+    """llama smoke on the card: a paged cache seeded from the flash
+    prefill, its pages reused out of order, decodes across page boundaries
+    bit-equal to the model's contiguous decode_step (kernel 3 against 1,
+    max_len a multiple of the page size), and one verify pass is bit-equal
+    to verify_step (kernel 5 against 4)."""
+    from repro_torch.kvcache.paged_decode import PagedDecodeCache
+    from repro_torch.kvcache.pool import PagedKVConfig, PagePool
+    cfg = get_smoke_config("llama3.3-70b")
+    params = M.init_params(cfg, torch.Generator(cuda_device).manual_seed(0))
+    toks = torch.randint(1, cfg.vocab_size, (2, 13), device=cuda_device,
+                         generator=torch.Generator(cuda_device).manual_seed(1))
+    cache = M.init_cache(cfg, 2, 32)
+    lg, cache = M.prefill(cfg, params, toks, cache, impl="kernel")
+    pool = PagePool(PagedKVConfig(page_size=8, device_pages=12))
+    for pid in reversed(pool.alloc_pages(5)):
+        pool.decref_page(pid)
+    pc = PagedDecodeCache(cfg, 2, 32, page_size=8, pool=pool, impl="kernel")
+    pc.seed(cache)
+    tok = lg[:, -1, :cfg.vocab_size].argmax(-1, keepdim=True)
+    d0, p0 = da.launches, pg.launches
+    for _ in range(6):                        # positions 13..18: page 2 opens
+        lm, cache = M.decode_step(cfg, params, cache, tok, impl="kernel")
+        assert torch.equal(pc.step(params, tok), lm)
+        tok = lm[:, -1, :cfg.vocab_size].argmax(-1, keepdim=True)
+    assert (da.launches - d0, pg.launches - p0) == (6 * cfg.n_layers,) * 2
+    mat = torch.cat([tok, toks[:, :3]], 1)
+    lv, cache = M.verify_step(cfg, params, cache, mat, impl="kernel")
+    assert torch.equal(pc.verify(params, mat), lv)
+
+
+def test_prefix_server_on_card(cuda_device):
+    """The prefix cache served on the card: two epochs of one template,
+    the warm one prefilling only the uncached suffix through the paged
+    multi-query kernel; its tokens are a cold serve's."""
+    from repro_torch.serving import make_arrivals, requests_from_arrivals
+    cfg = get_smoke_config("llama3.3-70b")
+    params = M.init_params(cfg, torch.Generator(cuda_device).manual_seed(0))
+    arr = [dataclasses.replace(a, time_s=0.0) for a in make_arrivals(
+        "shared_prefix", 8, n_templates=1, prefix_len=24, prompt_len=32,
+        max_new_tokens=6, seed=0)]
+    prompts = [r.prompt for r in requests_from_arrivals(
+        arr, vocab_size=cfg.vocab_size)]
+
+    def serve(ps):
+        srv = LimeServer(cfg, params, max_len=64, pattern="bursty",
+                         prefix_cache=True, prefill_chunk_tokens=8,
+                         page_size=8)
+        for p in ps:
+            srv.queue.submit(p, 6)
+        done = sorted(srv.serve_all(), key=lambda r: r.rid)
+        return [r.output for r in done], srv.make_backend()
+
+    n0, p0 = mq.paged_launches, pg.launches
+    toks, be = serve(prompts)
+    # epoch 1: 4 rounds of 8; epoch 2: one round (24 of 32 cached)
+    assert mq.paged_launches - n0 == (4 + 1) * cfg.n_layers
+    assert pg.launches - p0 == 2 * 5 * cfg.n_layers
+    assert be.prefix_stats["prefill_tokens_saved"] == 4 * 24
+    assert toks[4:] == serve(prompts[4:])[0]

@@ -37,7 +37,9 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
 def test_port_has_sources_for_both_kernels():
     csrc = ROOT / "src" / "repro_torch" / "csrc"
     assert {"decode_attention.cu", "flash_attention.cu",
-            "mq_decode_attention.cu"} <= {p.name for p in csrc.glob("*.cu")}
+            "mq_decode_attention.cu", "paged_decode_attention.cu",
+            "mq_paged_decode_attention.cu"} \
+        <= {p.name for p in csrc.glob("*.cu")}
 
 
 @pytest.fixture
