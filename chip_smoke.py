@@ -9,7 +9,8 @@ Phases; any failure exits non-zero without the final ``ok`` line:
    kernels built from ``src/repro_torch/csrc`` (nvcc, sm_90a), TF32 off
    for every fp32 reference product.
 1. kernels against their plain PyTorch versions on the card, at the main
-   path's shapes and at ring-buffer / window / unaligned / offset cases,
+   path's shapes (Hymba's G 5 / dh 64 / window 1024 attention included)
+   and at ring-buffer / window / unaligned / offset cases,
    within a tolerance relative to the reference's size that is shown to
    reject planted off-by-one faults;
    at the main path's shapes the kernel's median device time (CUDA
@@ -20,7 +21,13 @@ Phases; any failure exits non-zero without the final ``ok`` line:
    shuffled non-contiguous block tables, ragged ctx, windows and dh 80 /
    page 16, reject planted faults (page index +-1, ctx - 1, row // G off
    by one, window - 1), and equal kernels 1 and 4 bit for bit on the
-   gathered cache.
+   gathered cache. The recurrent scans (6: WKV, 7: selective scan) run at
+   phase 3c's prefill and decode shapes and at S 7 / 50 with dh 32 / 128,
+   from a nonzero state, output and final state (updated in place) within
+   SCAN_REL; planted faults rejected (u dropped, decay on the v index, the
+   state updated before the output; B and C swapped, dt left out of the
+   update, decay exp(A) for exp(A dt)); two calls over the halves of a
+   sequence bit-equal to one.
 2. the single-device path: LLaMA-3.3-70B at full width, depth cut to 8
    of 80 layers, random weights from a seed, served through LimeServer ->
    ContinuousBatchingScheduler -> EngineBackend under bursty and sporadic
@@ -49,6 +56,20 @@ Phases; any failure exits non-zero without the final ``ok`` line:
    decode and verify logits bit-equal to the model's kernel path, the
    engine's chunked prefill (multi-query rounds) within the logit limit of
    the model's flash prefill.
+3c. the recurrent families on the single-device path, after phase 2's
+   weights are freed: RWKV6-3B, then Hymba-1.5B, each at full width and all
+   32 layers, random weights from seed 0, served bursty and sporadic
+   through LimeServer; every scheduler step launches exactly what it
+   implies (RWKV6: 32 WKV kernels per prefill and per decode step; Hymba:
+   32 flash and 32 scan kernels per prefill, 32 decode-attention and 32
+   scan kernels per decode step); the reference serve's tokens fed through
+   both impls (argmax equal or a near tie, logits within a fixed 10% of
+   |logit| max; the reference's own noise floor at this depth read and
+   held under 8%); the one-pass prefill's cache, last prompt logits and
+   next step against a token-by-token decode of the same 512-token
+   prompts. Printed: TTFT, ms/token, peak HBM, state bytes per sequence,
+   and a profiled serve (device time by class, each kernel's µs per call,
+   idle share).
 3b. the main path: all 80 layers of LLaMA-3.3-70B at full width (or the
    deepest cut, >= 40 layers, whose streamed tier the host's memory holds,
    printed as a cut), random weights from seed 0, through the
@@ -106,6 +127,12 @@ FP32_SIMT_FLOPS = 67e12            # fp32 outside the tensor cores
 # each main-shape check proves its tolerance sees such a fault.
 BF16_REL = 2.0 ** -6
 F32_REL = 2e-5    # fp32 paths: summation order and exp() implementation only
+# the recurrent scans run in fp32 and differ from their plain versions by
+# summation order over dh (or N) terms that partly cancel, and fused
+# multiply-adds: up to 7e-6 of a vector's largest |ref| between the plain
+# versions and the JAX scans on the CPU; the tests' SCAN_REL. Every planted
+# fault costs more than 1e-2.
+SCAN_REL = 1e-4
 # logits are bf16 (ulp 0.03 at |logit| ~ 4.5): the kernels keep fp32
 # probabilities where the reference rounds them to bf16, and 8 layers of
 # 8192-wide bf16 GEMMs carry that on; 5% of the largest |logit| is ~7 ulps
@@ -222,6 +249,13 @@ def check(name, out, ref, rel, faults=()):
     return err
 
 
+def head_shifted(plain, shift, q, *args, **kw):
+    """plain(q, *args, **kw) with query head h reading KV head
+    (h + shift) // G in place of h // G (the row // G mapping off by
+    `shift`): the heads are rolled through the function and back."""
+    return plain(q.roll(shift, 2), *args, **kw).roll(-shift, 2)
+
+
 def kernel_phase():
     import torch
     import torch.nn.functional as F
@@ -235,7 +269,8 @@ def kernel_phase():
 
     log("phase 1: decode_attention kernel vs plain version")
     # B, S_c, H, KV, dh, pos, window, ring, dtype, planted faults (label,
-    # arguments of the plain version that replace the right ones)
+    # arguments of the plain version that replace the right ones;
+    # "head_shift" shifts the row // G mapping, see head_shifted)
     dec_cases = [
         ("main B4 S1024 H64 KV8 dh128", 4, 1024, 64, 8, 128, 1023, None, False, bf16,
          [("current slot dropped: pos - 1", dict(pos=1022))]),
@@ -244,6 +279,10 @@ def kernel_phase():
         ("unaligned S100 dh80 w32", 2, 100, 4, 4, 80, 60, 32, False, bf16, []),
         ("gemma-like G4 dh256 ring", 2, 256, 4, 1, 256, 400, 128, True, bf16, []),
         ("fp32 S96 dh64 mostly-empty", 3, 96, 6, 2, 64, 10, None, False, f32, []),
+        # phase 3c's Hymba decode: G 5 in a partly filled tile, the last step
+        ("hymba B4 S1024 H25 KV5 dh64 pos543 w1024", 4, 1024, 25, 5, 64, 543, 1024,
+         False, bf16, [("current slot dropped: pos - 1", dict(pos=542)),
+                       ("row // G off by one", dict(head_shift=1))]),
     ]
     for name, B, S_c, H, KV, dh, pos, window, ring, dt, planted in dec_cases:
         q = randn((B, 1, H, dh), dt, gen)
@@ -253,9 +292,11 @@ def kernel_phase():
         out = da.decode_attention(q, k, v, ids, pos, window=window)
         torch.cuda.synchronize()
         ref = da.decode_attention_plain(q, k, v, ids, pos, window=window)
-        faults = [(label, da.decode_attention_plain(
-            q, k, v, ids, **{"pos": pos, "window": window, **kw}))
-            for label, kw in planted]
+        faults = []
+        for label, kw in planted:
+            kw = {"pos": pos, "window": window, **kw}
+            faults.append((label, head_shifted(
+                da.decode_attention_plain, kw.pop("head_shift", 0), q, k, v, ids, **kw)))
         err = check(name, out, ref, BF16_REL if dt == bf16 else F32_REL, faults)
         if name.startswith("main"):
             ms = time_ms(lambda: da.decode_attention(q, k, v, ids, pos))
@@ -275,7 +316,7 @@ def kernel_phase():
     log("phase 1: flash_attention kernel vs plain version")
     # B, Sq, Skv, H, KV, dh, causal, window, q_offset, dtype, planted faults
     # (label, arguments of the plain version that replace the right ones;
-    # "kv_keep" keeps only the first kv rows)
+    # "kv_keep" keeps only the first kv rows, "head_shift" as above)
     fl_cases = [
         ("main B4 S512 H64 KV8 dh128 causal", 4, 512, 512, 64, 8, 128, True, None, 0, bf16,
          [("diagonal dropped: q_offset - 1", dict(q_offset=-1)),
@@ -286,6 +327,10 @@ def kernel_phase():
          [("q_offset - 1", dict(q_offset=95))]),
         ("bidirectional S200 dh256", 1, 200, 200, 4, 1, 256, False, None, 0, bf16, []),
         ("fp32 unaligned S100 dh80", 1, 100, 100, 4, 2, 80, True, None, 0, f32, []),
+        # phase 3c's Hymba prefill: G 5 in a partly filled tile
+        ("hymba B4 S512 H25 KV5 dh64 causal w1024", 4, 512, 512, 25, 5, 64, True, 1024,
+         0, bf16, [("diagonal dropped: q_offset - 1", dict(q_offset=-1)),
+                   ("row // G off by one", dict(head_shift=1))]),
     ]
     for name, B, Sq, Skv, H, KV, dh, causal, window, q_off, dt, planted in fl_cases:
         q = randn((B, Sq, H, dh), dt, gen)
@@ -299,8 +344,9 @@ def kernel_phase():
         for label, bad in planted:
             bad = {**kw, **bad}
             n_kv = bad.pop("kv_keep", Skv)
-            faults.append((label, fa.flash_attention_plain(
-                q, k[:, :n_kv], v[:, :n_kv], **bad)))
+            faults.append((label, head_shifted(
+                fa.flash_attention_plain, bad.pop("head_shift", 0), q,
+                k[:, :n_kv], v[:, :n_kv], **bad)))
         err = check(name, out, ref, BF16_REL if dt == bf16 else F32_REL, faults)
         if name.startswith("main"):
             ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=True))
@@ -318,13 +364,14 @@ def kernel_phase():
                 ops_bound_ms=flops / BF16_TENSOR_FLOPS * 1e3)
     mq_phase(gen, rows)
     paged_phase(gen, rows)
+    scan_phase(gen, rows)
     for name, r in rows.items():
         bound = max(r["bytes_bound_ms"], r["ops_bound_ms"])
         r["bound_ms"] = bound
         r["bound_by"] = "bytes" if r["bytes_bound_ms"] >= r["ops_bound_ms"] else "operations"
         log(f"  {name} @ main shape: kernel {r['ms']:.4f} ms, bound {bound:.4f} ms "
             f"({r['bound_by']}; {r['bytes'] / 1e6:.1f} MB, {r['flops'] / 1e9:.2f} GFLOP), "
-            f"plain {r['plain_ms']:.4f} ms, sdpa {r['library_ms']} ms, "
+            f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']} ms, "
             f"roofline share {bound / r['ms']:.3f}")
     return rows
 
@@ -588,6 +635,146 @@ def paged_phase(gen, rows):
 
 
 # ----------------------------------------------------------------------------
+# phase 1: the recurrent scans (6: WKV, 7: selective scan)
+# ----------------------------------------------------------------------------
+def wkv_variant(r, k, v, w, u, S, decay_on_v=False, update_first=False):
+    """The WKV time loop with a planted fault: the decay on the v index of
+    the state instead of the k index, or the state updated before the
+    output reads it. Returns (out, final state)."""
+    import torch
+    rf, kf, vf = r.float(), k.float(), v.float()
+    uf = u.float()[None, :, :, None]
+    outs = []
+    for t in range(r.shape[1]):
+        a = kf[:, t, :, :, None] * vf[:, t, :, None, :]
+        wt = w[:, t, :, None, :] if decay_on_v else w[:, t, :, :, None]
+        if update_first:
+            S = wt * S + a
+        outs.append(torch.einsum("bhk,bhkd->bhd", rf[:, t], S + uf * a))
+        if not update_first:
+            S = wt * S + a
+    return torch.stack(outs, 1), S
+
+
+def ssm_variant(x, dt, bm, cm, A, h, dt_in_update=True, dt_in_decay=True):
+    """The selective scan's time loop with a planted fault: dt left out of
+    the update, or the decay exp(A) in place of exp(A dt)."""
+    import torch
+    dec = torch.exp(A[None, None, :, None]
+                    * (dt if dt_in_decay else torch.ones_like(dt))[..., None])
+    ys = []
+    for t in range(x.shape[1]):
+        dbx = bm[:, t, None, :, None].float() * x[:, t, :, None, :].float()
+        if dt_in_update:
+            dbx = dt[:, t, :, None, None] * dbx
+        h = dec[:, t, :, :, None] * h + dbx
+        ys.append(torch.einsum("bn,bhnd->bhd", cm[:, t].float(), h))
+    return torch.stack(ys, 1), h
+
+
+def scan_phase(gen, rows):
+    """Kernels 6 and 7 against their plain versions on the card: at the
+    serves' prefill shapes (RWKV6-3B: B 4, S 512, H 40, dh 64; Hymba-1.5B:
+    B 4, S 512, H 25, dh 64, N 16) and decode shapes (S = 1), at S 7 and 50
+    with dh 32 and 128 (B 1), every case from a nonzero initial state; both
+    the output and the final state (updated in place) within SCAN_REL of
+    each vector's largest |ref|; planted faults rejected; two calls over
+    the halves of a sequence bit-equal to one call; device times at the
+    prefill and decode shapes."""
+    import torch
+
+    from repro_torch.kernels.rwkv6_scan import ops as wkv
+    from repro_torch.kernels.ssm_scan import ops as ssm
+
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def wkv_in(B, S, H, dh):
+        r, k, v = (randn((B, S, H, dh), f32, gen).mul_(0.5).to(bf16) for _ in range(3))
+        w = torch.sigmoid(randn((B, S, H, dh), f32, gen)) * 0.9 + 0.05
+        u = randn((H, dh), f32, gen).mul_(0.1).to(bf16)
+        return r, k, v, w, u, randn((B, H, dh, dh), f32, gen).mul_(2)
+
+    def ssm_in(B, S, H, dh, N):
+        x = randn((B, S, H, dh), f32, gen).mul_(0.5).to(bf16)
+        dt = torch.nn.functional.softplus(randn((B, S, H), f32, gen))
+        bm, cm = (randn((B, S, N), f32, gen).mul_(0.5).to(bf16) for _ in range(2))
+        A = -torch.exp(randn((H,), f32, gen) * 0.3)
+        return x, dt, bm, cm, A, randn((B, H, N, dh), f32, gen)
+
+    # (name, kernel module, plain version, inputs, planted faults, key of
+    # the timed shapes or None)
+    cases = []
+    for shape in ((4, 512, 40, 64), (4, 1, 40, 64), (1, 7, 40, 32), (1, 50, 40, 128)):
+        a = wkv_in(*shape)
+        faults = []
+        if shape[1] == 512:
+            # (label, plain outputs with the fault, whether it changes
+            # the final state)
+            faults = [("u dropped",
+                       wkv.wkv_plain(*a[:4], torch.zeros_like(a[4]), a[5]), False),
+                      ("decay on the v index", wkv_variant(*a, decay_on_v=True), True),
+                      ("state updated before the output",
+                       wkv_variant(*a, update_first=True), False)]
+        cases.append(("wkv_scan B%d S%d H%d dh%d" % shape, wkv, wkv.wkv_plain, a, faults,
+                      "wkv_scan" if shape[1] == 512 else
+                      ("wkv_scan@decode" if shape[1] == 1 else None)))
+    for shape in ((4, 512, 25, 64, 16), (4, 1, 25, 64, 16), (1, 7, 25, 32, 16),
+                  (1, 50, 25, 128, 16)):
+        a = ssm_in(*shape)
+        faults = []
+        if shape[1] == 512:
+            x, dt, bm, cm, A, h0 = a
+            faults = [("B and C swapped", ssm.ssm_scan_plain(x, dt, cm, bm, A, h0), True),
+                      ("dt left out of the update",
+                       ssm_variant(*a, dt_in_update=False), True),
+                      ("decay exp(A), not exp(A dt)",
+                       ssm_variant(*a, dt_in_decay=False), True)]
+        cases.append(("ssm_scan B%d S%d H%d dh%d N%d" % shape, ssm, ssm.ssm_scan_plain, a,
+                      faults, "ssm_scan" if shape[1] == 512 else
+                      ("ssm_scan@decode" if shape[1] == 1 else None)))
+
+    for name, mod, plain, a, faults, key in cases:
+        log(f"phase 1: {name}, nonzero initial state")
+        fn = mod.wkv if mod is wkv else mod.ssm_scan
+        ref_o, ref_s = plain(*a)
+        s = a[5].clone()
+        out = fn(*a[:5], s)
+        torch.cuda.synchronize()
+        err = check(name + " output", out, ref_o, SCAN_REL,
+                    [(label, bad[0]) for label, bad, _ in faults])
+        check(name + " final state (in place)", s, ref_s, SCAN_REL,
+              [(label, bad[1]) for label, bad, touches in faults if touches])
+        S = a[0].shape[1]
+        if S > 1:          # chained: the halves of the sequence, state in place
+            h = S // 2
+            s2 = a[5].clone()
+            parts = [fn(*(t[:, lo:hi].contiguous() for t in a[:4]), a[4], s2)
+                     for lo, hi in ((0, h), (h, S))]
+            torch.cuda.synchronize()
+            same = torch.equal(torch.cat(parts, 1), out) and torch.equal(s2, s)
+            log(f"    two calls over steps [0, {h}) and [{h}, {S}) bit-equal to one "
+                f"call: {same}")
+            if not same:
+                raise AssertionError(f"{name}: state chaining differs")
+        if key is None:
+            continue
+        s_t = a[5].clone()
+        ms = time_ms(lambda: fn(*a[:5], s_t))
+        plain_ms = time_ms(lambda: plain(*a), reps=5 if S > 1 else 30)
+        B, _, H, dh = a[0].shape
+        # every input read once, the state read and written, out (fp32)
+        byts = nbytes(*a[:5]) + 2 * nbytes(a[5]) + nbytes(out)
+        # per state element and step: the dot product (2) and the update
+        # (3) of WKV's dh x dh state, the update and C·h of the N x dh one
+        flops = 5 * B * S * H * dh * (dh if mod is wkv else a[2].shape[-1])
+        rows[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                         bytes=byts, flops=flops,
+                         bytes_bound_ms=byts / HBM_BYTES_PER_S * 1e3,
+                         ops_bound_ms=flops / FP32_SIMT_FLOPS * 1e3)
+        log(f"    no single PyTorch call computes this scan: library time none")
+
+
+# ----------------------------------------------------------------------------
 # phase 2: the single-device path
 # ----------------------------------------------------------------------------
 def make_prompts(n, vocab, seed):
@@ -640,16 +827,19 @@ def forced_logits(cfg, params, prompts, feed, width, impl):
     return torch.stack(out)
 
 
-def compare_greedy(cfg, params, pattern, prompts, got, ref, width):
+def compare_greedy(cfg, params, pattern, prompts, got, ref, width,
+                   tol=LOGIT_REL_TOL, keep=None):
     """Every decoded position of every request. The reference serve's tokens
     are fed through both impls at the served batch shape. At each position:
     the reference's argmax is its served token (the forced run reproduces
-    the serve); the kernel path's logits lie within LOGIT_REL_TOL of the
-    largest |logit|; the kernel path's argmax is the reference's or a near
+    the serve); the kernel path's logits lie within tol of the largest
+    |logit|; the kernel path's argmax is the reference's or a near
     tie (the reference logit of its pick within the measured logit error of
     the reference's top). The kernel serve's tokens up to its first
     divergence from the reference serve are the kernel path's argmaxes.
-    Returns (positions compared, near-tie positions, worst error / |logit|)."""
+    Each batch's reference logits (T, n, V) are appended to `keep` where
+    given. Returns (positions compared, near-tie positions, worst error /
+    |logit|)."""
     import numpy as np
     n_pos = n_tie = 0
     worst = 0.0
@@ -661,6 +851,8 @@ def compare_greedy(cfg, params, pattern, prompts, got, ref, width):
         ps = [prompts[i] for i in idx]
         lk = forced_logits(cfg, params, ps, feed, width, "kernel")
         lr = forced_logits(cfg, params, ps, feed, width, "ref")
+        if keep is not None:
+            keep.append(lr)
         ak, ar = lk.argmax(-1), lr.argmax(-1)                 # (T, n)
         if not (ar.cpu().numpy().T == feed).all():
             raise AssertionError(f"{pattern}: the forced reference run does not "
@@ -668,7 +860,7 @@ def compare_greedy(cfg, params, pattern, prompts, got, ref, width):
         err = (lk - lr).abs().amax(-1)                        # (T, n)
         scale = lr.abs().amax(-1)
         gap = (lr.gather(-1, ar[..., None]) - lr.gather(-1, ak[..., None]))[..., 0]
-        far = err > LOGIT_REL_TOL * scale
+        far = err > tol * scale
         not_tie = (ak != ar) & (gap > err)
         worst = max(worst, (err / scale).max().item())
         for j, i in enumerate(idx):
@@ -770,6 +962,7 @@ def breakdown(cfg, params, card):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.configs.base import Family
     prompts = make_prompts(4, cfg.vocab_size, 7)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
@@ -852,10 +1045,13 @@ def kernel_counters():
     from repro_torch.kernels.decode_attention import ops as da
     from repro_torch.kernels.decode_attention import paged as pg
     from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.rwkv6_scan import ops as wkv
+    from repro_torch.kernels.ssm_scan import ops as ssm
     return {"decode_attention": (da, "launches"), "flash_attention": (fa, "launches"),
             "mq_decode_attention": (mq, "launches"),
             "paged_decode_attention": (pg, "launches"),
-            "mq_paged_decode_attention": (mq, "paged_launches")}
+            "mq_paged_decode_attention": (mq, "paged_launches"),
+            "wkv_scan": (wkv, "launches"), "ssm_scan": (ssm, "launches")}
 
 
 def read_counts():
@@ -1248,6 +1444,328 @@ def engine_check_phase(cfg, params, card):
 
 
 # ----------------------------------------------------------------------------
+# phase 3c: the recurrent families, full width and all 32 layers
+# ----------------------------------------------------------------------------
+RECURRENT_ARCHS = ("rwkv6-3b", "hymba-1.5b")
+# Depth amplifies rounding on random weights: one bf16 ulp that flips in
+# layer 0 (0.6% of the hidden state's largest |value|) grows to 5-8% by
+# layer 32 on the H100, whatever flipped it (the kernel path against the
+# reference, or the reference against itself at another batch shape of its
+# GEMMs; PERF.md). So the 32-layer serves hold the kernel path's logits to
+# a fixed RECURRENT_LOGIT_REL_TOL of the largest |logit|, above the 7.3%
+# found on the H100. The reference's own noise floor (noise_floor) is read
+# in the same run and must stay under NOISE_FLOOR_MAX (it read 6.6% and
+# 5.7%): a floor above it means the shared model code itself moved. A
+# prefill's states are held to STATE_REL_TOL of each layer entry's largest
+# |value|: the one-pass prefill and the token-by-token decode round their
+# bf16 GEMMs differently (B·512 rows against B), while a capture fault (an
+# empty cache, as the reference's hybrid prefill leaves it; K/V of shifted
+# positions; conv rows or a scan state of another step) is off by ~1.
+RECURRENT_LOGIT_REL_TOL = 0.10
+NOISE_FLOOR_MAX = 0.08
+STATE_REL_TOL = 0.25
+
+
+def step_launches(cfg, decode):
+    """What one scheduler step of the recurrent serves must launch: the
+    scan kernel once per layer, and for Hymba flash (prefill) or decode
+    attention (decode step) once per layer."""
+    from repro_torch.configs.base import Family
+    L = cfg.n_layers
+    want = dict.fromkeys(kernel_counters(), 0)
+    want["wkv_scan" if cfg.family == Family.SSM else "ssm_scan"] = L
+    if cfg.family == Family.HYBRID:
+        want["decode_attention" if decode else "flash_attention"] = L
+    return want
+
+
+def drive_recurrent(srv, prompts, pattern):
+    """Serve `prompts` under `pattern` one scheduler step at a time: every
+    step's launches must be what it implies (step_launches). Returns
+    (finished requests, scheduler stats)."""
+    import torch
+    from repro_torch.serving import (ContinuousBatchingScheduler, Request,
+                                     SchedulerConfig, cli_arrivals)
+    be = srv.make_backend()
+    arrivals = cli_arrivals(pattern, len(prompts), prompt_len=PROMPT_LEN,
+                            max_new_tokens=MAX_NEW, burst_size=srv.slots)
+    base = be.now()
+    reqs = [Request(i, p, ev.max_new_tokens, arrival_s=base + ev.time_s)
+            for i, (ev, p) in enumerate(zip(arrivals, prompts))]
+    sched = ContinuousBatchingScheduler(be, SchedulerConfig())
+    sched.begin(reqs)
+    n_prefill = 0
+    while True:
+        n_rounds = len(be.rounds)
+        c0 = read_counts()
+        if not sched.step():
+            break
+        torch.cuda.synchronize()
+        got = {k: v - c0[k] for k, v in read_counts().items()}
+        if len(be.rounds) > n_rounds:
+            want = step_launches(srv.cfg, decode=True)
+        elif any(got.values()):
+            want = step_launches(srv.cfg, decode=False)
+            n_prefill += 1
+        else:                                          # an idle jump
+            want = got
+        if got != want:
+            raise AssertionError(f"{pattern}: a step launched {got}, expected {want}")
+    if n_prefill != (1 if pattern == "bursty" else len(prompts)):
+        raise AssertionError(f"{pattern}: {n_prefill} prefill steps")
+    return sorted(sched.finish_run(), key=lambda r: r.rid), sched.stats
+
+
+def state_bytes(cache, batch):
+    """Bytes of a sequence's decode state: its rows of every per-layer
+    cache entry (K/V, pos_ids shared, recurrent states, shift and conv
+    rows)."""
+    return sum(t.numel() * t.element_size() for k, t in cache.items()
+               if k not in ("pos", "pos_ids")) / batch
+
+
+def noise_floor(cfg, params, prompts, feed, batch_logits):
+    """The reference path's own rounding noise at this depth: its logits
+    `batch_logits` (T, n, V) for the bursty batch (the reference serve's
+    tokens `feed` fed at width 4, from compare_greedy) against each request
+    fed alone (width 1), where only the batch shape of the GEMMs changes.
+    Returns the largest err / |logit| max."""
+    import torch
+    alone = torch.stack([forced_logits(cfg, params, [p], feed[i:i + 1], 1, "ref")[:, 0]
+                         for i, p in enumerate(prompts)], 1)
+    return ((alone - batch_logits).abs().amax(-1)
+            / batch_logits.abs().amax(-1)).max().item()
+
+
+def prefill_vs_stepwise(cfg, params, prompts, card):
+    """The one-pass prefill's cache, then one decode step, against a
+    token-by-token decode_step run of the same prompts from an empty cache
+    (both through the kernels): the last prompt position's logits and the
+    next step's within RECURRENT_LOGIT_REL_TOL of the largest |logit|, the
+    next step greedy equal or a near tie; each per-layer state entry within
+    STATE_REL_TOL of its largest |value|."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import model as M
+    V = cfg.vocab_size
+    tol = RECURRENT_LOGIT_REL_TOL
+    toks = torch.from_numpy(np.stack(prompts)).long().cuda()
+    B, S = toks.shape
+    pc = M.init_cache(cfg, B, MAX_LEN)
+    lp, pc = M.prefill(cfg, params, toks, pc, impl="kernel")
+    sc = M.init_cache(cfg, B, MAX_LEN)
+    t0 = time.monotonic()
+    for t in range(S):
+        ls, sc = M.decode_step(cfg, params, sc, toks[:, t:t + 1], impl="kernel")
+    torch.cuda.synchronize()
+    t_steps = time.monotonic() - t0
+    a0, b0 = lp[:, -1, :V].float(), ls[:, -1, :V].float()
+    err0, scale0 = (a0 - b0).abs().max().item(), b0.abs().max().item()
+    nxt = ls[:, -1, :V].argmax(-1, keepdim=True)
+    lp, pc = M.decode_step(cfg, params, pc, nxt, impl="kernel")
+    ls, sc = M.decode_step(cfg, params, sc, nxt, impl="kernel")
+    a, b = lp[:, -1, :V].float(), ls[:, -1, :V].float()
+    err = (a - b).abs().max().item()
+    scale = b.abs().max().item()
+    ties = argmax_or_tie(f"{cfg.name} prefill vs token-by-token", a, b, err)
+    worst = {}
+    for key, ref in sc.items():
+        if key in ("pos", "pos_ids"):
+            continue
+        got = pc[key].float()
+        d = (got - ref.float()).flatten(1).abs().amax(1) \
+            / ref.float().flatten(1).abs().amax(1)            # per layer
+        worst[key] = (d.max().item(), int(d.argmax()), d[0].item())
+    log(f"  {cfg.name}: prefill + 1 step vs {S} token-by-token decode steps "
+        f"({t_steps:.1f} s) + 1: last prompt logit err {err0:.4f} at |logit| max "
+        f"{scale0:.2f}, next-step logit err {err:.4f} at |logit| max {scale:.2f} "
+        f"(tol {tol} of it), {ties} near ties of {B} picks; per-layer state err / "
+        f"max |value| (worst, at layer, layer 0): "
+        + ", ".join(f"{k} {w:.3g} @{l}, {z:.3g}" for k, (w, l, z) in worst.items())
+        + f" (tol {STATE_REL_TOL}) [{card}]")
+    if err0 > tol * scale0:
+        raise AssertionError(f"{cfg.name}: prefill's last prompt logits off the "
+                             "token-by-token run")
+    if err > tol * scale:
+        raise AssertionError(f"{cfg.name}: prefill's next step off the token-by-token run")
+    if pc["pos"] != sc["pos"] or ("pos_ids" in pc
+                                  and not torch.equal(pc["pos_ids"], sc["pos_ids"])):
+        raise AssertionError(f"{cfg.name}: prefill positions differ")
+    bad = {k: w for k, (w, _, _) in worst.items() if w > STATE_REL_TOL}
+    if bad:
+        raise AssertionError(f"{cfg.name}: prefill states off the token-by-token run {bad}")
+
+
+def recurrent_breakdown(cfg, params, card):
+    """Device time by kernel class over one bursty serve under the profiler
+    (GEMMs, the scan, the attention kernels, other), each port kernel's µs
+    per call, and the device's idle share of the serve's wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.base import Family
+    prompts = make_prompts(4, cfg.vocab_size, 7)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        serve(cfg, params, "bursty", prompts, "kernel")
+        torch.cuda.synchronize()
+        wall_us = (time.monotonic() - t0) * 1e6
+    scan = "wkv_scan" if cfg.family == Family.SSM else "ssm_scan"
+    by = {scan: 0.0, "flash_attention": 0.0, "decode_attention": 0.0, "gemm": 0.0,
+          "other": 0.0}
+    # the scan's launches in time order: the first n_layers are the
+    # prefill's (the serve prefills once), the rest decode steps'
+    scan_us = sorted((e.time_range.start, e.time_range.elapsed_us())
+                     for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and "repro" in e.name and scan + "_kernel" in e.name)
+    L = cfg.n_layers
+    if len(scan_us) != L * MAX_NEW:
+        raise AssertionError(f"breakdown: {len(scan_us)} {scan} kernel events, "
+                             f"expected {L * MAX_NEW}")
+    pre_us = sum(d for _, d in scan_us[:L]) / L
+    dec_us = sum(d for _, d in scan_us[L:]) / (L * (MAX_NEW - 1))
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        name = e.key.lower()
+        m = re.search(r"(wkv|ssm|decode|flash)_[a-z0-9_]*?kernel", name) \
+            if "repro" in name else None
+        if m is not None:
+            cls = {"wkv": "wkv_scan", "ssm": "ssm_scan", "decode": "decode_attention",
+                   "flash": "flash_attention"}[m.group(1)]
+        elif any(x in name for x in ("gemm", "nvjet", "xmma", "cutlass")):
+            cls = "gemm"
+        else:
+            cls = "other"
+        by[cls] += us
+    calls = {scan: L * MAX_NEW, "flash_attention": L, "decode_attention": L * (MAX_NEW - 1)}
+    if scan == "wkv_scan":
+        calls["flash_attention"] = calls["decode_attention"] = 0
+    for cls, n in calls.items():
+        if n and by[cls] <= 0:
+            raise AssertionError(f"breakdown: no device time for {cls}, whose kernels ran")
+    busy = sum(by.values())
+    per = ", ".join(f"{c} {by[c] / n:.2f} us per call ({n} calls)"
+                    for c, n in calls.items() if n)
+    parts = ", ".join(f"{k} {v / 1e3:.2f} ms ({v / busy:.1%})" for k, v in by.items())
+    log(f"  {cfg.name} bursty serve under the profiler: {per}; {scan} {pre_us:.2f} us "
+        f"per prefill call (S {PROMPT_LEN}, {L} calls), {dec_us:.2f} us per decode "
+        f"call ({L * (MAX_NEW - 1)} calls); device time {parts}; "
+        f"busy {busy / 1e3:.2f} ms of {wall_us / 1e3:.2f} ms wall, idle share "
+        f"{1 - busy / wall_us:.1%} [{card}]")
+
+
+def recurrent_serve(arch, card):
+    """One recurrent config at full width and all 32 layers, random weights
+    from seed 0, through LimeServer -> scheduler -> EngineBackend (the
+    single-device path), bursty and sporadic, with exact launch counts; the
+    reference tokens (impl="ref") fed through both impls; prefill against
+    token-by-token decode; a profiled serve. Returns the serves' launches.
+    Everything it allocates dies with its frame."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.serving import LimeServer, summarize
+
+    cfg = get_config(arch)
+    t0 = time.monotonic()
+    t_lap = [t0]
+
+    def lap(what):
+        now = time.monotonic()
+        log(f"  {what}: {now - t_lap[0]:.1f} s")
+        t_lap[0] = now
+
+    before = torch.cuda.memory_allocated()
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_par = sum(t.numel() for t in _leaves(params))
+    log(f"phase 3c: {cfg.name} ({cfg.family.value}) at full width and all "
+        f"{cfg.n_layers} layers (d_model {cfg.d_model}, {cfg.n_heads} heads, "
+        f"{cfg.n_kv_heads} kv heads, {cfg.ssm_heads} ssm heads, N "
+        f"{cfg.ssm_state_size}, window {cfg.window_size}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}): {n_par / 1e9:.3f} B params in "
+        f"{time.monotonic() - t0:.1f} s; {before / 1e9:.2f} GB allocated before them")
+    serve(cfg, params, "bursty", make_prompts(4, cfg.vocab_size, 99), "kernel",
+          max_new=2)
+    serve(cfg, params, "sporadic", make_prompts(1, cfg.vocab_size, 99), "kernel",
+          max_new=2)
+    torch.cuda.synchronize()
+    lap(f"{cfg.name} parameters and warm-up serves")
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    outs = {}
+    for pattern, n_req in (("bursty", 4), ("sporadic", 2)):
+        prompts = make_prompts(n_req, cfg.vocab_size, 0)
+        srv = LimeServer(cfg, params, max_len=MAX_LEN, pattern=pattern)
+        done, stats = drive_recurrent(srv, prompts, pattern)
+        rep = summarize(done, pattern=pattern, backend="single-device", stats=stats)
+        log(f"  {pattern}: {rep.n_requests} requests x {MAX_NEW} tokens, prompt "
+            f"{PROMPT_LEN}: TTFT p50 {rep.ttft_p50_s * 1e3:.2f} ms, p99 "
+            f"{rep.ttft_p99_s * 1e3:.2f} ms, decode {1e3 / rep.decode_tok_s_p50:.3f} "
+            f"ms/token per request (p50) [{card}; {cfg.name}, {cfg.n_layers} layers]")
+        outs[pattern] = (prompts, done)
+    got = read_counts()
+    lap(f"{cfg.name} kernel serves")
+    cache = M.init_cache(cfg, 1, MAX_LEN)
+    log(f"  launches {got}; peak HBM {torch.cuda.max_memory_allocated() / 1e9:.2f} "
+        f"GB; decode state per sequence {state_bytes(cache, 1) / 1e6:.2f} MB at "
+        f"max_len {MAX_LEN} [{card}]")
+    log(f"phase 3c: {cfg.name} re-served on the reference math (impl='ref'), both "
+        "impls fed the reference's tokens at the served batch shape")
+    refs = {pattern: serve(cfg, params, pattern, prompts, "ref")
+            for pattern, (prompts, _) in outs.items()}
+    lap(f"{cfg.name} reference serves")
+    tol = RECURRENT_LOGIT_REL_TOL
+    ref_logits = []
+    for pattern, (prompts, done) in outs.items():
+        width = LimeServer(cfg, params, pattern=pattern).slots
+        n_pos, n_tie, worst = compare_greedy(cfg, params, pattern, prompts, done,
+                                             refs[pattern], width, tol, ref_logits)
+        n_same = sum(a.output == b.output for a, b in zip(done, refs[pattern]))
+        log(f"  {pattern}: {n_same}/{len(done)} requests token-identical; "
+            f"{n_pos} positions compared, {n_tie} near ties, worst logit err "
+            f"{worst:.4f} of |logit| max (tol {tol})")
+    lap(f"{cfg.name} forced passes of both impls")
+    prompts = outs["bursty"][0]
+    floor = noise_floor(cfg, params, prompts,
+                        np.array([r.output for r in refs["bursty"]], np.int64),
+                        ref_logits[0])
+    log(f"  the reference's own noise floor: each bursty request fed alone against "
+        f"the 4-wide batch, logit err up to {floor:.4f} of |logit| max (at most "
+        f"{NOISE_FLOOR_MAX}) [{card}]")
+    if floor > NOISE_FLOOR_MAX:
+        raise AssertionError(f"{cfg.name}: the reference's own noise floor {floor:.4f} "
+                             f"is above {NOISE_FLOOR_MAX}")
+    lap(f"{cfg.name} noise floor")
+    prefill_vs_stepwise(cfg, params, prompts, card)
+    lap(f"{cfg.name} prefill vs token-by-token")
+    recurrent_breakdown(cfg, params, card)
+    lap(f"{cfg.name} profiled serve")
+    return got
+
+
+def recurrent_phase(card):
+    """Phase 3c: recurrent_serve for RWKV6-3B, then Hymba-1.5B, each on a
+    card holding nothing of the other. Returns the summed launches."""
+    import torch
+    launches = {}
+    for arch in RECURRENT_ARCHS:
+        for k, n in recurrent_serve(arch, card).items():
+            launches[k] = launches.get(k, 0) + n
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
+# ----------------------------------------------------------------------------
 # phase 3b: the main path, 80 layers through the engine
 # ----------------------------------------------------------------------------
 def meminfo():
@@ -1479,7 +1997,6 @@ def full_model_phase(card):
     from repro_torch.serving import LimeServer, summarize
     from repro_torch.specdec import SpecConfig
 
-    t_phase = time.monotonic()
     base = get_config("llama3.3-70b")
     free, total = torch.cuda.mem_get_info()
     mem = meminfo()
@@ -1608,7 +2125,6 @@ def full_model_phase(card):
         log(f"  {pattern}: {n_pos} positions compared, {n_tie} near ties, worst "
             f"verify-vs-decode logit err {worst:.4f} of |logit| max")
     eng.close()
-    log(f"phase 3b done in {time.monotonic() - t_phase:.1f} s")
     return launches, L
 
 
@@ -1650,16 +2166,32 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log("  ptxas: " + line.strip())
 
+        t_run = time.monotonic()
+
+        def done(phase, t):
+            log(f"phase {phase} done in {time.monotonic() - t:.1f} s "
+                f"({time.monotonic() - t_run:.1f} s since phase 1 began)")
+            return time.monotonic()
+
+        t = time.monotonic()
         rows = kernel_phase()
+        t = done(1, t)
         launches, cfg8, params8 = main_path_phase(card)
+        t = done(2, t)
         prefix_launches, serve_us = prefix_phase(cfg8, params8, card)
         for k, n in prefix_launches.items():
             launches[k] = launches.get(k, 0) + n
+        t = done("2b", t)
         engine_check_phase(cfg8, params8, card)
+        t = done("3a", t)
         del params8
         gc.collect()
         torch.cuda.empty_cache()
+        for k, n in recurrent_phase(card).items():
+            launches[k] = launches.get(k, 0) + n
+        t = done("3c", t)
         engine_launches, depth = full_model_phase(card)
+        done("3b", t)
         for k, n in engine_launches.items():
             launches[k] = launches.get(k, 0) + n
 
@@ -1675,7 +2207,11 @@ def main() -> int:
                  "src/repro/kernels/decode_attention/paged.py:119"),
                 ("mq_paged_decode_attention",
                  "src/repro_torch/csrc/mq_paged_decode_attention.cu",
-                 "src/repro/kernels/decode_attention/multiquery.py:248")):
+                 "src/repro/kernels/decode_attention/multiquery.py:248"),
+                ("wkv_scan", "src/repro_torch/csrc/wkv_scan.cu",
+                 "src/repro/kernels/rwkv6_scan/kernel.py:80"),
+                ("ssm_scan", "src/repro_torch/csrc/ssm_scan.cu",
+                 "src/repro/kernels/ssm_scan/kernel.py:80")):
             r = rows[name]
             if launches[name] <= 0:
                 raise AssertionError(f"{name} never launched on the main path")

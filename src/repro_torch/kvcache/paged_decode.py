@@ -45,8 +45,8 @@ def _check(cfg: ModelConfig, impl: str) -> None:
     if cfg.family != Family.DENSE or cfg.parallel_block:
         raise NotImplementedError(
             f"paged decode in the port serves the dense family, not "
-            f"{cfg.family} (recurrent state is O(1) per sequence: nothing "
-            f"to page)")
+            f"{cfg.family} (a recurrent state per sequence that shared "
+            f"pages cannot hold)")
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, not {impl!r}")
 

@@ -11,6 +11,11 @@ Otherwise the single-device path serves it.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.3-70b \\
       --smoke --pattern bursty --requests 4 --max-new 16
 
+  # the SSM and hybrid families (RWKV6-3B, Hymba-1.5B) on the
+  # single-device path, the smoke-sized configs on the CPU:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \\
+      --smoke --device cpu --pattern bursty --requests 4 --max-new 8
+
   # the engine with resident self-speculation on the CPU: a forced weight
   # budget streams half of the layers (plain versions of the kernels):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.3-70b \\

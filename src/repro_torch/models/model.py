@@ -1,17 +1,24 @@
-"""Dense decoder model (counterpart of ``repro.models.model``, Family.DENSE).
+"""Decoder models (counterpart of ``repro.models.model``): the dense
+family, the SSM family (RWKV6) and the hybrid family (Hymba: attention and
+Mamba heads side by side in each block).
 
 * ``build_param_specs(cfg)`` / ``init_params(cfg, generator, device)`` —
   the parameter tree in the JAX package's layout, layers stacked on a
   leading L axis
-* ``init_cache`` — per-layer K/V (L, B, S_c, KV, dh), ``pos_ids`` (S_c,)
-  starting at -1, and ``pos``
-* ``prefill`` — the prompt pass, filling the cache (ring-rolled when the
-  prompt outruns it) and returning last-token logits
-* ``decode_step`` — one token, written at slot ``pos % S_c``
+* ``init_cache`` — per family: K/V (L, B, S_c, KV, dh), ``pos_ids`` (S_c,)
+  starting at -1 (dense, hybrid); the RWKV state (L, B, H, dh, dh) fp32 and
+  the two token-shift rows (L, B, D) (SSM); the conv rows (L, B, 3,
+  H_ssm·dh) and the scan state (L, B, H_ssm, N, dh) fp32 (hybrid); and
+  ``pos``
+* ``prefill`` — the prompt pass, filling the cache (K/V ring-rolled when
+  the prompt outruns the cache, the recurrent states as the scans leave
+  them) and returning last-token logits
+* ``decode_step`` — one token, written at slot ``pos % S_c``; the
+  recurrent families advance their states by one step
 * ``verify_step`` — q_len tokens in one pass (speculative verification
   and the engine's chunked prefill), written contiguously from slot
-  ``pos % S_c``
-* ``decode_layer`` — the one per-layer body that ``decode_step``,
+  ``pos % S_c``; dense only (a recurrent state cannot roll back by masking)
+* ``decode_layer`` — the one dense per-layer body that ``decode_step``,
   ``verify_step`` and the interleaved engine all run
 * ``init_params_by_layer`` — shared weights plus a layer *source* that
   draws each layer on demand, for models whose layers do not fit the card
@@ -36,16 +43,30 @@ from repro_torch.models.attention import (IMPLS, attention_specs, attn_decode,
                                           attn_decode_multi, attn_forward)
 from repro_torch.models.modules import (embed, embed_specs, mlp, mlp_specs,
                                         rms_norm, rms_norm_spec, unembed)
+from repro_torch.models.ssm import (mamba_forward, mamba_head_specs,
+                                    rwkv_channelmix, rwkv_channelmix_specs,
+                                    rwkv_timemix, rwkv_timemix_specs)
 
 GLOBAL_WINDOW = 2 ** 30   # sentinel: effectively unwindowed
 
 
+FAMILIES = (Family.DENSE, Family.SSM, Family.HYBRID)
+
+
 def _check(cfg: ModelConfig, impl: str) -> None:
-    if cfg.family != Family.DENSE or cfg.parallel_block:
+    if cfg.family not in FAMILIES or cfg.parallel_block:
         raise NotImplementedError(
-            f"the port runs the dense family so far, not {cfg.family}")
+            f"the port runs the dense, SSM and hybrid families so far, not "
+            f"{cfg.family}")
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, not {impl!r}")
+
+
+def _check_dense(cfg: ModelConfig, what: str) -> None:
+    if cfg.family != Family.DENSE or cfg.parallel_block:
+        raise NotImplementedError(
+            f"{what} needs pure-KV per-layer state (the dense family), not "
+            f"{cfg.family}")
 
 
 # ============================================================================
@@ -61,11 +82,39 @@ def _dense_layer_specs(cfg: ModelConfig) -> dict:
     }
 
 
+def _rwkv_layer_specs(cfg: ModelConfig) -> dict:
+    return {
+        "ln1": rms_norm_spec(cfg.d_model),
+        "tm": rwkv_timemix_specs(cfg.d_model, cfg.n_heads, cfg.head_dim),
+        "ln2": rms_norm_spec(cfg.d_model),
+        "cm": rwkv_channelmix_specs(cfg.d_model, cfg.d_ff),
+    }
+
+
+def _hymba_layer_specs(cfg: ModelConfig) -> dict:
+    return {
+        "ln1": rms_norm_spec(cfg.d_model),
+        "attn": attention_specs(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                                cfg.head_dim),
+        "mamba": mamba_head_specs(cfg.d_model, cfg.ssm_heads, cfg.head_dim,
+                                  cfg.ssm_state_size),
+        "ln_attn": rms_norm_spec(cfg.n_heads * cfg.head_dim),
+        "ln_ssm": rms_norm_spec(cfg.ssm_heads * cfg.head_dim),
+        "w_fuse": pspec.ParamSpec((cfg.n_heads * cfg.head_dim, cfg.d_model)),
+        "ln2": rms_norm_spec(cfg.d_model),
+        "mlp": mlp_specs(cfg.d_model, cfg.d_ff),
+    }
+
+
+_LAYER_SPECS = {Family.DENSE: _dense_layer_specs, Family.SSM: _rwkv_layer_specs,
+                Family.HYBRID: _hymba_layer_specs}
+
+
 def build_param_specs(cfg: ModelConfig) -> dict:
     _check(cfg, "ref")
     specs = dict(embed_specs(cfg.vocab_size, cfg.d_model, cfg.tie_embeddings))
     specs["final_norm"] = rms_norm_spec(cfg.d_model)
-    specs["layers"] = pspec.stack(_dense_layer_specs(cfg), cfg.n_layers)
+    specs["layers"] = pspec.stack(_LAYER_SPECS[cfg.family](cfg), cfg.n_layers)
     return specs
 
 
@@ -87,7 +136,7 @@ def init_params_by_layer(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     fan-in quirk). The values differ from init_params' (other random
     streams); the interleaved engine builds its tiers from such a source
     so the whole model never sits on the card at once."""
-    _check(cfg, "ref")
+    _check_dense(cfg, "the layer source of the interleaved engine")
     dev = resolve_device(device)
     shared = dict(embed_specs(cfg.vocab_size, cfg.d_model, cfg.tie_embeddings))
     shared["final_norm"] = rms_norm_spec(cfg.d_model)
@@ -149,49 +198,124 @@ def kv_cache_len(cfg: ModelConfig, max_len: int, long_mode: bool = False) -> int
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                long_mode: bool = False, device=None) -> dict:
+    _check(cfg, "ref")
     dev = resolve_device(device)
+    L = cfg.n_layers
+    cache = {"pos": 0}
     S_c = kv_cache_len(cfg, max_len, long_mode)
-    kv = (cfg.n_layers, batch, S_c, cfg.n_kv_heads, cfg.head_dim)
-    return {
-        "pos": 0,
-        "k": torch.zeros(kv, dtype=torch.bfloat16, device=dev),
-        "v": torch.zeros(kv, dtype=torch.bfloat16, device=dev),
-        "pos_ids": torch.full((S_c,), -1, dtype=torch.int32, device=dev),
-    }
+    if S_c:
+        kv = (L, batch, S_c, cfg.n_kv_heads, cfg.head_dim)
+        cache["k"] = torch.zeros(kv, dtype=torch.bfloat16, device=dev)
+        cache["v"] = torch.zeros(kv, dtype=torch.bfloat16, device=dev)
+        cache["pos_ids"] = torch.full((S_c,), -1, dtype=torch.int32,
+                                      device=dev)
+    if cfg.family == Family.SSM:
+        cache["rwkv_state"] = torch.zeros(
+            (L, batch, cfg.n_heads, cfg.head_dim, cfg.head_dim),
+            dtype=torch.float32, device=dev)
+        for key in ("last_tm", "last_cm"):
+            cache[key] = torch.zeros((L, batch, cfg.d_model),
+                                     dtype=torch.bfloat16, device=dev)
+    if cfg.family == Family.HYBRID:
+        d_inner = cfg.ssm_heads * cfg.head_dim
+        cache["conv_state"] = torch.zeros((L, batch, 3, d_inner),
+                                          dtype=torch.bfloat16, device=dev)
+        cache["ssm_state"] = torch.zeros(
+            (L, batch, cfg.ssm_heads, cfg.ssm_state_size, cfg.head_dim),
+            dtype=torch.float32, device=dev)
+    return cache
+
+
+# ============================================================================
+# Recurrent layer bodies (one body for a prompt and for one token)
+# ============================================================================
+def _rwkv_layer(cfg: ModelConfig, p: dict, x: torch.Tensor, cache: dict,
+                l: int, *, impl: str) -> torch.Tensor:
+    """One RWKV6 layer over x (B, S, D), advancing layer l's token-shift
+    rows and WKV state in the cache in place."""
+    h, _, _ = rwkv_timemix(p["tm"], rms_norm(x, p["ln1"], cfg.norm_eps),
+                           cache["last_tm"][l], cache["rwkv_state"][l],
+                           n_heads=cfg.n_heads, head_dim=cfg.head_dim,
+                           norm_eps=cfg.norm_eps, impl=impl)
+    x = x + h
+    h, _ = rwkv_channelmix(p["cm"], rms_norm(x, p["ln2"], cfg.norm_eps),
+                           cache["last_cm"][l])
+    return x + h
+
+
+def _hymba_rest(cfg: ModelConfig, p: dict, x: torch.Tensor, xn: torch.Tensor,
+                a_out: torch.Tensor, cache: dict, l: int, *,
+                impl: str) -> torch.Tensor:
+    """The rest of a Hymba layer once its attention a_out over the normed
+    xn is known: the Mamba heads on xn (layer l's conv rows and scan state
+    advanced in place), the fused head groups, then the MLP."""
+    m_out, _, _ = mamba_forward(p["mamba"], xn, cache["conv_state"][l],
+                                cache["ssm_state"][l], n_heads=cfg.ssm_heads,
+                                head_dim=cfg.head_dim,
+                                ssm_size=cfg.ssm_state_size,
+                                norm_eps=cfg.norm_eps, impl=impl)
+    fused = 0.5 * (rms_norm(a_out, p["ln_attn"], cfg.norm_eps)
+                   + rms_norm(m_out, p["ln_ssm"], cfg.norm_eps))
+    x = x + fused @ p["w_fuse"]
+    return x + mlp(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps))
 
 
 # ============================================================================
 # Prefill and decode
 # ============================================================================
-def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor, cache: dict,
-            *, impl: str = "ref"):
-    """Run the prompt, fill the cache in place, return (last-token logits
-    (B, 1, PV), cache). tokens: (B, S) int."""
-    _check(cfg, impl)
-    B, S = tokens.shape
-    S_c = cache["k"].shape[2]
-    x = embed(params, tokens).to(torch.bfloat16)
-    for l, window in enumerate(layer_windows(cfg, cfg.n_layers)):
-        p = layer_params(params, l)
-        xn = rms_norm(x, p["ln1"], cfg.norm_eps)
-        a_out, (k, v) = attn_forward(p["attn"], xn, rope_theta=cfg.rope_theta,
-                                     causal=True, window=window, impl=impl)
-        x = x + a_out
-        x = x + mlp(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps))
-        if S <= S_c:      # contiguous fill at slots [0, S)
-            cache["k"][l, :, :S] = k
-            cache["v"][l, :, :S] = v
-        else:             # ring: keep the last S_c tokens; slot(p) = p mod S_c
-            sh = S % S_c
-            cache["k"][l] = torch.roll(k[:, S - S_c:], sh, dims=1)
-            cache["v"][l] = torch.roll(v[:, S - S_c:], sh, dims=1)
-    ar = torch.arange(S_c, dtype=torch.int32, device=tokens.device)
+def _write_kv(cache: dict, l: int, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Layer l's prompt K/V (B, S, KV, dh) into the cache: slots [0, S), or
+    the last S_c positions ring-rolled so that slot(p) = p mod S_c."""
+    S, S_c = k.shape[1], cache["k"].shape[2]
+    if S <= S_c:
+        cache["k"][l, :, :S] = k
+        cache["v"][l, :, :S] = v
+    else:
+        sh = S % S_c
+        cache["k"][l] = torch.roll(k[:, S - S_c:], sh, dims=1)
+        cache["v"][l] = torch.roll(v[:, S - S_c:], sh, dims=1)
+
+
+def _prompt_pos_ids(cache: dict, S: int) -> None:
+    pos_ids = cache["pos_ids"]
+    S_c = pos_ids.shape[0]
+    ar = torch.arange(S_c, dtype=torch.int32, device=pos_ids.device)
     if S <= S_c:
         ids = torch.where(ar < S, ar, torch.full_like(ar, -1))
     else:
         ids = torch.roll(ar + (S - S_c), S % S_c)
-    cache["pos_ids"].copy_(ids)
-    cache["pos"] = S
+    pos_ids.copy_(ids)
+
+
+def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor, cache: dict,
+            *, impl: str = "ref"):
+    """Run the prompt, fill the cache in place, return (last-token logits
+    (B, 1, PV), cache). tokens: (B, S) int. The SSM family continues from
+    the cache's states and position (as the reference's _ssm_prefill);
+    the attention families start from an empty cache."""
+    _check(cfg, impl)
+    B, S = tokens.shape
+    x = embed(params, tokens).to(torch.bfloat16)
+    windows = layer_windows(cfg, cfg.n_layers)
+    for l in range(cfg.n_layers):
+        p = layer_params(params, l)
+        if cfg.family == Family.SSM:
+            x = _rwkv_layer(cfg, p, x, cache, l, impl=impl)
+            continue
+        xn = rms_norm(x, p["ln1"], cfg.norm_eps)
+        a_out, (k, v) = attn_forward(p["attn"], xn, rope_theta=cfg.rope_theta,
+                                     causal=True, window=windows[l], impl=impl)
+        _write_kv(cache, l, k, v)
+        if cfg.family == Family.HYBRID:
+            x = _hymba_rest(cfg, p, x, xn, a_out, cache, l, impl=impl)
+        else:
+            x = x + a_out
+            x = x + mlp(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps))
+    if "pos_ids" in cache:
+        _prompt_pos_ids(cache, S)
+        cache["pos"] = S
+    else:
+        cache["pos"] += S
     x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
     return unembed(params, x), cache
 
@@ -219,10 +343,10 @@ def new_positions(cache: dict, q_len: int) -> int:
 def decode_layer(cfg: ModelConfig, p: dict, x: torch.Tensor, cache: dict,
                  l: int, slot: int, window: int, *, impl: str,
                  multi: bool) -> torch.Tensor:
-    """One decoder layer over x (B, q_len, D) at positions cache["pos"] +
-    i, writing its K/V into layer l's cache rows from `slot`. multi picks
-    the multi-query attention of verify_step (any q_len) over the
-    one-token attention of decode_step (q_len 1)."""
+    """One dense decoder layer over x (B, q_len, D) at positions
+    cache["pos"] + i, writing its K/V into layer l's cache rows from
+    `slot`. multi picks the multi-query attention of verify_step (any
+    q_len) over the one-token attention of decode_step (q_len 1)."""
     attn = attn_decode_multi if multi else attn_decode
     xn = rms_norm(x, p["ln1"], cfg.norm_eps)
     x = x + attn(p["attn"], xn, cache["k"][l], cache["v"][l],
@@ -231,14 +355,39 @@ def decode_layer(cfg: ModelConfig, p: dict, x: torch.Tensor, cache: dict,
     return x + mlp(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps))
 
 
+def _hymba_decode_layer(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                        cache: dict, l: int, slot: int, window: int, *,
+                        impl: str) -> torch.Tensor:
+    """One Hymba layer over one token x (B, 1, D): its K/V written at
+    `slot`, its recurrent state advanced by one step."""
+    xn = rms_norm(x, p["ln1"], cfg.norm_eps)
+    a_out = attn_decode(p["attn"], xn, cache["k"][l], cache["v"][l],
+                        cache["pos_ids"], cache["pos"], slot,
+                        rope_theta=cfg.rope_theta, window=window, impl=impl)
+    return _hymba_rest(cfg, p, x, xn, a_out, cache, l, impl=impl)
+
+
 def _step(cfg, params, cache, tokens, *, impl, multi, long_mode=False):
     _check(cfg, impl)
+    if multi:
+        _check_dense(cfg, "speculative verification")
     pos = cache["pos"]
     x = embed(params, tokens).to(torch.bfloat16)
-    slot = new_positions(cache, tokens.shape[1])
-    for l, window in enumerate(layer_windows(cfg, cfg.n_layers, long_mode)):
-        x = decode_layer(cfg, layer_params(params, l), x, cache, l, slot,
-                         window, impl=impl, multi=multi)
+    if cfg.family == Family.SSM:
+        for l in range(cfg.n_layers):
+            x = _rwkv_layer(cfg, layer_params(params, l), x, cache, l,
+                            impl=impl)
+    else:
+        slot = new_positions(cache, tokens.shape[1])
+        for l, window in enumerate(layer_windows(cfg, cfg.n_layers,
+                                                 long_mode)):
+            p = layer_params(params, l)
+            if cfg.family == Family.HYBRID:
+                x = _hymba_decode_layer(cfg, p, x, cache, l, slot, window,
+                                        impl=impl)
+            else:
+                x = decode_layer(cfg, p, x, cache, l, slot, window,
+                                 impl=impl, multi=multi)
     cache["pos"] = pos + tokens.shape[1]
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return unembed(params, x), cache
@@ -247,7 +396,10 @@ def _step(cfg, params, cache, tokens, *, impl, multi, long_mode=False):
 def decode_step(cfg: ModelConfig, params: dict, cache: dict,
                 token: torch.Tensor, *, impl: str = "ref", long_mode: bool = False):
     """token: (B, 1) int -> (logits (B, 1, PV), cache), cache updated in
-    place and pos advanced by one."""
+    place and pos advanced by one. The recurrent families launch their
+    scan kernel once per layer at S = 1 under impl="kernel" (the
+    reference pins its jnp scan there for an old-XLA partitioner fault of
+    the TPU engine, which has no counterpart on the card)."""
     return _step(cfg, params, cache, token, impl=impl, multi=False,
                  long_mode=long_mode)
 
@@ -260,6 +412,8 @@ def verify_step(cfg: ModelConfig, params: dict, cache: dict,
     (logits (B, q_len, PV), cache) with all q_len K/V written and pos
     advanced by q_len. Rolling back rejected positions is resetting
     cache["pos"]: their entries carry pos_ids > pos, invisible to every
-    later read until decoding reaches them again."""
+    later read until decoding reaches them again. Dense family only: a
+    recurrent state cannot roll back by masking (the reference refuses
+    the same families)."""
     return _step(cfg, params, cache, tokens, impl=impl, multi=True,
                  long_mode=long_mode)

@@ -40,6 +40,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.configs.base import Family
 from repro_torch.device import resolve_device
 from repro_torch.kvcache.allocator import BlockTable
 from repro_torch.kvcache.paged_decode import PagedDecodeCache
@@ -107,6 +108,11 @@ class EngineBackend:
         self._depth = None
         self._pos = 0                         # host mirror of the cache pos
         if spec is not None:
+            if cfg.family != Family.DENSE:
+                raise ValueError(
+                    f"speculative decoding needs pure-KV per-layer state "
+                    f"(the dense family), not {cfg.family}: a recurrent "
+                    f"state cannot roll rejected drafts back")
             if engine is None:
                 raise NotImplementedError(
                     "the port drafts on the engine's resident tier: "
@@ -247,6 +253,14 @@ class EngineBackend:
                 state, toks_t, chunk=self.chunk)
             last = logits[:, -1]
         else:
+            if self.paged:   # pages first: their constructor refuses a
+                             # family they cannot hold before any work
+                if self._paged_cache is not None:
+                    self._paged_cache.release()
+                self._paged_cache = PagedDecodeCache(
+                    self.cfg, toks.shape[0], self.max_len,
+                    page_size=self.page_size, impl=self.impl,
+                    device=self.device)
             cache = M.init_cache(self.cfg, toks.shape[0], self.max_len,
                                  device=self.device)
             logits, cache = M.prefill(self.cfg, self.params, toks_t, cache,
@@ -254,12 +268,6 @@ class EngineBackend:
             last = logits[:, -1]
             self._state = cache
             if self.paged:                # the dense prefill, into pages
-                if self._paged_cache is not None:
-                    self._paged_cache.release()
-                self._paged_cache = PagedDecodeCache(
-                    self.cfg, toks.shape[0], self.max_len,
-                    page_size=self.page_size, impl=self.impl,
-                    device=self.device)
                 self._paged_cache.seed(cache)
                 self._state = None
         tok = self._sample(last)

@@ -23,6 +23,7 @@ FLASH_CASES = [
     (1, 64, 64, 4, 2, 64, False, None, "f32"),      # bidirectional
     (1, 96, 192, 3, 1, 64, True, None, "bf16"),     # Sq != Skv, odd H
     (1, 32, 32, 2, 2, 256, True, 8, "f32"),         # gemma3 head_dim
+    (1, 64, 64, 10, 2, 64, True, 32, "bf16"),       # G 5 (Hymba's grouping)
 ]
 
 DECODE_CASES = [
@@ -33,6 +34,7 @@ DECODE_CASES = [
     (1, 64, 4, 2, 64, 200, None, True),
     (1, 64, 4, 2, 64, 200, 48, True),
     (3, 96, 6, 2, 32, 10, None, False),     # mostly-empty cache
+    (2, 96, 10, 2, 64, 70, 64, False),      # G 5 (Hymba's grouping), window
 ]
 
 MQ_CASES = [
@@ -194,3 +196,50 @@ def gathered_ids(n_slots, ctx):
     position t below ctx, nothing past it."""
     ar = np.arange(n_slots)
     return np.where(ar < ctx, ar, -1).astype(np.int32)
+
+
+# Recurrent scans: tests/test_kernels.py's WKV_CASES (B, S, H, dh; its
+# block_t is a TPU tiling with no counterpart here) and SSM_CASES (B, S,
+# H, dh, N), plus the decode shape (S = 1). Both scans run in fp32; the
+# kernels differ from their plain versions (and those from the JAX scans)
+# by summation order only: SCAN_REL of each output vector's largest |ref|.
+WKV_CASES = [
+    # B, S, H, dh
+    (2, 32, 4, 64), (1, 64, 2, 32), (2, 50, 3, 64), (1, 16, 1, 128),
+    (1, 7, 2, 64), (3, 1, 4, 64),
+]
+SSM_CASES = [
+    # B, S, H, dh, N
+    (2, 32, 4, 64, 16), (1, 50, 2, 32, 8), (1, 16, 3, 128, 16),
+    (2, 24, 5, 64, 16), (3, 1, 5, 64, 16),
+]
+SCAN_REL = 1e-4
+
+
+def wkv_inputs(case, seed=0, state=True):
+    """r, k, v, w, u, initial state as fp32 numpy arrays (the JAX tests'
+    distributions); state=False starts from zeros."""
+    B, S, H, dh = case
+    rng = np.random.default_rng(seed)
+    r, k, v = (rng.standard_normal((B, S, H, dh)).astype(np.float32) * 0.5
+               for _ in range(3))
+    w = 1 / (1 + np.exp(-rng.standard_normal((B, S, H, dh)))) * 0.9 + 0.05
+    u = rng.standard_normal((H, dh)) * 0.1
+    s0 = rng.standard_normal((B, H, dh, dh)) * 2 if state \
+        else np.zeros((B, H, dh, dh))
+    return (r, k, v, w.astype(np.float32), u.astype(np.float32),
+            s0.astype(np.float32))
+
+
+def ssm_inputs(case, seed=0, state=True):
+    """x, dt, B_in, C_in, A, initial state as fp32 numpy arrays (the JAX
+    tests' distributions); state=False starts from zeros."""
+    B, S, H, dh, N = case
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, S, H, dh)) * 0.5
+    dt = np.log1p(np.exp(rng.standard_normal((B, S, H))))
+    bm, cm = (rng.standard_normal((B, S, N)) * 0.5 for _ in range(2))
+    A = -np.exp(rng.standard_normal(H) * 0.3)
+    s0 = rng.standard_normal((B, H, N, dh)) if state \
+        else np.zeros((B, H, N, dh))
+    return tuple(a.astype(np.float32) for a in (x, dt, bm, cm, A, s0))

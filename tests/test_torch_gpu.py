@@ -14,16 +14,19 @@ import pytest
 import torch
 
 from _torch_cases import (BF16_REL, DECODE_CASES, F32_REL, FLASH_CASES,
-                          MQ_CASES, MQ_PAGED_CASES, PAGED_CASES, decode_inputs,
-                          flash_inputs, gathered_ids, mq_inputs,
-                          mq_paged_case_inputs, paged_case_inputs,
-                          paged_inputs, rel_err, to_torch)
+                          MQ_CASES, MQ_PAGED_CASES, PAGED_CASES, SCAN_REL,
+                          SSM_CASES, WKV_CASES, decode_inputs, flash_inputs,
+                          gathered_ids, mq_inputs, mq_paged_case_inputs,
+                          paged_case_inputs, paged_inputs, rel_err,
+                          ssm_inputs, to_torch, wkv_inputs)
 from repro_torch.configs import get_smoke_config
 from repro_torch.core.engine import InterleavedEngine, UniformPlan
 from repro_torch.kernels.decode_attention import multiquery as mq
 from repro_torch.kernels.decode_attention import ops as da
 from repro_torch.kernels.decode_attention import paged as pg
 from repro_torch.kernels.flash_attention import ops as fa
+from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
+from repro_torch.kernels.ssm_scan import ops as ssm_ops
 from repro_torch.models import model as M
 from repro_torch.serving import LimeServer
 
@@ -390,3 +393,122 @@ def test_prefix_server_on_card(cuda_device):
     assert pg.launches - p0 == 2 * 5 * cfg.n_layers
     assert be.prefix_stats["prefill_tokens_saved"] == 4 * 24
     assert toks[4:] == serve(prompts[4:])[0]
+
+
+# ----------------------------------------------------------------------------
+# recurrent scans (6: WKV, 7: selective scan)
+# ----------------------------------------------------------------------------
+def _on(device, arrays, bf16=()):
+    """numpy fp32 arrays to the card; positions in bf16 become bfloat16."""
+    return [torch.from_numpy(a).to(device, torch.bfloat16 if i in bf16
+                                   else torch.float32)
+            for i, a in enumerate(arrays)]
+
+
+@pytest.mark.parametrize("dt", ["bf16", "f32"])
+@pytest.mark.parametrize("state", [False, True], ids=["zero", "random"])
+@pytest.mark.parametrize("case", WKV_CASES,
+                         ids=lambda c: f"B{c[0]}S{c[1]}H{c[2]}d{c[3]}")
+def test_wkv_kernel_vs_plain(case, state, dt, cuda_device):
+    """r, k, v, u in bf16 (the model's types) or fp32; w and the state
+    fp32; the state updated in place."""
+    r, k, v, w, u, s0 = _on(cuda_device, wkv_inputs(case, state=state),
+                            bf16=(0, 1, 2, 4) if dt == "bf16" else ())
+    ref_o, ref_s = wkv_ops.wkv_plain(r, k, v, w, u, s0)
+    s = s0.clone()
+    n0 = wkv_ops.launches
+    out = wkv_ops.wkv(r, k, v, w, u, s)
+    torch.cuda.synchronize()
+    assert wkv_ops.launches == n0 + 1
+    assert rel_err(out, ref_o) <= SCAN_REL and rel_err(s, ref_s) <= SCAN_REL
+
+
+@pytest.mark.parametrize("dt", ["bf16", "f32"])
+@pytest.mark.parametrize("state", [False, True], ids=["zero", "random"])
+@pytest.mark.parametrize("case", SSM_CASES,
+                         ids=lambda c: f"B{c[0]}S{c[1]}H{c[2]}d{c[3]}N{c[4]}")
+def test_ssm_kernel_vs_plain(case, state, dt, cuda_device):
+    """x, B, C in bf16 (the model's types) or fp32; dt, A and the state
+    fp32; the state updated in place."""
+    x, d, bm, cm, A, s0 = _on(cuda_device, ssm_inputs(case, state=state),
+                              bf16=(0, 2, 3) if dt == "bf16" else ())
+    ref_y, ref_s = ssm_ops.ssm_scan_plain(x, d, bm, cm, A, s0)
+    s = s0.clone()
+    n0 = ssm_ops.launches
+    y = ssm_ops.ssm_scan(x, d, bm, cm, A, s)
+    torch.cuda.synchronize()
+    assert ssm_ops.launches == n0 + 1
+    assert rel_err(y, ref_y) <= SCAN_REL and rel_err(s, ref_s) <= SCAN_REL
+
+
+def test_scan_kernels_chain_bit_for_bit(cuda_device):
+    """Two calls over the halves of a sequence (the state carried in
+    place) equal one call over the whole, bit for bit: every step does the
+    same arithmetic wherever a call starts."""
+    r, k, v, w, u, s0 = _on(cuda_device, wkv_inputs((2, 100, 3, 64), seed=4),
+                            bf16=(0, 1, 2, 4))
+    s_full, s = s0.clone(), s0.clone()
+    full = wkv_ops.wkv(r, k, v, w, u, s_full)
+    parts = [wkv_ops.wkv(r[:, a:b].contiguous(), k[:, a:b].contiguous(),
+                         v[:, a:b].contiguous(), w[:, a:b].contiguous(), u, s)
+             for a, b in ((0, 37), (37, 100))]
+    assert torch.equal(torch.cat(parts, 1), full) and torch.equal(s, s_full)
+    x, d, bm, cm, A, h0 = _on(cuda_device, ssm_inputs((2, 100, 5, 64, 16), seed=6),
+                              bf16=(0, 2, 3))
+    h_full, h = h0.clone(), h0.clone()
+    full = ssm_ops.ssm_scan(x, d, bm, cm, A, h_full)
+    parts = [ssm_ops.ssm_scan(x[:, a:b].contiguous(), d[:, a:b].contiguous(),
+                              bm[:, a:b].contiguous(), cm[:, a:b].contiguous(),
+                              A, h) for a, b in ((0, 37), (37, 100))]
+    assert torch.equal(torch.cat(parts, 1), full) and torch.equal(h, h_full)
+
+
+def test_scan_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+    r, k, v, w, u, s = _on(cuda_device, wkv_inputs((1, 4, 2, 64)))
+    with pytest.raises(TypeError):          # fp16 is not a kernel type
+        wkv_ops.wkv(r.half(), k.half(), v.half(), w, u.half(), s)
+    with pytest.raises(ValueError):         # dh 80 is not compiled
+        wkv_ops.wkv(*_on(cuda_device, wkv_inputs((1, 4, 2, 80))))
+    with pytest.raises(ValueError):         # the decay must be fp32
+        wkv_ops.wkv(r, k, v, w.bfloat16(), u, s)
+    with pytest.raises(ValueError):         # the state must be fp32
+        wkv_ops.wkv(r, k, v, w, u, s.bfloat16())
+    x, d, bm, cm, A, h = _on(cuda_device, ssm_inputs((1, 4, 2, 64, 65)))
+    with pytest.raises(ValueError):         # N 65 > 64 registers
+        ssm_ops.ssm_scan(x, d, bm, cm, A, h)
+    x, d, bm, cm, A, h = _on(cuda_device, ssm_inputs((1, 4, 2, 96, 16)))
+    with pytest.raises(ValueError):         # dh 96 is not compiled
+        ssm_ops.ssm_scan(x, d, bm, cm, A, h)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "hymba-1.5b"])
+def test_recurrent_model_kernel_path_vs_reference(arch, cuda_device):
+    """The smoke configs on the card: the kernel path launches its scan
+    once per layer per prefill and per decode step (Hymba also its flash
+    and decode kernels), and its logits stay within bf16 noise of the
+    reference math (impl="ref"), fed the reference's picks."""
+    cfg = get_smoke_config(arch)
+    params = M.init_params(cfg, torch.Generator(cuda_device).manual_seed(0))
+    toks = torch.randint(1, cfg.vocab_size, (2, 20),
+                         generator=torch.Generator().manual_seed(1))
+    scan = wkv_ops if arch == "rwkv6-3b" else ssm_ops
+    L = cfg.n_layers
+    out, fed = {}, []
+    for impl in ("ref", "kernel"):
+        n0 = (scan.launches, fa.launches, da.launches)
+        cache = M.init_cache(cfg, 2, 64)
+        lg, cache = M.prefill(cfg, params, toks.to(cuda_device), cache,
+                              impl=impl)
+        steps = [lg[:, -1].float()]
+        for i in range(8):
+            if impl == "ref":
+                fed.append(lg[:, -1, :cfg.vocab_size].argmax(-1, keepdim=True))
+            lg, cache = M.decode_step(cfg, params, cache, fed[i], impl=impl)
+            steps.append(lg[:, -1].float())
+        out[impl] = torch.stack(steps)
+        got = tuple(a - b for a, b in zip(
+            (scan.launches, fa.launches, da.launches), n0))
+        attn = (L, 8 * L) if arch == "hymba-1.5b" else (0, 0)
+        assert got == (((9 * L,) + attn) if impl == "kernel" else (0, 0, 0))
+    err = (out["kernel"] - out["ref"]).abs().max().item()
+    assert err <= 0.05 * out["ref"].abs().max().item()

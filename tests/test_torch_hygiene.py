@@ -38,7 +38,7 @@ def test_port_has_sources_for_both_kernels():
     csrc = ROOT / "src" / "repro_torch" / "csrc"
     assert {"decode_attention.cu", "flash_attention.cu",
             "mq_decode_attention.cu", "paged_decode_attention.cu",
-            "mq_paged_decode_attention.cu"} \
+            "mq_paged_decode_attention.cu", "wkv_scan.cu", "ssm_scan.cu"} \
         <= {p.name for p in csrc.glob("*.cu")}
 
 
