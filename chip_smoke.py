@@ -7,7 +7,10 @@ Phases; any failure exits non-zero without the final ``ok`` line:
 
 0. card and build: the card's name and power limit (nvidia-smi), the
    kernels built from ``src/repro_torch/csrc`` (nvcc, sm_90a), TF32 off
-   for every fp32 reference product.
+   for every fp32 reference product. The SASS of the Hopper mainloop
+   (``csrc/attention_sm90.cuh``) in each of its three sources (flash,
+   kernels 4 and 5) must hold HGMMA (wgmma) and UTMALDG (TMA) (cuobjdump);
+   its registers and spills from ptxas.
 1. kernels against their plain PyTorch versions on the card, at the main
    path's shapes (Hymba's G 5 / dh 64 / window 1024 attention included)
    and at ring-buffer / window / unaligned / offset cases,
@@ -16,7 +19,8 @@ Phases; any failure exits non-zero without the final ``ok`` line:
    at the main path's shapes the kernel's median device time (CUDA
    events, L2 flushed and host enqueue hidden before each call), its
    bound, the plain version's time and one PyTorch library call's time as
-   a yardstick. The paged kernels (3: decode, 5: multi-query) run at phase
+   a yardstick (flash at LLaMA's and at Hymba's shape; kernels 4 and 5 at
+   their verify and prefill-round shapes). The paged kernels (3: decode, 5: multi-query) run at phase
    2b's shapes (page 64, 16 pages, ctx 1019; q_len 128 and 5) with
    shuffled non-contiguous block tables, ragged ctx, windows and dh 80 /
    page 16, reject planted faults (page index +-1, ctx - 1, row // G off
@@ -87,6 +91,9 @@ Phases; any failure exits non-zero without the final ``ok`` line:
    acceptance, committed tokens per round, pass and draft times against
    the copy time of the streamed bytes, and a profiler breakdown of one
    pass.
+Every flash launch of phases 2, 2b and 3c, every prefill round of kernel 5
+(2b) and of kernel 4 (3a, 3b) must run the Hopper mainloop (the wrappers'
+hopper counters).
 4. a JSON line of per-kernel numbers, then the ``ok`` line.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -348,17 +355,18 @@ def kernel_phase():
                 fa.flash_attention_plain, bad.pop("head_shift", 0), q,
                 k[:, :n_kv], v[:, :n_kv], **bad)))
         err = check(name, out, ref, BF16_REL if dt == bf16 else F32_REL, faults)
-        if name.startswith("main"):
-            ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=True))
-            plain = time_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True),
-                            reps=10)
+        if name.startswith(("main", "hymba")):
+            # window 1024 >= S: causal alone decides, as for SDPA's is_causal
+            ms = time_ms(lambda: fa.flash_attention(q, k, v, **kw))
+            plain = time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), reps=10)
             lib = library_time_ms(lambda: F.scaled_dot_product_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                 is_causal=True, enable_gqa=True))
             pairs = Sq * (Sq + 1) // 2                  # visible (i, j) pairs
             flops = 2 * 2 * B * H * pairs * dh
             byts = nbytes(q, k, v) + nbytes(q)
-            rows["flash_attention"] = dict(
+            rows["flash_attention" if name.startswith("main")
+                 else "flash_attention@hymba"] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
                 bytes=byts, flops=flops, bytes_bound_ms=byts / HBM_BYTES_PER_S * 1e3,
                 ops_bound_ms=flops / BF16_TENSOR_FLOPS * 1e3)
@@ -912,19 +920,21 @@ def main_path_phase(card):
           max_new=2)
     torch.cuda.synchronize()
 
-    launches = {"flash_attention": 0, "decode_attention": 0}
+    launches = {"flash_attention": 0, "decode_attention": 0, "flash_attention@hopper": 0}
     outs = {}
     torch.cuda.reset_peak_memory_stats()
     for pattern, n_req in (("bursty", 4), ("sporadic", 2)):
         prompts = make_prompts(n_req, cfg.vocab_size, 0)
         n_batches = 1 if pattern == "bursty" else n_req
-        fa.launches = 0
+        fa.launches = fa.hopper_launches = 0
         da.launches = 0
         done = serve(cfg, params, pattern, prompts, "kernel")
         torch.cuda.synchronize()
-        got = {"flash_attention": fa.launches, "decode_attention": da.launches}
+        got = {"flash_attention": fa.launches, "decode_attention": da.launches,
+               "flash_attention@hopper": fa.hopper_launches}
         want = {"flash_attention": cfg.n_layers * n_batches,
-                "decode_attention": cfg.n_layers * (MAX_NEW - 1) * n_batches}
+                "decode_attention": cfg.n_layers * (MAX_NEW - 1) * n_batches,
+                "flash_attention@hopper": cfg.n_layers * n_batches}
         log(f"  {pattern}: launches {got} (expected {want})")
         if got != want:
             raise AssertionError(f"{pattern}: kernel launch counts {got} != {want}")
@@ -955,6 +965,23 @@ def main_path_phase(card):
     return launches, cfg, params
 
 
+def csrc_kernel(name):
+    """(class, label) of a profiled kernel of csrc/, else None; class is
+    decode, flash, mq, wkv or ssm. Every kernel lives in namespace repro:
+    the mma.sync and SIMT kernels are named after their file (decode_*kernel
+    in decode_attention.cu, flash_*kernel, mq_*kernel, wkv_*, ssm_*); the
+    Hopper mainloop is sm90::attention_kernel<DHP, Addr>, whose Addr names
+    its caller (FlashAddr; ContigMqAddr, PagedMqAddr). Both forms hold for
+    mangled and demangled names."""
+    name = name.lower()
+    if "repro" not in name:
+        return None
+    if "sm90" in name and "attention_kernel" in name:
+        return ("flash" if "flashaddr" in name else "mq"), "sm90_attention_kernel"
+    m = re.search(r"(decode|flash|mq|wkv|ssm)_[a-z0-9_]*?kernel", name)
+    return (m.group(1), m.group(0)) if m else None
+
+
 def breakdown(cfg, params, card):
     """Device time by kernel class over one bursty serve (torch.profiler,
     kernels' own time), and the device's idle share of the serve's wall
@@ -979,14 +1006,10 @@ def breakdown(cfg, params, card):
         if us is None:
             us = e.self_cuda_time_total
         name = e.key.lower()
-        # every kernel of csrc/ lives in namespace repro and is named after
-        # its file: decode_*kernel in decode_attention.cu, flash_*kernel in
-        # flash_attention.cu (both show in mangled and demangled names)
-        m = re.search(r"(decode|flash)_[a-z0-9_]*?kernel", name) \
-            if "repro" in name else None
+        m = csrc_kernel(name)
         if m is not None:
-            cls = m.group(1) + "_attention"
-            seen[cls][m.group(0)] = seen[cls].get(m.group(0), 0) + e.count
+            cls = m[0] + "_attention"
+            seen[cls][m[1]] = seen[cls].get(m[1], 0) + e.count
         elif any(s in name for s in ("gemm", "nvjet", "xmma", "cutlass")):
             cls = "gemm"
         else:
@@ -1051,7 +1074,11 @@ def kernel_counters():
             "mq_decode_attention": (mq, "launches"),
             "paged_decode_attention": (pg, "launches"),
             "mq_paged_decode_attention": (mq, "paged_launches"),
-            "wkv_scan": (wkv, "launches"), "ssm_scan": (ssm, "launches")}
+            "wkv_scan": (wkv, "launches"), "ssm_scan": (ssm, "launches"),
+            # the launches of the Hopper mainloop among them
+            "flash_attention@hopper": (fa, "hopper_launches"),
+            "mq_decode_attention@prefill": (mq, "hopper_launches"),
+            "mq_paged_decode_attention@prefill": (mq, "paged_hopper_launches")}
 
 
 def read_counts():
@@ -1105,8 +1132,9 @@ def drive_prefix(srv, reqs, n_layers):
                 if equal else 0
             if equal:
                 want["mq_paged_decode_attention"] = n_layers * rounds
+                want["mq_paged_decode_attention@prefill"] = n_layers * rounds
             else:
-                want["flash_attention"] = n_layers
+                want["flash_attention"] = want["flash_attention@hopper"] = n_layers
             epochs.append(dict(reqs=batch, equal=equal, rounds=rounds, saved=saved,
                                decode_steps=0, uploads=pc.bt_uploads - up0,
                                pos0=pc.pos, crossings=0))
@@ -1225,11 +1253,11 @@ def prefix_profile(cfg, params, reqs, card):
         if us is None:
             us = e.self_cuda_time_total
         name = e.key.lower()
-        # only the paged kernels of csrc/ run in this serve: decode_* is
-        # kernel 3 (and its combine pass), mq_* kernel 5
-        m = re.search(r"(decode|mq)_[a-z0-9_]*?kernel", name) if "repro" in name else None
+        # only the paged kernels of csrc/ run in this serve: decode is
+        # kernel 3 (and its combine pass), mq kernel 5
+        m = csrc_kernel(name)
         if m is not None:
-            cls = "paged_decode" if m.group(1) == "decode" else "mq_paged"
+            cls = "paged_decode" if m[0] == "decode" else "mq_paged"
         elif any(x in name for x in ("gemm", "nvjet", "xmma", "cutlass")):
             cls = "gemm"
         else:
@@ -1382,11 +1410,12 @@ def engine_check_phase(cfg, params, card):
     toks = torch.from_numpy(np.stack(make_prompts(4, V, 21))).long().cuda()
     mc = M.init_cache(cfg, 4, MAX_LEN)
     ml, mc = M.prefill(cfg, params, toks, mc, impl="kernel")
-    m0 = mq.launches
+    m0, h0 = mq.launches, mq.hopper_launches
     el, st = eng.prefill_partial(st, toks, chunk=PREFILL_CHUNK)
     torch.cuda.synchronize()
-    if mq.launches - m0 != cfg.n_layers:
-        raise AssertionError("engine prefill: one mq launch per layer expected")
+    if mq.launches - m0 != cfg.n_layers or mq.hopper_launches - h0 != cfg.n_layers:
+        raise AssertionError("engine prefill: one mq launch per layer, through the "
+                             "Hopper mainloop, expected")
     a, b = el[:, -1, :V].float(), ml[:, -1, :V].float()
     err = (a - b).abs().max().item()
     scale = b.abs().max().item()
@@ -1476,6 +1505,8 @@ def step_launches(cfg, decode):
     want["wkv_scan" if cfg.family == Family.SSM else "ssm_scan"] = L
     if cfg.family == Family.HYBRID:
         want["decode_attention" if decode else "flash_attention"] = L
+        if not decode:
+            want["flash_attention@hopper"] = L
     return want
 
 
@@ -1633,11 +1664,10 @@ def recurrent_breakdown(cfg, params, card):
         if us is None:
             us = e.self_cuda_time_total
         name = e.key.lower()
-        m = re.search(r"(wkv|ssm|decode|flash)_[a-z0-9_]*?kernel", name) \
-            if "repro" in name else None
+        m = csrc_kernel(name)
         if m is not None:
             cls = {"wkv": "wkv_scan", "ssm": "ssm_scan", "decode": "decode_attention",
-                   "flash": "flash_attention"}[m.group(1)]
+                   "flash": "flash_attention"}[m[0]]
         elif any(x in name for x in ("gemm", "nvjet", "xmma", "cutlass")):
             cls = "gemm"
         else:
@@ -1817,13 +1847,18 @@ def drive(srv, prompts, pattern, n_layers, retier_at=()):
     sched.begin(reqs)
     n_pf = math.ceil(PROMPT_LEN / PREFILL_CHUNK)
     prefills, applied = 0, []
-    mq.launches = da.launches = 0
+    mq.launches = da.launches = mq.hopper_launches = 0
     while True:
         n_rounds, res = len(be.rounds), len(eng.resident_layer_ids())
-        m0, d0 = mq.launches, da.launches
+        m0, d0, h0 = mq.launches, da.launches, mq.hopper_launches
         if not sched.step():
             break
         got = (mq.launches - m0, da.launches - d0)
+        # prefill rounds (q_len 512) run the Hopper mainloop, verify passes
+        # (q_len k + 1) the split body
+        if mq.hopper_launches - h0 != (got[0] if len(be.rounds) == n_rounds else 0):
+            raise AssertionError(f"{pattern}: {mq.hopper_launches - h0} Hopper-mainloop "
+                                 f"launches in a step of {got[0]} mq launches")
         if len(be.rounds) > n_rounds:
             k = be.rounds[-1][0]
             want = (n_layers, k * res) if k else (0, n_layers)
@@ -1841,7 +1876,7 @@ def drive(srv, prompts, pattern, n_layers, retier_at=()):
     done = sorted(sched.finish_run(), key=lambda r: r.rid)
     if prefills != (1 if pattern == "bursty" else len(prompts)):
         raise AssertionError(f"{pattern}: {prefills} prefill steps")
-    return done, sched.stats, (mq.launches, da.launches), applied
+    return done, sched.stats, (mq.launches, da.launches, mq.hopper_launches), applied
 
 
 def reference_check(eng, params, cfg, prompts, got, pattern):
@@ -1968,7 +2003,7 @@ def pass_profile(eng, st, P, fn, card, label):
         name = e.key.lower()
         if "memcpy" in name and "htod" in name:
             cls = "memcpy_h2d"
-        elif "repro" in name and re.search(r"(decode|mq|flash)_[a-z0-9_]*?kernel", name):
+        elif csrc_kernel(name) is not None:
             cls = "attention"
         elif any(x in name for x in ("gemm", "nvjet", "xmma", "cutlass")):
             cls = "gemm"
@@ -2057,7 +2092,8 @@ def full_model_phase(card):
 
     prompts = make_prompts(4, cfg.vocab_size, 0)
     spec = SpecConfig(k=SPEC_K, adapt_k=False)
-    launches = {"mq_decode_attention": 0, "decode_attention": 0}
+    launches = {"mq_decode_attention": 0, "decode_attention": 0,
+                "mq_decode_attention@prefill": 0}
     torch.cuda.reset_peak_memory_stats()
     served = {}
     for pattern, n_req, retier_at in (("bursty", 4, RETIER_AT),
@@ -2066,11 +2102,12 @@ def full_model_phase(card):
                          pattern=pattern, spec=spec,
                          prefill_chunk_tokens=PREFILL_CHUNK)
         t0 = time.monotonic()
-        done, stats, (m, d), applied = drive(srv, prompts[:n_req], pattern, L,
-                                             retier_at)
+        done, stats, (m, d, h), applied = drive(srv, prompts[:n_req], pattern, L,
+                                                retier_at)
         wall = time.monotonic() - t0
         launches["mq_decode_attention"] += m
         launches["decode_attention"] += d
+        launches["mq_decode_attention@prefill"] += h
         be = srv.make_backend()
         rep = summarize(done, pattern=pattern, backend="engine", stats=stats)
         spec_rounds = [c for k, c in be.rounds if k]
@@ -2134,6 +2171,64 @@ def _leaves(t):
 
 
 # ----------------------------------------------------------------------------
+# phase 0: what the Hopper mainloop compiled to
+# ----------------------------------------------------------------------------
+HOPPER_SOURCES = ("_flash_attention_cu", "_mq_decode_attention_cu",
+                  "_mq_paged_decode_attention_cu")
+
+
+def _cuobjdump():
+    import shutil
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    for cand in (pathlib.Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
+                 / "bin" / "cuobjdump",):
+        if cand.exists():
+            return str(cand)
+    import triton                                  # its copy of the tool
+    return str(pathlib.Path(triton.__file__).parent / "backends" / "nvidia"
+               / "bin" / "cuobjdump")
+
+
+def hopper_sass_check(lib_path):
+    """Each source's instantiations of the Hopper mainloop
+    (sm90::attention_kernel) must run on wgmma and TMA: HGMMA and UTMALDG
+    in their SASS. Prints their registers and spills from ptxas.log."""
+    sass = subprocess.run([_cuobjdump(), "-sass", str(lib_path)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    ops, cur = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = m.group(1) if "sm90" in m.group(1) and "attention_kernel" in m.group(1) \
+                else None
+            if cur:
+                ops[cur] = set()
+        elif cur:
+            ops[cur].update(op for op in ("HGMMA", "UTMALDG", "HMMA") if op in line)
+    regs, cur = {}, None
+    for line in (lib_path.parent / "ptxas.log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = m.group(1) if m.group(1) in ops else None
+        elif cur and ("registers" in line or "spill" in line):
+            regs[cur] = regs.get(cur, "") + " " + line.split(":", 1)[-1].strip()
+    for src in HOPPER_SOURCES:
+        fns = [f for f in ops if src in f and (src != "_mq_decode_attention_cu"
+                                               or "_paged_" not in f)]
+        if not fns:
+            raise AssertionError(f"no Hopper mainloop kernel in {src[1:]}")
+        for f in fns:
+            dhp = re.search(r"attention_kernelILi(\d+)", f).group(1)
+            log(f"  sass {src[1:-3]}.cu attention_kernel<{dhp}>: {sorted(ops[f])};"
+                f"{regs.get(f, ' ptxas: not found')}")
+            if not {"HGMMA", "UTMALDG"} <= ops[f]:
+                raise AssertionError(f"{src[1:]} attention_kernel<{dhp}>: no HGMMA or "
+                                     "UTMALDG in its SASS")
+
+
+# ----------------------------------------------------------------------------
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2165,6 +2260,8 @@ def main() -> int:
         for line in ptxas.read_text().splitlines():
             if "registers" in line or "spill" in line:
                 log("  ptxas: " + line.strip())
+        log("phase 0: the Hopper mainloop's SASS (wgmma = HGMMA, TMA = UTMALDG)")
+        hopper_sass_check(lib_path)
 
         t_run = time.monotonic()
 
@@ -2202,6 +2299,9 @@ def main() -> int:
                 ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
                  "src/repro/kernels/flash_attention/kernel.py:104"),
                 ("mq_decode_attention", "src/repro_torch/csrc/mq_decode_attention.cu",
+                 "src/repro/kernels/decode_attention/multiquery.py:107"),
+                ("mq_decode_attention@prefill",
+                 "src/repro_torch/csrc/mq_decode_attention.cu",
                  "src/repro/kernels/decode_attention/multiquery.py:107"),
                 ("paged_decode_attention", "src/repro_torch/csrc/paged_decode_attention.cu",
                  "src/repro/kernels/decode_attention/paged.py:119"),

@@ -4,34 +4,34 @@
 // Replaces the TPU kernel src/repro/kernels/flash_attention/kernel.py
 // (flash_attention_kernel, its pallas_call at :104; wrapper ops.py:41).
 //
-// Bound on the H100: operations. Causal prefill does ~2·B·H·S²·dh flops
-// (QK^T and PV, half the square each) on O(S) bytes per head: at the main
-// path's shape (B 4, S 512, H 64, dh 128) 17.2 GFLOP, ~17 us at the bf16
-// tensor-core peak of 989 TFLOP/s.
+// Bound on the H100 at the main path's shape (B 4, S 512, H 64, KV 8,
+// dh 128, causal): bytes, barely. Q, K, V and the output are 75.5 MB
+// (22.5 us at 3.35 TB/s); QK^T and PV over the 131,328 visible (i, j)
+// pairs of each head are 17.2 GFLOP (17.4 us at the bf16 tensor-core peak
+// of 989 TFLOP/s). The two are close: the kernel has to stream its inputs
+// once and keep the tensor cores busy at the same time.
 //
-// Design against that bound (bf16, the main path):
-//  * Both products run on the tensor cores with warp-level
-//    mma.sync.m16n8k16 (bf16 in, fp32 accumulate); a block of 4 warps owns
-//    64 query rows of one head, 16 rows per warp, and loops over 64-key
-//    tiles inside the block. Blocks run in no order, so nothing is carried
-//    between them (the TPU kernel carried its state across a sequential
-//    grid axis instead).
-//  * The score tile and the running (m, l, acc) never leave registers: the
-//    accumulator layout of QK^T is reused directly as the A operand of PV,
-//    with P rounded to bf16 (the rounding the model's reference applies to
-//    its probabilities before PV).
-//  * Q, K and V^T tiles sit in shared memory with an 8-element row pad, so
-//    the fragment loads are free of bank conflicts. Tiles wholly above the
-//    causal diagonal or wholly outside the window are never loaded.
-//  * Queries and keys are read in the model layout (B, S, H|KV, dh); the kv
-//    head is h // G; dh up to 256 is zero-padded in shared memory only.
-//  * Mask: j < Skv, causal j <= i with i = q_offset + row, and i - j <
-//    window, as in the TPU kernel. Masked scores get probability 0, so a
-//    fully-masked row outputs 0 (l == 0 -> 1).
-// fp32 inputs take a simple SIMT kernel (one warp per query row, fp32
-// throughout) so they stay exact; they are not on the main path.
-// Correct first: wgmma, TMA and warp specialisation are later work.
+// Which body runs:
+//  * bf16 with 16-byte aligned rows (dh % 8 == 0, aligned bases) and
+//    dh <= 128 (LLaMA's 128 with G 8, Hymba's 64 with G 5 and window
+//    1024): the Hopper mainloop of attention_sm90.cuh. Its query rows are
+//    the G heads of a KV group packed as i·G + g, so one K/V tile serves
+//    all G heads; the mask is the multi-query rule with qbase = q_offset,
+//    id(j) = j for j < Skv, and causal as given. Design there: a producer
+//    warp feeding K/V by TMA into a 3-stage ring, two consumer warpgroups
+//    on wgmma, V read slot-major through wgmma's transpose bit.
+//  * other bf16 shapes (dh 129-256, unaligned rows): the mma.sync kernel
+//    below. A block of 4 warps owns 64 query rows of one head, 16 rows per
+//    warp, and loops over 64-key tiles; the score tile and (m, l, acc)
+//    stay in registers, the QK^T accumulator layout is PV's A operand with
+//    P rounded to bf16; Q, K and V^T tiles sit in padded shared memory.
+//  * fp32 inputs: a simple SIMT kernel (one warp per query row, fp32
+//    throughout), exact, not on the main path.
+// Mask in every body: j < Skv, causal j <= i with i = q_offset + row, and
+// i - j < window, as in the TPU kernel. Masked scores get probability 0,
+// so a fully-masked row outputs 0 (l == 0 -> 1).
 
+#include "attention_sm90.cuh"
 #include "common.cuh"
 
 namespace repro {
@@ -246,6 +246,21 @@ __global__ void __launch_bounds__(FA_THREADS) flash_simt_f32_kernel(
   }
 }
 
+// Flash's slots for the Hopper mainloop: key j of sequence b is row
+// (b, j) of the (B, Skv, KV, dh) K/V with position id j.
+struct FlashAddr {
+  int q_offset;
+  long long map_rows, map_outer;  // Skv, B
+  int box_rows;                   // 64: a tile is one box
+  __device__ __forceinline__ int qbase(int, int) const { return q_offset; }
+  __device__ __forceinline__ int slot(int, int, int t, long long&) const { return t; }
+  __device__ __forceinline__ bool box(int b, int t0, int& row, int& outer) const {
+    row = t0;
+    outer = b;
+    return true;
+  }
+};
+
 template <int DHP>
 int launch_flash_mma(const void* q, const void* k, const void* v, void* out, int B, int Sq,
                      int Skv, int H, int KV, int dh, int causal, int window, int q_offset,
@@ -279,7 +294,11 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
   using namespace repro;
   cudaStream_t st = (cudaStream_t)stream;
   int rc = 0;
-  if (dtype == DTYPE_BF16) {
+  if (dtype == DTYPE_BF16 && KV > 0 && H % KV == 0 && sm90::takes(dh, vec, H / KV)) {
+    const FlashAddr addr{q_offset, Skv, B, 64};
+    rc = sm90::dispatch(q, k, v, addr, out, B, Sq, Skv, addr.map_rows, addr.map_outer, KV, H / KV,
+                        dh, window, causal, scale, st);
+  } else if (dtype == DTYPE_BF16) {
     if (dh <= 64) {
       rc = launch_flash_mma<64>(q, k, v, out, B, Sq, Skv, H, KV, dh, causal, window, q_offset,
                                 scale, vec, st);

@@ -17,10 +17,17 @@ namespace {
 struct ContigMqAddr {
   const int* pos_ids;
   int S_c, KV, dh, pos;
+  long long map_rows, map_outer;  // the cache as (B, S_c, KV, dh) for TMA
+  int box_rows;                   // 64: a tile is one box
   __device__ __forceinline__ int qbase(int, int) const { return pos; }
   __device__ __forceinline__ int slot(int b, int kvh, int t, long long& off) const {
     off = (((long long)b * S_c + t) * KV + kvh) * dh;
     return pos_ids[t];
+  }
+  __device__ __forceinline__ bool box(int b, int t0, int& row, int& outer) const {
+    row = t0;
+    outer = b;
+    return true;
   }
 };
 
@@ -41,7 +48,7 @@ extern "C" int repro_mq_decode_attention(const void* q, const void* k, const voi
   if (dtype != DTYPE_BF16 || KV < 1 || H % KV || Q < 1 || n_split < 1) {
     return (int)cudaErrorInvalidValue;
   }
-  const ContigMqAddr addr{(const int*)pos_ids, S_c, KV, dh, pos};
+  const ContigMqAddr addr{(const int*)pos_ids, S_c, KV, dh, pos, S_c, B, 64};
   const int rc = dispatch_mq(q, k, v, addr, out, (float*)part_acc, (float*)part_ml, B, Q, S_c,
                              KV, H / KV, dh, window, scale, n_split, vec,
                              (cudaStream_t)stream);

@@ -43,9 +43,16 @@
 // The two policies share this body, its split count and its tile order, so
 // on a cache gathered from the pool (uniform ctx, pos = ctx - q_len) the
 // paged kernel is bit-identical to the contiguous one.
-// Correct first: wgmma, TMA and cp.async pipelining are later work.
+//
+// Which body runs: an unsplit call (n_split == 1, the prefill rounds) with
+// 16-byte aligned rows and dh <= 128 takes the Hopper mainloop of
+// attention_sm90.cuh (wgmma, TMA, a warp-specialised pipeline); the split
+// verify regime, dh > 128 and unaligned rows take the mma.sync body below.
+// Both kernels pick by the same rule, so 5 equals 4 on the gathered cache
+// either way.
 #pragma once
 
+#include "attention_sm90.cuh"
 #include "common.cuh"
 
 namespace repro {
@@ -297,10 +304,16 @@ int launch_mq(const void* q, const void* k, const void* v, const Addr& addr, voi
   return 0;
 }
 
+// Addr also gives the Hopper mainloop its tensor map's rows and outer
+// extent (see attention_sm90.cuh).
 template <typename Addr>
 int dispatch_mq(const void* q, const void* k, const void* v, const Addr& addr, void* out,
                 float* part_acc, float* part_ml, int B, int Q, int S, int KV, int G, int dh,
                 int window, float scale, int n_split, int vec, cudaStream_t stream) {
+  if (n_split == 1 && sm90::takes(dh, vec, G)) {
+    return sm90::dispatch(q, k, v, addr, out, B, Q, S, addr.map_rows, addr.map_outer, KV, G, dh,
+                          window, /*causal=*/1, scale, stream);
+  }
   if (dh <= 64) {
     return launch_mq<64>(q, k, v, addr, out, part_acc, part_ml, B, Q, S, KV, G, dh, window,
                          scale, n_split, vec, stream);

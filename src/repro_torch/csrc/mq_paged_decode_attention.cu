@@ -29,6 +29,8 @@ struct PagedMqAddr {
   const int* block_tables;  // (B, max_pages), -1 = unallocated
   const int* ctx_lens;      // (B,), including the q_len new tokens
   int max_pages, page_size, KV, dh;
+  long long map_rows, map_outer;  // the pool as (P, page_size, KV, dh) for TMA
+  int box_rows;                   // gcd(page_size, 64): a box never spans pages
   __device__ __forceinline__ int qbase(int b, int Q) const { return ctx_lens[b] - Q; }
   __device__ __forceinline__ int slot(int b, int kvh, int t, long long& off) const {
     if (t >= ctx_lens[b]) return -1;
@@ -37,12 +39,18 @@ struct PagedMqAddr {
     off = (((long long)page * page_size + t % page_size) * KV + kvh) * dh;
     return t;
   }
+  __device__ __forceinline__ bool box(int b, int t0, int& row, int& outer) const {
+    if (t0 >= ctx_lens[b]) return false;
+    outer = block_tables[(size_t)b * max_pages + t0 / page_size];
+    row = t0 % page_size;
+    return outer >= 0;
+  }
 };
 
 }  // namespace
 }  // namespace repro
 
-// q (B, Q, H, dh) bf16; k_pool, v_pool (P, page_size, KV, dh) bf16;
+// q (B, Q, H, dh) bf16; k_pool, v_pool (P, page_size, KV, dh) bf16 (P pages);
 // block_tables (B, max_pages) int32; ctx_lens (B,) int32; out
 // (B, Q, H, dh); part_acc / part_ml as repro_mq_decode_attention's over
 // S = max_pages · page_size slots. Returns cudaGetLastError() after the
@@ -51,16 +59,18 @@ extern "C" int repro_mq_paged_decode_attention(const void* q, const void* k_pool
                                                const void* v_pool, const void* block_tables,
                                                const void* ctx_lens, void* out,
                                                void* part_acc, void* part_ml, int B, int Q,
-                                               int max_pages, int page_size, int H, int KV,
-                                               int dh, int window, float scale, int n_split,
-                                               int vec, int dtype, void* stream) {
+                                               int P, int max_pages, int page_size, int H,
+                                               int KV, int dh, int window, float scale,
+                                               int n_split, int vec, int dtype, void* stream) {
   using namespace repro;
   if (dtype != DTYPE_BF16 || KV < 1 || H % KV || Q < 1 || n_split < 1 || page_size < 8 ||
       page_size % 8) {
     return (int)cudaErrorInvalidValue;
   }
+  int box_rows = 64;
+  while (page_size % box_rows) box_rows /= 2;  // gcd(page_size, 64): page_size % 8 == 0
   const PagedMqAddr addr{(const int*)block_tables, (const int*)ctx_lens, max_pages, page_size,
-                         KV, dh};
+                         KV, dh, page_size, P, box_rows};
   const int rc = dispatch_mq(q, k_pool, v_pool, addr, out, (float*)part_acc, (float*)part_ml, B,
                              Q, max_pages * page_size, KV, H / KV, dh, window, scale, n_split,
                              vec, (cudaStream_t)stream);

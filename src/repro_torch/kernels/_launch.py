@@ -35,3 +35,16 @@ def vector_ok(dh: int, *tensors: torch.Tensor) -> int:
     vectors per row and 16-byte aligned bases."""
     return int((dh * tensors[0].element_size()) % 16 == 0
                and all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
+HOPPER_MAX_HEAD_DIM = 128
+HOPPER_ROWS = 128     # query rows of one work item of the Hopper mainloop
+
+
+def hopper_mainloop(dh: int, vec: int, G: int) -> bool:
+    """The shapes the Hopper mainloop of ``csrc/attention_sm90.cuh`` takes
+    (its ``takes``): 16-byte aligned bf16 rows of at most 128 elements, and
+    a GQA group that fits one work item. The flash wrapper adds bf16, the
+    multi-query wrappers an unsplit call."""
+    return bool(vec) and dh % 8 == 0 and dh <= HOPPER_MAX_HEAD_DIM \
+        and G <= HOPPER_ROWS

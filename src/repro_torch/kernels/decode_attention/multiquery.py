@@ -35,11 +35,13 @@ from repro_torch.kernels.decode_attention.ops import (GLOBAL_WINDOW, NEG_INF,
 from repro_torch.kernels.decode_attention.paged import (_walk_pages,
                                                         check_tables)
 
-ROWS_PER_BLOCK = 64   # query rows (q_len·G) of one block in the kernel
+ROWS_PER_BLOCK = 64   # query rows (q_len·G) of one block of the mma.sync body
 TILE_SLOTS = 64       # cache slots per shared-memory tile in the kernel
 
 launches = 0          # kernel launches since the last reset (main-path proof)
 paged_launches = 0    # the same for the paged kernel
+hopper_launches = 0   # launches of each through the Hopper mainloop (the
+paged_hopper_launches = 0  # unsplit prefill regime)
 
 
 def mq_decode_attention_plain(q, k_cache, v_cache, pos_ids, pos, *,
@@ -66,16 +68,25 @@ def mq_decode_attention_plain(q, k_cache, v_cache, pos_ids, pos, *,
     return out.to(v_cache.dtype).reshape(B, Q, H, dh)
 
 
-def _n_split(blocks: int, S_c: int, device) -> int:
-    """Split the cache over blocks when the (row tile, kv head, batch) grid
-    alone gives fewer than about two blocks per SM (the verify shape): about
-    four blocks per SM, each a whole number of the kernel's slot tiles."""
-    sms = _sm_count(device.index)
+def split_count(B: int, Q: int, H: int, KV: int, S: int, sms: int) -> int:
+    """Split the S slots over blocks when the (64-row tile, kv head, batch)
+    grid alone gives fewer than about two blocks per SM (the verify shape):
+    about four blocks per SM, each a whole number of the kernel's slot
+    tiles. 1: unsplit (the prefill rounds)."""
+    blocks = math.ceil(Q * (H // KV) / ROWS_PER_BLOCK) * KV * B
     if blocks >= 2 * sms:
         return 1
     want = max(1, math.ceil(4 * sms / blocks))
-    chunk = TILE_SLOTS * max(1, math.ceil(S_c / (want * TILE_SLOTS)))
-    return math.ceil(S_c / chunk)
+    chunk = TILE_SLOTS * max(1, math.ceil(S / (want * TILE_SLOTS)))
+    return math.ceil(S / chunk)
+
+
+def takes_hopper_mainloop(n_split: int, dh: int, vec: int, G: int) -> bool:
+    """Whether a call launches the Hopper mainloop (wgmma, TMA) of
+    ``csrc/attention_sm90.cuh`` in place of the mma.sync body: an unsplit
+    call with aligned rows of dh <= 128, the rule of ``dispatch_mq``. It
+    depends on the shapes only, so kernels 4 and 5 pick alike."""
+    return n_split == 1 and _launch.hopper_mainloop(dh, vec, G)
 
 
 def mq_decode_attention(q, k_cache, v_cache, pos_ids, pos, *, window=None):
@@ -83,7 +94,7 @@ def mq_decode_attention(q, k_cache, v_cache, pos_ids, pos, *, window=None):
     int32; pos: int, the position of query 0 -> (B, q_len, H, dh). CPU
     tensors take the plain version; CUDA tensors launch the kernel or
     raise (bf16 only: the kernel's products run on bf16 tensor cores)."""
-    global launches
+    global launches, hopper_launches
     if q.device.type == "cpu":
         return mq_decode_attention_plain(q, k_cache, v_cache, pos_ids, pos,
                                          window=window)
@@ -111,7 +122,8 @@ def mq_decode_attention(q, k_cache, v_cache, pos_ids, pos, *, window=None):
     if window < 1:
         raise ValueError(f"mq_decode_attention: window={window} must be >= 1")
     R = Q * (H // KV)
-    n_split = _n_split(math.ceil(R / ROWS_PER_BLOCK) * KV * B, S_c, q.device)
+    n_split = split_count(B, Q, H, KV, S_c, _sm_count(q.device.index))
+    vec = _launch.vector_ok(dh, q, k_cache, v_cache)
     out = torch.empty_like(q)
     part_acc = part_ml = None
     if n_split > 1:
@@ -125,12 +137,12 @@ def mq_decode_attention(q, k_cache, v_cache, pos_ids, pos, *, window=None):
         None if part_acc is None else part_acc.data_ptr(),
         None if part_ml is None else part_ml.data_ptr(),
         B, Q, S_c, H, KV, dh, int(pos), window, float(dh) ** -0.5, n_split,
-        _launch.vector_ok(dh, q, k_cache, v_cache), dtype,
-        _launch.stream_handle(q.device))
+        vec, dtype, _launch.stream_handle(q.device))
     if rc:
         raise RuntimeError(f"mq_decode_attention kernel launch failed: "
                            f"CUDA error {rc}")
     launches += 1
+    hopper_launches += takes_hopper_mainloop(n_split, dh, vec, H // KV)
     return out
 
 
@@ -165,7 +177,7 @@ def mq_paged_decode_attention(q, k_pool, v_pool, block_tables, ctx_lens, *,
     block_tables: (B, max_pages) int32; ctx_lens: (B,) int32 including the
     q_len new tokens -> (B, q_len, H, dh). CPU tensors take the plain
     version; CUDA tensors launch the kernel or raise (bf16 only)."""
-    global paged_launches
+    global paged_launches, paged_hopper_launches
     if q.device.type == "cpu":
         return mq_paged_decode_attention_plain(q, k_pool, v_pool,
                                                block_tables, ctx_lens,
@@ -191,8 +203,9 @@ def mq_paged_decode_attention(q, k_pool, v_pool, block_tables, ctx_lens, *,
     max_pages = block_tables.shape[1]
     R = Q * (H // KV)
     # the contiguous kernel's split of the same S = max_pages · ps slots
-    n_split = _n_split(math.ceil(R / ROWS_PER_BLOCK) * KV * B,
-                       max_pages * ps, q.device)
+    n_split = split_count(B, Q, H, KV, max_pages * ps,
+                          _sm_count(q.device.index))
+    vec = _launch.vector_ok(dh, q, k_pool, v_pool)
     out = torch.empty_like(q)
     part_acc = part_ml = None
     if n_split > 1:
@@ -205,10 +218,11 @@ def mq_paged_decode_attention(q, k_pool, v_pool, block_tables, ctx_lens, *,
         block_tables.data_ptr(), ctx_lens.data_ptr(), out.data_ptr(),
         None if part_acc is None else part_acc.data_ptr(),
         None if part_ml is None else part_ml.data_ptr(),
-        B, Q, max_pages, ps, H, KV, dh, window, float(dh) ** -0.5, n_split,
-        _launch.vector_ok(dh, q, k_pool, v_pool), dtype,
-        _launch.stream_handle(q.device))
+        B, Q, P, max_pages, ps, H, KV, dh, window, float(dh) ** -0.5, n_split,
+        vec, dtype, _launch.stream_handle(q.device))
     if rc:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
     paged_launches += 1
+    paged_hopper_launches += takes_hopper_mainloop(n_split, dh, vec,
+                                                   H // KV)
     return out

@@ -4,7 +4,8 @@ plain version.
 Counterpart of ``repro.kernels.flash_attention.ops.flash_attention`` (the
 TPU kernel at ``kernels/flash_attention/kernel.py:84``). The CUDA kernel is
 ``repro_torch/csrc/flash_attention.cu``; its header says what bounds it on
-the H100 and how the design meets that.
+the H100, how the design meets that, and which shapes run the Hopper
+mainloop of ``csrc/attention_sm90.cuh`` (``takes_hopper_mainloop``).
 
 Model layout in and out: q (B, Sq, H, dh), k/v (B, Skv, KV, dh). Key j is
 visible to query i = q_offset + row iff j < Skv, (not causal or j <= i)
@@ -20,6 +21,14 @@ NEG_INF = -2.0e30
 GLOBAL_WINDOW = 2 ** 30
 
 launches = 0          # kernel launches since the last reset (main-path proof)
+hopper_launches = 0   # those of them through the Hopper mainloop
+
+
+def takes_hopper_mainloop(dtype, dh: int, vec: int, G: int) -> bool:
+    """Whether a call launches the Hopper mainloop (wgmma, TMA) in place of
+    the mma.sync or fp32 kernels: bf16 with aligned rows of dh <= 128, the
+    rule of ``repro_flash_attention``."""
+    return dtype == torch.bfloat16 and _launch.hopper_mainloop(dh, vec, G)
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window=None,
@@ -50,7 +59,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
     """q: (B, Sq, H, dh); k, v: (B, Skv, KV, dh) -> (B, Sq, H, dh). CPU
     tensors take the plain version; CUDA tensors launch the kernel or
     raise."""
-    global launches
+    global launches, hopper_launches
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      q_offset=q_offset)
@@ -69,13 +78,14 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
     if window < 1:
         raise ValueError(f"flash_attention: window={window} must be >= 1")
     out = torch.empty_like(q)
+    vec = _launch.vector_ok(dh, q, k, v)
     rc = build.load().repro_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         B, Sq, Skv, H, KV, dh, int(causal), window, int(q_offset),
-        float(dh) ** -0.5, _launch.vector_ok(dh, q, k, v), dtype,
-        _launch.stream_handle(q.device))
+        float(dh) ** -0.5, vec, dtype, _launch.stream_handle(q.device))
     if rc:
         raise RuntimeError(f"flash_attention kernel launch failed: "
                            f"CUDA error {rc}")
     launches += 1
+    hopper_launches += takes_hopper_mainloop(q.dtype, dh, vec, H // KV)
     return out

@@ -53,6 +53,39 @@ MQ_CASES = [
     (1, 3, 32, 4, 2, 32, 5, None, "first-masked"),
 ]
 
+# Shapes the Hopper mainloop (csrc/attention_sm90.cuh) takes: flash at
+# tile edges (Sq, Skv not multiples of 64 or 128; 128 rows a block are
+# 128 / G positions), and the multi-query prefill regime (unsplit: at
+# B 4, KV 8, G 8, q_len 128 already fills 512 blocks).
+FLASH_HOPPER_CASES = [
+    # B, Sq, Skv, H, KV, dh, causal, window, q_offset
+    (1, 100, 230, 10, 2, 80, True, 100, 130),        # dh 80, window 100
+    (1, 77, 77, 16, 2, 128, True, None, 0),          # G 8, one ragged block
+    (2, 200, 200, 8, 1, 128, True, 100, 0),          # G 8, window 100
+    (2, 130, 300, 10, 2, 64, True, 1024, 170),       # G 5, window 1024
+    (4, 129, 129, 25, 5, 64, True, 1024, 0),         # Hymba's heads, S 129
+    (1, 129, 191, 10, 2, 64, False, 100, 0),         # bidirectional window
+    (2, 64, 64, 4, 1, 32, True, 16, 0),              # dh 32 in a 64 box
+]
+
+MQ_HOPPER_CASES = [
+    # B, q_len, S_c, H, KV, dh, pos, window, cache kind (as MQ_CASES)
+    (4, 128, 1024, 64, 8, 128, 891, None, "linear"),
+    (4, 512, 1024, 64, 8, 128, 0, 300, "linear"),
+    (4, 128, 1024, 64, 8, 128, 1500, 700, "ring"),
+    (4, 128, 1024, 64, 8, 128, 300, None, "stale"),
+    (4, 128, 700, 64, 8, 80, 333, None, "linear"),   # dh 80, S_c % 64 != 0
+]
+
+MQ_PAGED_HOPPER_CASES = [
+    # B, q_len, H, KV, dh, page_size, max_pages, ctx_lens, window
+    (4, 128, 64, 8, 128, 64, 16, (1019, 700, 300, 130), None),
+    (4, 128, 64, 8, 128, 16, 64, (1019, 700, 300, 130), 300),
+    (4, 512, 64, 8, 128, 64, 16, (1000, 900, 600, 512), None),
+    (4, 512, 64, 8, 128, 16, 64, (1024, 777, 513, 640), 256),
+    (4, 128, 64, 8, 128, 24, 43, (1019, 700, 300, 130), None),  # 8-row boxes
+]
+
 NP_DT = {"bf16": ml_dtypes.bfloat16, "f32": np.float32}
 TORCH_DT = {"bf16": torch.bfloat16, "f32": torch.float32}
 

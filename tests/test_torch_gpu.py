@@ -14,11 +14,13 @@ import pytest
 import torch
 
 from _torch_cases import (BF16_REL, DECODE_CASES, F32_REL, FLASH_CASES,
-                          MQ_CASES, MQ_PAGED_CASES, PAGED_CASES, SCAN_REL,
-                          SSM_CASES, WKV_CASES, decode_inputs, flash_inputs,
-                          gathered_ids, mq_inputs, mq_paged_case_inputs,
-                          paged_case_inputs, paged_inputs, rel_err,
-                          ssm_inputs, to_torch, wkv_inputs)
+                          FLASH_HOPPER_CASES, MQ_CASES, MQ_HOPPER_CASES,
+                          MQ_PAGED_CASES, MQ_PAGED_HOPPER_CASES, PAGED_CASES,
+                          SCAN_REL, SSM_CASES, WKV_CASES, decode_inputs,
+                          flash_inputs, gathered_ids, mq_inputs,
+                          mq_paged_case_inputs, np_rand, paged_case_inputs,
+                          paged_inputs, rel_err, ssm_inputs, to_torch,
+                          wkv_inputs)
 from repro_torch.configs import get_smoke_config
 from repro_torch.core.engine import InterleavedEngine, UniformPlan
 from repro_torch.kernels.decode_attention import multiquery as mq
@@ -512,3 +514,96 @@ def test_recurrent_model_kernel_path_vs_reference(arch, cuda_device):
         assert got == (((9 * L,) + attn) if impl == "kernel" else (0, 0, 0))
     err = (out["kernel"] - out["ref"]).abs().max().item()
     assert err <= 0.05 * out["ref"].abs().max().item()
+
+
+# ---------------------------------------------------------------------------
+# The Hopper mainloop (csrc/attention_sm90.cuh): flash and the multi-query
+# prefill regime. Each call must go through it (the wrappers' hopper
+# counters) and agree with the plain version.
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("case", FLASH_HOPPER_CASES,
+                         ids=lambda c: f"Sq{c[1]}Skv{c[2]}H{c[3]}kv{c[4]}d{c[5]}"
+                                       f"{'c' if c[6] else 'b'}w{c[7]}o{c[8]}")
+def test_flash_hopper_mainloop_tile_edges(case, cuda_device):
+    B, Sq, Skv, H, KV, dh, causal, window, q_offset = case
+    rng = np.random.default_rng(7)
+    q, k, v = (to_torch(np_rand(rng, shape, "bf16"), "bf16", cuda_device)
+               for shape in ((B, Sq, H, dh), (B, Skv, KV, dh), (B, Skv, KV, dh)))
+    n0 = fa.hopper_launches
+    out = fa.flash_attention(q, k, v, causal=causal, window=window,
+                             q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert fa.hopper_launches == n0 + 1
+    ref = fa.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset)
+    assert rel_err(out, ref) <= BF16_REL
+
+
+@pytest.mark.parametrize("case", MQ_HOPPER_CASES,
+                         ids=lambda c: f"q{c[1]}S{c[2]}d{c[5]}p{c[6]}w{c[7]}-{c[8]}")
+def test_mq_hopper_prefill_regime(case, cuda_device):
+    B, Q, S_c, H, KV, dh, pos, window, kind = case
+    q, k, v, ids = mq_inputs(case, seed=2)
+    q, k, v = (to_torch(a, "bf16", cuda_device) for a in (q, k, v))
+    ids = torch.from_numpy(ids).to(cuda_device)
+    n0 = mq.hopper_launches
+    out = mq.mq_decode_attention(q, k, v, ids, pos, window=window)
+    torch.cuda.synchronize()
+    assert mq.hopper_launches == n0 + 1
+    ref = mq.mq_decode_attention_plain(q, k, v, ids, pos, window=window)
+    assert rel_err(out, ref) <= BF16_REL
+
+
+@pytest.mark.parametrize("case", MQ_PAGED_HOPPER_CASES,
+                         ids=lambda c: f"q{c[1]}ps{c[5]}w{c[8]}")
+def test_mq_paged_hopper_prefill_regime(case, cuda_device):
+    B, Q, H, KV, dh, ps, maxp, ctx, window = case
+    q, k, v, bt, ctxn = _paged_on(cuda_device,
+                                  *paged_inputs(B, Q, H, KV, dh, ps, maxp, ctx, seed=4))
+    n0 = mq.paged_hopper_launches
+    out = mq.mq_paged_decode_attention(q, k, v, bt, ctxn, window=window)
+    torch.cuda.synchronize()
+    assert mq.paged_hopper_launches == n0 + 1
+    ref = mq.mq_paged_decode_attention_plain(q, k, v, bt, ctxn, window=window)
+    assert rel_err(out, ref) <= BF16_REL
+
+
+@pytest.mark.parametrize("case", MQ_PAGED_HOPPER_CASES,
+                         ids=lambda c: f"q{c[1]}ps{c[5]}w{c[8]}")
+def test_mq_paged_hopper_bitwise_vs_mq_kernel(case, cuda_device):
+    """5 equals 4 bit for bit on the gathered cache in the prefill regime:
+    both take the Hopper mainloop, with one tile order and one tile
+    content (empty slots' V rows zeroed in both)."""
+    B, Q, H, KV, dh, ps, maxp, ctx, window = case
+    c = max(ctx)
+    q, k, v, bt, ctxn = _paged_on(cuda_device, *paged_inputs(
+        B, Q, H, KV, dh, ps, maxp, (c,) * B, seed=5))
+    h4, h5 = mq.hopper_launches, mq.paged_hopper_launches
+    out = mq.mq_paged_decode_attention(q, k, v, bt, ctxn, window=window)
+    ids = torch.from_numpy(gathered_ids(maxp * ps, c)).to(cuda_device)
+    ref = mq.mq_decode_attention(q, pg.gather_pages(k, bt).contiguous(),
+                                 pg.gather_pages(v, bt).contiguous(), ids,
+                                 c - Q, window=window)
+    torch.cuda.synchronize()
+    assert (mq.hopper_launches - h4, mq.paged_hopper_launches - h5) == (1, 1)
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("case", MQ_PAGED_HOPPER_CASES,
+                         ids=lambda c: f"q{c[1]}ps{c[5]}w{c[8]}")
+def test_mq_paged_hopper_reads_only_filled_slots(case, cuda_device):
+    """NaN in every page no table names and in every slot past ctx: the
+    prefill regime must return the clean pool's output bit for bit."""
+    B, Q, H, KV, dh, ps, maxp, ctx, window = case
+    q, k, v, bt, ctxn = _paged_on(cuda_device,
+                                  *paged_inputs(B, Q, H, KV, dh, ps, maxp, ctx, seed=6))
+    dirty = torch.ones(k.shape[:2], dtype=torch.bool, device=cuda_device)
+    for b, n in enumerate(ctx):
+        t = torch.arange(n, device=cuda_device)
+        dirty[bt[b, t // ps].long(), t % ps] = False
+    kd, vd = k.clone(), v.clone()
+    kd[dirty] = float("nan")
+    vd[dirty] = float("nan")
+    clean = mq.mq_paged_decode_attention(q, k, v, bt, ctxn, window=window)
+    got = mq.mq_paged_decode_attention(q, kd, vd, bt, ctxn, window=window)
+    assert torch.isfinite(got.float()).all() and torch.equal(got, clean)

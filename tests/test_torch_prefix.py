@@ -16,6 +16,7 @@ equal and the tokens equal up to a near tie (_torch_parity's rule).
 """
 import dataclasses
 import json
+import types
 
 import pytest
 
@@ -28,6 +29,7 @@ from _torch_parity import (assert_same_or_near_tie, jax_params,  # noqa: E402
 from repro.configs.registry import get_smoke_config  # noqa: E402
 from repro.serving import LimeServer as JLimeServer  # noqa: E402
 from repro_torch.kvcache.paged_decode import PagedDecodeCache  # noqa: E402
+from repro_torch.serving import backend as serving_backend  # noqa: E402
 from repro_torch.launch import serve as launch  # noqa: E402
 from repro_torch.serving import (ContinuousBatchingScheduler,  # noqa: E402
                                  EngineBackend, LimeServer, SchedulerConfig,
@@ -207,7 +209,13 @@ def test_small_pool_evicts_cached_pages_and_stays_lossless(model):
 
 
 @pytest.mark.parametrize("pattern", ["shared_prefix", "multiturn"])
-def test_launcher_prefix_cache_on_cpu(pattern, capsys):
+def test_launcher_prefix_cache_on_cpu(pattern, capsys, monkeypatch):
+    # serve on a clock that only the scheduler advances: the backend's
+    # monotonic clock stands still, so now() moves only by advance_to's
+    # skew, and a multiturn follow-up never arrives before its turn ends,
+    # however slow the host is
+    monkeypatch.setattr(serving_backend, "time",
+                        types.SimpleNamespace(monotonic=lambda: 0.0))
     argv = ["--arch", "llama3.3-70b", "--smoke", "--device", "cpu",
             "--prefix-cache", "--page-size", "8", "--prefill-chunk", "8",
             "--pattern", pattern, "--n-templates", "1", "--prefix-len", "24",
