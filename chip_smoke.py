@@ -9,8 +9,11 @@ Phases; any failure exits non-zero without the final ``ok`` line:
    kernels built from ``src/repro_torch/csrc`` (nvcc, sm_90a), TF32 off
    for every fp32 reference product. The SASS of the Hopper mainloop
    (``csrc/attention_sm90.cuh``) in each of its three sources (flash,
-   kernels 4 and 5) must hold HGMMA (wgmma) and UTMALDG (TMA) (cuobjdump);
-   its registers and spills from ptxas.
+   kernels 4 and 5) must hold HGMMA (wgmma) and UTMALDG (TMA), and each of
+   the four instantiations of the Hopper decode body (decode_sm90_kernel
+   in ``csrc/decode_attention.cuh``) in kernels 1 and 3 HMMA (mma.sync)
+   and LDGSTS (cp.async) (cuobjdump); no decode_combine_kernel is built;
+   their registers and spills from ptxas.
 1. kernels against their plain PyTorch versions on the card, at the main
    path's shapes (Hymba's G 5 / dh 64 / window 1024 attention included)
    and at ring-buffer / window / unaligned / offset cases,
@@ -20,7 +23,9 @@ Phases; any failure exits non-zero without the final ``ok`` line:
    events, L2 flushed and host enqueue hidden before each call), its
    bound, the plain version's time and one PyTorch library call's time as
    a yardstick (flash at LLaMA's and at Hymba's shape; kernels 4 and 5 at
-   their verify and prefill-round shapes). The paged kernels (3: decode, 5: multi-query) run at phase
+   their verify and prefill-round shapes; kernel 1 at its main, B 1 and
+   Hymba shapes, SDPA on the visible prefix), and for kernels 1 and 3 the
+   time's split over the CUDA kernels one call launches (torch.profiler). The paged kernels (3: decode, 5: multi-query) run at phase
    2b's shapes (page 64, 16 pages, ctx 1019; q_len 128 and 5) with
    shuffled non-contiguous block tables, ragged ctx, windows and dh 80 /
    page 16, reject planted faults (page index +-1, ctx - 1, row // G off
@@ -92,8 +97,10 @@ Phases; any failure exits non-zero without the final ``ok`` line:
    the copy time of the streamed bytes, and a profiler breakdown of one
    pass.
 Every flash launch of phases 2, 2b and 3c, every prefill round of kernel 5
-(2b) and of kernel 4 (3a, 3b) must run the Hopper mainloop (the wrappers'
-hopper counters).
+(2b) and of kernel 4 (3a, 3b) must run the Hopper mainloop, and every
+launch of kernels 1 and 3 in phases 2, 2b, 3b and 3c the Hopper decode
+body (the wrappers' hopper counters); the profiled serves show no second
+decode pass (decode_combine_kernel).
 4. a JSON line of per-kernel numbers, then the ``ok`` line.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -304,21 +311,8 @@ def kernel_phase():
             kw = {"pos": pos, "window": window, **kw}
             faults.append((label, head_shifted(
                 da.decode_attention_plain, kw.pop("head_shift", 0), q, k, v, ids, **kw)))
-        err = check(name, out, ref, BF16_REL if dt == bf16 else F32_REL, faults)
-        if name.startswith("main"):
-            ms = time_ms(lambda: da.decode_attention(q, k, v, ids, pos))
-            plain = time_ms(lambda: da.decode_attention_plain(q, k, v, ids, pos))
-            lib = library_time_ms(lambda: F.scaled_dot_product_attention(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                enable_gqa=True))
-            n_valid = int(((ids >= 0) & (ids <= pos)).sum())
-            byts = 2 * B * n_valid * KV * dh * k.element_size() \
-                + nbytes(q, ids) + nbytes(q)            # K, V rows; q, ids; out
-            flops = 2 * 2 * B * H * n_valid * dh        # QK^T and PV (fp32 SIMT)
-            rows["decode_attention"] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
-                bytes=byts, flops=flops, bytes_bound_ms=byts / HBM_BYTES_PER_S * 1e3,
-                ops_bound_ms=flops / FP32_SIMT_FLOPS * 1e3)
+        check(name, out, ref, BF16_REL if dt == bf16 else F32_REL, faults)
+    decode_timed(gen, rows)
 
     log("phase 1: flash_attention kernel vs plain version")
     # B, Sq, Skv, H, KV, dh, causal, window, q_offset, dtype, planted faults
@@ -382,6 +376,83 @@ def kernel_phase():
             f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']} ms, "
             f"roofline share {bound / r['ms']:.3f}")
     return rows
+
+
+# kernel 1's timed shapes: (row key, B, S_c, H, KV, dh, pos, window) of a
+# bursty decode step at the end of the cache (the main shape), a sporadic
+# one (B 1) and phase 3c's Hymba decode; linear caches, window >= pos + 1
+DECODE_TIMED = (
+    ("decode_attention", 4, 1024, 64, 8, 128, 1023, None),
+    ("decode_attention@B1", 1, 1024, 64, 8, 128, 543, None),
+    ("decode_attention@hymba", 4, 1024, 25, 5, 64, 543, 1024),
+)
+
+
+def pass_split(fn, reps=10):
+    """{kernel: (device µs per call, launches per call)} of the csrc/
+    kernels fn() launches: torch.profiler over reps calls, the L2 flushed
+    before each, as time_ms times them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        m = csrc_kernel(e.key)
+        if e.device_type != torch.autograd.DeviceType.CUDA or m is None:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        split[m[1]] = (round(us / reps, 3), e.count / reps)
+    return split
+
+
+def decode_timed(gen, rows):
+    """Kernel 1 at DECODE_TIMED's shapes: checked against its plain version,
+    then its device time, the plain version's, SDPA's on the visible prefix
+    of the cache, the byte bound, and the time's split over the CUDA
+    kernels one call launches."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import ops as da
+    bf16 = torch.bfloat16
+    for key, B, S_c, H, KV, dh, pos, window in DECODE_TIMED:
+        q = randn((B, 1, H, dh), bf16, gen)
+        k = randn((B, S_c, KV, dh), bf16, gen)
+        v = randn((B, S_c, KV, dh), bf16, gen)
+        ids = linear_ids(S_c, pos)
+
+        def fn():
+            return da.decode_attention(q, k, v, ids, pos, window=window)
+        out = fn()
+        torch.cuda.synchronize()
+        ref = da.decode_attention_plain(q, k, v, ids, pos, window=window)
+        err = check(f"timed {key} B{B} S{S_c} H{H} KV{KV} dh{dh} pos{pos} w{window}",
+                    out, ref, BF16_REL)
+        n_vis = pos + 1                                  # linear ids, window >= pos + 1
+        kv, vv = k[:, :n_vis].contiguous(), v[:, :n_vis].contiguous()
+        ms = time_ms(fn)
+        plain = time_ms(lambda: da.decode_attention_plain(q, k, v, ids, pos, window=window))
+        lib = library_time_ms(lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), kv.transpose(1, 2), vv.transpose(1, 2), enable_gqa=True))
+        split = pass_split(fn)
+        byts = 2 * B * n_vis * KV * dh * k.element_size() \
+            + nbytes(q, ids) + nbytes(q)                # K, V rows; q, ids; out
+        flops = 2 * 2 * B * H * n_vis * dh              # QK^T and PV
+        rows[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
+                         bytes=byts, flops=flops, split=split,
+                         bytes_bound_ms=byts / HBM_BYTES_PER_S * 1e3,
+                         ops_bound_ms=flops / FP32_SIMT_FLOPS * 1e3)
+        log(f"    {key}: {ms:.4f} ms; sdpa on the visible prefix {lib} ms; split over "
+            f"kernels (µs per call, launches per call) {split}")
 
 
 def mq_ids(S_c, pos, Q, kind):
@@ -557,7 +628,6 @@ def paged_phase(gen, rows):
     plain version; bit-equality against kernels 1 and 4 on the gathered
     cache; device times at the main shapes."""
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attention import multiquery as mq
     from repro_torch.kernels.decode_attention import paged as pg
@@ -613,33 +683,63 @@ def paged_phase(gen, rows):
                                         window=kw.get("window", window))))
         err = check(name, out, ref, BF16_REL, faults)
         paged_bitwise(name, q, k, v, bt, ctx, window, Q)
-        if not name.endswith("ctx1019"):
-            continue
-        # device times at the main shapes; the library yardstick is SDPA on
-        # the gathered cache (the gather itself not counted)
-        kc, _ = gathered(k, bt, ctx_t[0])
-        vc, _ = gathered(v, bt, ctx_t[0])
-        S = maxp * ps
-        qpos = ctx[:, None] - Q + torch.arange(Q, device="cuda")[None, :]   # (B, Q)
-        vis = torch.arange(S, device="cuda")[None, None, :] <= qpos[:, :, None]
-        ms = time_ms(lambda: kern(q, k, v, bt, ctx))
-        plain_ms = time_ms(lambda: plain(q, k, v, bt, ctx), reps=10)
-        lib = library_time_ms(lambda: F.scaled_dot_product_attention(
-            q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2),
-            attn_mask=vis[:, None], enable_gqa=True))
-        n_read = int(vis.any(1).sum())                  # (b, slot) some row sees
-        pairs = int(vis.sum())                          # visible (b, qi, slot)
-        byts = 2 * n_read * KV * dh * k.element_size() \
-            + nbytes(q, bt, ctx) + nbytes(q)            # K, V rows; q, tables; out
-        flops = 2 * 2 * pairs * H * dh
-        key = "paged_decode_attention" if Q == 1 else (
-            "mq_paged_decode_attention" if Q == 128 else "mq_paged_decode_attention@verify")
-        rows[key] = dict(
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib,
-            bytes=byts, flops=flops, bytes_bound_ms=byts / HBM_BYTES_PER_S * 1e3,
-            ops_bound_ms=flops / (FP32_SIMT_FLOPS if Q == 1 else BF16_TENSOR_FLOPS) * 1e3)
-        log(f"    sdpa yardstick on the cache gathered beforehand (gather not "
-            f"counted): {lib} ms")
+        if name.endswith("ctx1019"):
+            key = "paged_decode_attention" if Q == 1 else (
+                "mq_paged_decode_attention" if Q == 128 else "mq_paged_decode_attention@verify")
+            rows[key] = time_paged(kern, plain, q, k, v, bt, ctx, err)
+
+
+def time_paged(kern, plain, q, k, v, bt, ctx, err):
+    """A paged kernel's row at a main shape (uniform ctx): its device time,
+    the plain version's, SDPA's on the gathered cache (the gather itself
+    not counted), the bound, and the time's split over the CUDA kernels
+    one call launches."""
+    import torch
+    import torch.nn.functional as F
+    Q, H, dh = q.shape[1], q.shape[2], q.shape[3]
+    ps, KV = k.shape[1], k.shape[2]
+    kc, _ = gathered(k, bt, int(ctx[0]))
+    vc, _ = gathered(v, bt, int(ctx[0]))
+    S = bt.shape[1] * ps
+    qpos = ctx[:, None] - Q + torch.arange(Q, device="cuda")[None, :]   # (B, Q)
+    vis = torch.arange(S, device="cuda")[None, None, :] <= qpos[:, :, None]
+    ms = time_ms(lambda: kern(q, k, v, bt, ctx))
+    plain_ms = time_ms(lambda: plain(q, k, v, bt, ctx), reps=10)
+    lib = library_time_ms(lambda: F.scaled_dot_product_attention(
+        q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2),
+        attn_mask=vis[:, None], enable_gqa=True))
+    split = pass_split(lambda: kern(q, k, v, bt, ctx))
+    n_read = int(vis.any(1).sum())                  # (b, slot) some row sees
+    pairs = int(vis.sum())                          # visible (b, qi, slot)
+    byts = 2 * n_read * KV * dh * k.element_size() \
+        + nbytes(q, bt, ctx) + nbytes(q)            # K, V rows; q, tables; out
+    flops = 2 * 2 * pairs * H * dh
+    log(f"    {ms:.4f} ms; sdpa yardstick on the cache gathered beforehand (gather not "
+        f"counted): {lib} ms; split over kernels (µs per call, launches per call) "
+        f"{split}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib,
+                bytes=byts, flops=flops, split=split,
+                bytes_bound_ms=byts / HBM_BYTES_PER_S * 1e3,
+                ops_bound_ms=flops / (FP32_SIMT_FLOPS if Q == 1 else BF16_TENSOR_FLOPS) * 1e3)
+
+
+def paged_decode_timed(gen, rows):
+    """Kernel 3 at its main shape alone (phase 2b's pool: B 4, page 64, 16
+    pages, ctx 1019, shuffled tables): its row as paged_phase times it."""
+    import torch
+    from repro_torch.kernels.decode_attention import paged as pg
+    ctx_t = (1019,) * 4
+    bt, P = shuffled_tables(ctx_t, PAGE, MAX_PAGES, gen)
+    ctx = torch.tensor(ctx_t, dtype=torch.int32, device="cuda")
+    q = randn((4, 1, 64, 128), torch.bfloat16, gen)
+    k = randn((P, PAGE, 8, 128), torch.bfloat16, gen)
+    v = randn((P, PAGE, 8, 128), torch.bfloat16, gen)
+    out = pg.paged_decode_attention(q, k, v, bt, ctx)
+    torch.cuda.synchronize()
+    err = check("timed paged decode main", out,
+                pg.paged_decode_attention_plain(q, k, v, bt, ctx), BF16_REL)
+    rows["paged_decode_attention"] = time_paged(
+        pg.paged_decode_attention, pg.paged_decode_attention_plain, q, k, v, bt, ctx, err)
 
 
 # ----------------------------------------------------------------------------
@@ -920,21 +1020,24 @@ def main_path_phase(card):
           max_new=2)
     torch.cuda.synchronize()
 
-    launches = {"flash_attention": 0, "decode_attention": 0, "flash_attention@hopper": 0}
+    launches = {"flash_attention": 0, "decode_attention": 0, "flash_attention@hopper": 0,
+                "decode_attention@hopper": 0}
     outs = {}
     torch.cuda.reset_peak_memory_stats()
     for pattern, n_req in (("bursty", 4), ("sporadic", 2)):
         prompts = make_prompts(n_req, cfg.vocab_size, 0)
         n_batches = 1 if pattern == "bursty" else n_req
         fa.launches = fa.hopper_launches = 0
-        da.launches = 0
+        da.launches = da.hopper_launches = 0
         done = serve(cfg, params, pattern, prompts, "kernel")
         torch.cuda.synchronize()
         got = {"flash_attention": fa.launches, "decode_attention": da.launches,
-               "flash_attention@hopper": fa.hopper_launches}
+               "flash_attention@hopper": fa.hopper_launches,
+               "decode_attention@hopper": da.hopper_launches}
         want = {"flash_attention": cfg.n_layers * n_batches,
                 "decode_attention": cfg.n_layers * (MAX_NEW - 1) * n_batches,
-                "flash_attention@hopper": cfg.n_layers * n_batches}
+                "flash_attention@hopper": cfg.n_layers * n_batches,
+                "decode_attention@hopper": cfg.n_layers * (MAX_NEW - 1) * n_batches}
         log(f"  {pattern}: launches {got} (expected {want})")
         if got != want:
             raise AssertionError(f"{pattern}: kernel launch counts {got} != {want}")
@@ -982,6 +1085,13 @@ def csrc_kernel(name):
     return (m.group(1), m.group(0)) if m else None
 
 
+def one_decode_pass(name):
+    """A profiled kernel name must not be a second pass of kernels 1 and 3:
+    they merge their splits inside one launch."""
+    if "decode_combine_kernel" in name:
+        raise AssertionError(f"a second decode pass ran: {name}")
+
+
 def breakdown(cfg, params, card):
     """Device time by kernel class over one bursty serve (torch.profiler,
     kernels' own time), and the device's idle share of the serve's wall
@@ -1006,6 +1116,7 @@ def breakdown(cfg, params, card):
         if us is None:
             us = e.self_cuda_time_total
         name = e.key.lower()
+        one_decode_pass(name)
         m = csrc_kernel(name)
         if m is not None:
             cls = m[0] + "_attention"
@@ -1075,8 +1186,10 @@ def kernel_counters():
             "paged_decode_attention": (pg, "launches"),
             "mq_paged_decode_attention": (mq, "paged_launches"),
             "wkv_scan": (wkv, "launches"), "ssm_scan": (ssm, "launches"),
-            # the launches of the Hopper mainloop among them
+            # the launches of the Hopper mainloop and decode body among them
             "flash_attention@hopper": (fa, "hopper_launches"),
+            "decode_attention@hopper": (da, "hopper_launches"),
+            "paged_decode_attention@hopper": (pg, "hopper_launches"),
             "mq_decode_attention@prefill": (mq, "hopper_launches"),
             "mq_paged_decode_attention@prefill": (mq, "paged_hopper_launches")}
 
@@ -1116,7 +1229,7 @@ def drive_prefix(srv, reqs, n_layers):
         want = dict.fromkeys(got, 0)
         pc = be._paged_cache
         if len(be.rounds) > n_rounds:                  # a decode step
-            want["paged_decode_attention"] = n_layers
+            want["paged_decode_attention"] = want["paged_decode_attention@hopper"] = n_layers
             ep = epochs[-1]
             ep["decode_steps"] += 1
             ep["uploads"] += pc.bt_uploads - up0
@@ -1253,8 +1366,9 @@ def prefix_profile(cfg, params, reqs, card):
         if us is None:
             us = e.self_cuda_time_total
         name = e.key.lower()
+        one_decode_pass(name)
         # only the paged kernels of csrc/ run in this serve: decode is
-        # kernel 3 (and its combine pass), mq kernel 5
+        # kernel 3, mq kernel 5
         m = csrc_kernel(name)
         if m is not None:
             cls = "paged_decode" if m[0] == "decode" else "mq_paged"
@@ -1505,8 +1619,7 @@ def step_launches(cfg, decode):
     want["wkv_scan" if cfg.family == Family.SSM else "ssm_scan"] = L
     if cfg.family == Family.HYBRID:
         want["decode_attention" if decode else "flash_attention"] = L
-        if not decode:
-            want["flash_attention@hopper"] = L
+        want["decode_attention@hopper" if decode else "flash_attention@hopper"] = L
     return want
 
 
@@ -1664,6 +1777,7 @@ def recurrent_breakdown(cfg, params, card):
         if us is None:
             us = e.self_cuda_time_total
         name = e.key.lower()
+        one_decode_pass(name)
         m = csrc_kernel(name)
         if m is not None:
             cls = {"wkv": "wkv_scan", "ssm": "ssm_scan", "decode": "decode_attention",
@@ -1847,10 +1961,10 @@ def drive(srv, prompts, pattern, n_layers, retier_at=()):
     sched.begin(reqs)
     n_pf = math.ceil(PROMPT_LEN / PREFILL_CHUNK)
     prefills, applied = 0, []
-    mq.launches = da.launches = mq.hopper_launches = 0
+    mq.launches = da.launches = mq.hopper_launches = da.hopper_launches = 0
     while True:
         n_rounds, res = len(be.rounds), len(eng.resident_layer_ids())
-        m0, d0, h0 = mq.launches, da.launches, mq.hopper_launches
+        m0, d0, h0, hd0 = mq.launches, da.launches, mq.hopper_launches, da.hopper_launches
         if not sched.step():
             break
         got = (mq.launches - m0, da.launches - d0)
@@ -1859,6 +1973,9 @@ def drive(srv, prompts, pattern, n_layers, retier_at=()):
         if mq.hopper_launches - h0 != (got[0] if len(be.rounds) == n_rounds else 0):
             raise AssertionError(f"{pattern}: {mq.hopper_launches - h0} Hopper-mainloop "
                                  f"launches in a step of {got[0]} mq launches")
+        if da.hopper_launches - hd0 != got[1]:
+            raise AssertionError(f"{pattern}: {da.hopper_launches - hd0} Hopper decode "
+                                 f"launches in a step of {got[1]} decode launches")
         if len(be.rounds) > n_rounds:
             k = be.rounds[-1][0]
             want = (n_layers, k * res) if k else (0, n_layers)
@@ -1876,7 +1993,8 @@ def drive(srv, prompts, pattern, n_layers, retier_at=()):
     done = sorted(sched.finish_run(), key=lambda r: r.rid)
     if prefills != (1 if pattern == "bursty" else len(prompts)):
         raise AssertionError(f"{pattern}: {prefills} prefill steps")
-    return done, sched.stats, (mq.launches, da.launches, mq.hopper_launches), applied
+    return done, sched.stats, (mq.launches, da.launches, mq.hopper_launches,
+                               da.hopper_launches), applied
 
 
 def reference_check(eng, params, cfg, prompts, got, pattern):
@@ -2001,6 +2119,7 @@ def pass_profile(eng, st, P, fn, card, label):
         if us is None:
             us = e.self_cuda_time_total
         name = e.key.lower()
+        one_decode_pass(name)
         if "memcpy" in name and "htod" in name:
             cls = "memcpy_h2d"
         elif csrc_kernel(name) is not None:
@@ -2093,7 +2212,7 @@ def full_model_phase(card):
     prompts = make_prompts(4, cfg.vocab_size, 0)
     spec = SpecConfig(k=SPEC_K, adapt_k=False)
     launches = {"mq_decode_attention": 0, "decode_attention": 0,
-                "mq_decode_attention@prefill": 0}
+                "mq_decode_attention@prefill": 0, "decode_attention@hopper": 0}
     torch.cuda.reset_peak_memory_stats()
     served = {}
     for pattern, n_req, retier_at in (("bursty", 4, RETIER_AT),
@@ -2102,12 +2221,13 @@ def full_model_phase(card):
                          pattern=pattern, spec=spec,
                          prefill_chunk_tokens=PREFILL_CHUNK)
         t0 = time.monotonic()
-        done, stats, (m, d, h), applied = drive(srv, prompts[:n_req], pattern, L,
-                                                retier_at)
+        done, stats, (m, d, h, hd), applied = drive(srv, prompts[:n_req], pattern, L,
+                                                    retier_at)
         wall = time.monotonic() - t0
         launches["mq_decode_attention"] += m
         launches["decode_attention"] += d
         launches["mq_decode_attention@prefill"] += h
+        launches["decode_attention@hopper"] += hd
         be = srv.make_backend()
         rep = summarize(done, pattern=pattern, backend="engine", stats=stats)
         spec_rounds = [c for k, c in be.rounds if k]
@@ -2171,10 +2291,12 @@ def _leaves(t):
 
 
 # ----------------------------------------------------------------------------
-# phase 0: what the Hopper mainloop compiled to
+# phase 0: what the Hopper mainloop and decode body compiled to
 # ----------------------------------------------------------------------------
 HOPPER_SOURCES = ("_flash_attention_cu", "_mq_decode_attention_cu",
                   "_mq_paged_decode_attention_cu")
+# decode_sm90_kernel<DHP, GM, Addr>: four per source, Addr names the source
+DECODE_SM90 = {"decode_attention.cu": "ContigAddr", "paged_decode_attention.cu": "PagedAddr"}
 
 
 def _cuobjdump():
@@ -2194,19 +2316,25 @@ def _cuobjdump():
 def hopper_sass_check(lib_path):
     """Each source's instantiations of the Hopper mainloop
     (sm90::attention_kernel) must run on wgmma and TMA: HGMMA and UTMALDG
-    in their SASS. Prints their registers and spills from ptxas.log."""
+    in their SASS; each of decode_sm90_kernel's (kernels 1 and 3) on the
+    tensor cores and asynchronous copies: HMMA and LDGSTS; and no second
+    decode pass is left (decode_combine_kernel). Prints their registers
+    and spills from ptxas.log."""
     sass = subprocess.run([_cuobjdump(), "-sass", str(lib_path)], capture_output=True,
                           text=True, timeout=300, check=True).stdout
     ops, cur = {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            cur = m.group(1) if "sm90" in m.group(1) and "attention_kernel" in m.group(1) \
-                else None
+            f = m.group(1)
+            if "decode_combine_kernel" in f:
+                raise AssertionError(f"a second decode pass is still built: {f}")
+            cur = f if ("sm90" in f and "attention_kernel" in f) \
+                or "decode_sm90_kernel" in f else None
             if cur:
                 ops[cur] = set()
         elif cur:
-            ops[cur].update(op for op in ("HGMMA", "UTMALDG", "HMMA") if op in line)
+            ops[cur].update(op for op in ("HGMMA", "UTMALDG", "HMMA", "LDGSTS") if op in line)
     regs, cur = {}, None
     for line in (lib_path.parent / "ptxas.log").read_text().splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -2215,8 +2343,8 @@ def hopper_sass_check(lib_path):
         elif cur and ("registers" in line or "spill" in line):
             regs[cur] = regs.get(cur, "") + " " + line.split(":", 1)[-1].strip()
     for src in HOPPER_SOURCES:
-        fns = [f for f in ops if src in f and (src != "_mq_decode_attention_cu"
-                                               or "_paged_" not in f)]
+        fns = [f for f in ops if "decode_sm90_kernel" not in f and src in f
+               and (src != "_mq_decode_attention_cu" or "_paged_" not in f)]
         if not fns:
             raise AssertionError(f"no Hopper mainloop kernel in {src[1:]}")
         for f in fns:
@@ -2226,6 +2354,18 @@ def hopper_sass_check(lib_path):
             if not {"HGMMA", "UTMALDG"} <= ops[f]:
                 raise AssertionError(f"{src[1:]} attention_kernel<{dhp}>: no HGMMA or "
                                      "UTMALDG in its SASS")
+    for src, addr in DECODE_SM90.items():
+        fns = [f for f in ops if "decode_sm90_kernel" in f and addr in f]
+        if len(fns) != 4:
+            raise AssertionError(f"{src}: {len(fns)} decode_sm90_kernel instantiations, "
+                                 "expected 4")
+        for f in fns:
+            dhp, gm = re.search(r"decode_sm90_kernelILi(\d+)ELi(\d+)", f).groups()
+            log(f"  sass {src} decode_sm90_kernel<{dhp}, {gm}>: {sorted(ops[f])};"
+                f"{regs.get(f, ' ptxas: not found')}")
+            if not {"HMMA", "LDGSTS"} <= ops[f]:
+                raise AssertionError(f"{src} decode_sm90_kernel<{dhp}, {gm}>: no HMMA or "
+                                     "LDGSTS in its SASS")
 
 
 # ----------------------------------------------------------------------------
@@ -2260,7 +2400,8 @@ def main() -> int:
         for line in ptxas.read_text().splitlines():
             if "registers" in line or "spill" in line:
                 log("  ptxas: " + line.strip())
-        log("phase 0: the Hopper mainloop's SASS (wgmma = HGMMA, TMA = UTMALDG)")
+        log("phase 0: the Hopper mainloop's SASS (wgmma = HGMMA, TMA = UTMALDG) and the "
+            "decode body's (mma.sync = HMMA, cp.async = LDGSTS)")
         hopper_sass_check(lib_path)
 
         t_run = time.monotonic()
@@ -2292,6 +2433,10 @@ def main() -> int:
         for k, n in engine_launches.items():
             launches[k] = launches.get(k, 0) + n
 
+        for name in ("decode_attention@hopper", "paged_decode_attention@hopper"):
+            if launches.get(name, 0) <= 0:
+                raise AssertionError(f"{name} never launched on the main path")
+        log(f"main-path launches: {launches}")
         kernels = []
         for name, src, tpu in (
                 ("decode_attention", "src/repro_torch/csrc/decode_attention.cu",

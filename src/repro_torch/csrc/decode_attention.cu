@@ -16,11 +16,12 @@ namespace {
 
 struct ContigAddr {
   const int* pos_ids;
-  int S_c, KV, dh, pos, window;
-  __device__ __forceinline__ long long offset(int b, int kvh, int t) const {
-    const int id = pos_ids[t];
-    if (id < 0 || id > pos || pos - id >= window) return -1;
-    return (((long long)b * S_c + t) * KV + kvh) * dh;
+  int S_c, pos, window;
+  int base;  // row of slot 0 of this sequence
+  __device__ __forceinline__ void begin(int b) { base = b * S_c; }
+  __device__ __forceinline__ int fetch(int t) const { return pos_ids[t]; }
+  __device__ __forceinline__ int row(int id, int t) const {
+    return (id < 0 || id > pos || pos - id >= window) ? -1 : base + t;
   }
 };
 
@@ -28,27 +29,26 @@ struct ContigAddr {
 }  // namespace repro
 
 // q (B, 1, H, dh); k, v (B, S_c, KV, dh); pos_ids (S_c,) int32;
-// out (B, 1, H, dh); part_acc (B, KV, n_split, G, dh) and part_ml
-// (B, KV, n_split, G, 2) fp32 scratch, unused (may be null) when n_split == 1.
-// vec != 0 promises 16-byte aligned K/V bases and dh·sizeof(T) % 16 == 0.
-// Returns cudaGetLastError() after the launches (or a refusal code).
+// out (B, 1, H, dh). One launch: n_split (1-16) blocks per (b, kv group)
+// in one cluster. vec != 0 promises 16-byte aligned q/K/V bases and
+// dh·sizeof(T) % 16 == 0. Returns cudaGetLastError() after the launch (or
+// a refusal code).
 extern "C" int repro_decode_attention(const void* q, const void* k, const void* v,
-                                      const void* pos_ids, void* out, void* part_acc,
-                                      void* part_ml, int B, int S_c, int H, int KV, int dh,
-                                      int pos, int window, float scale, int n_split, int vec,
-                                      int dtype, void* stream) {
+                                      const void* pos_ids, void* out, int B, int S_c, int H,
+                                      int KV, int dh, int pos, int window, float scale,
+                                      int n_split, int vec, int dtype, void* stream) {
   using namespace repro;
-  if (KV < 1 || H % KV || n_split < 1) return (int)cudaErrorInvalidValue;
+  if (KV < 1 || H % KV) return (int)cudaErrorInvalidValue;
   const int G = H / KV;
-  const ContigAddr addr{(const int*)pos_ids, S_c, KV, dh, pos, window};
+  const ContigAddr addr{(const int*)pos_ids, S_c, pos, window, 0};
   cudaStream_t st = (cudaStream_t)stream;
   int rc;
   if (dtype == DTYPE_BF16) {
-    rc = dispatch_decode<__nv_bfloat16>(q, k, v, addr, out, (float*)part_acc, (float*)part_ml,
-                                        B, S_c, KV, G, dh, scale, n_split, vec, st);
+    rc = dispatch_decode<__nv_bfloat16>(q, k, v, addr, out, B, S_c, KV, G, dh, scale, n_split,
+                                        vec, dtype, st);
   } else if (dtype == DTYPE_F32) {
-    rc = dispatch_decode<float>(q, k, v, addr, out, (float*)part_acc, (float*)part_ml, B, S_c,
-                                KV, G, dh, scale, n_split, vec, st);
+    rc = dispatch_decode<float>(q, k, v, addr, out, B, S_c, KV, G, dh, scale, n_split, vec,
+                                dtype, st);
   } else {
     rc = (int)cudaErrorInvalidValue;
   }

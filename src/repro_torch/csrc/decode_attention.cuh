@@ -4,52 +4,442 @@
 // (paged_decode_attention.cu, TPU kernel
 // src/repro/kernels/decode_attention/paged.py:119).
 //
+// What it computes: one query token per sequence; the G query heads of a
+// KV group read one K/V stream; a slot is visible as the Addr policy says
+// (contiguous: 0 <= pos_id <= pos and pos - pos_id < window; paged: t <
+// ctx, the window, an allocated page); scores, the online softmax (m, l)
+// with NEG_INF = -2e30 and the output accumulator are fp32, and the
+// probabilities stay fp32 through PV; a head that sees no slot outputs 0.
+//
 // Bound on the H100: bytes. Each decode step reads every visible K/V row
 // once and does ~2·G flops per element read (G = H/KV query heads per
 // group), far below the card's ~295 flop/byte balance point. At the main
 // path's shape (B 4, 1024 slots, KV 8, dh 128, bf16) that is 16.8 MB, ~5 us
 // at 3.35 TB/s.
 //
-// Design against that bound:
-//  * K/V are read where they lie, in the model layout: row t of sequence b
-//    is one KV·dh row, found by the Addr policy (a contiguous
-//    (B, S_c, KV, dh) cache, or a (P, page_size, KV, dh) pool through a
-//    block table). No transpose, no padding of dh in memory, no gather copy
-//    before the kernel.
-//  * One block serves all G query heads of a KV group, so each K/V row is
-//    loaded once for the G heads that share it (the TPU kernel made G its
-//    matmul M dimension for the same reason).
-//  * Enough bytes in flight: (B, KV) alone gives 32 blocks at the main
-//    path's shape, a quarter of the 132 SMs, so the S slots are split over
-//    n_split blocks (flash-decoding; pass 2 merges the partial
-//    (max, sum, acc)). Each block stages 32-slot K and V tiles through
-//    shared memory with 16-byte loads, every thread issuing all of its
-//    loads of a tile before it waits on any.
-//  * Slot validity and address come from Addr; an invalid slot's row is
-//    never read, and a tile with no valid slot is skipped before its loads
-//    (bit-neutral: such a tile leaves (m, l, acc) exactly as they were). A
-//    row with no valid slot outputs 0 (l == 0 -> 1).
-//  * Online softmax in fp32 with NEG_INF = -2e30, as on the TPU; the
-//    probabilities stay fp32 through PV.
-// Per tile: lanes take slots for QK^T (warp w owns heads w, w+4, ...), the
-// warp reduces max and sum over its 32 slots with shuffles, and for PV each
-// thread owns two columns of a few heads. Simple and right first: cp.async
-// double buffering is later work.
+// Design against that bound (decode_sm90_kernel: bf16, 16-byte aligned rows,
+// dh <= 128, G <= 16, the served shapes):
+//  * One launch. The S slots of a (b, kv group) are split over n_split <=
+//    8 blocks (flash-decoding, enough blocks to fill the SMs at B 1 and
+//    B 4), and those blocks form one thread block cluster. Each block
+//    pushes its split's partial (acc, m, l) into the shared memory of the
+//    blocks that own its outputs (stores to distributed shared memory);
+//    after one cluster barrier every block merges its slice of the G·dh
+//    outputs over the splits in rank order. No partials go through global
+//    memory, and the order is fixed, so the result is deterministic.
+//  * An asynchronous K/V ring per warp. A block of 8 warps walks its
+//    slots in 64-slot tiles, each warp an 8-slot share of every tile; a
+//    warp streams its shares through a ring of 3 stages with cp.async
+//    16-byte copies (LDGSTS), zero-filled for slots that are not visible
+//    (never read: they may hold NaN). A share with no visible slot is
+//    skipped before its copies. The warp reads the ids (or block-table
+//    entries) of share n + 3 while it consumes share n, and works out a
+//    share's visibility when it issues it, so HBM latency overlaps compute;
+//    warps never wait for each other in the loop.
+//  * QK^T on the tensor cores: mma.sync m16n8k16, bf16 Q (A, the G heads as
+//    rows, padded to 16 with zeros, held in registers for the whole call)
+//    times bf16 K (B, 8 slots, ldmatrix from the ring) into fp32: the
+//    scores are the fp32 dot products of the same bf16 values up to
+//    summation order. Padding rows never reach m, l or the output.
+//  * PV on fp32 FMAs: each warp's probabilities go to shared memory, and
+//    each lane accumulates dh/32 output columns of every head from the
+//    share's V rows. The eight warps' partials merge in the block (fixed
+//    warp order) before the cluster merge.
+// Other shapes (fp32, dh 129-256, unaligned rows) take decode_tile_kernel:
+// a block stages 32-slot tiles through shared memory with 16-byte loads,
+// QK^T and PV on fp32 FMAs, and merges through the same cluster step.
+// Which body runs is decode_sm90_takes (mirrored by the wrappers'
+// takes_hopper_decode), a function of the shapes alone.
 //
-// The two policies share this body, its split count and its tile order, so
-// on a cache gathered from the pool (uniform ctx, pos = ctx - 1) the paged
-// kernel is bit-identical to the contiguous one.
+// The two Addr policies share the bodies, the split count, the tile order
+// and the merge; they differ only in how a slot's row address is formed.
+// So on a cache gathered from the pool (uniform ctx, pos = ctx - 1) the
+// paged kernel is bit-identical to the contiguous one.
+//
+// Addr interface: begin(b) loads the per-sequence state; fetch(t) reads
+// slot t's raw id (a pos_id or a block-table entry; the only global load
+// of the slot walk); row(raw, t) is slot t's row in the (rows, KV, dh)
+// view of the K/V tensors, or -1 when the slot is not visible.
 #pragma once
+
+#include <cooperative_groups.h>
 
 #include "common.cuh"
 
 namespace repro {
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int DEC_THREADS = 128;
 constexpr int DEC_WARPS = DEC_THREADS / 32;
-constexpr int TS = 32;  // slots per shared-memory tile (one per lane)
+constexpr int TS = 32;           // slots per tile of the fp32-FMA body
+constexpr int CLUSTER_MAX = 8;   // splits of one (b, kv group): a cluster's blocks
 
+// The shapes decode_sm90_kernel takes (bf16 besides).
+inline bool decode_sm90_takes(int dh, int vec, int G) {
+  return vec != 0 && dh % 8 == 0 && dh <= 128 && G <= 16;
+}
+
+// barrier.cluster halves. Every kernel arrives (relaxed) as it starts and
+// waits before its first store to a peer: DSMEM of a block may be written
+// only once that block runs.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Floats of the region in which a block receives its peers' partials.
+template <int GM, int DHP>
+constexpr int merge_floats() {
+  return GM * DHP + CLUSTER_MAX + 2 * CLUSTER_MAX * GM;
+}
+
+// The cluster's merge, by pushes. Block `rank` of the n blocks of a
+// cluster owns outputs [rank·per, (rank + 1)·per) of the G·dh (row-major
+// g, d). Every block pushes each element of its split's partial (acc,
+// unnormalized) and its (m, l) of every head into the owner's receive
+// region (stores to distributed shared memory: no round trip); after one
+// cluster barrier each owner merges its elements over the splits in rank
+// order from its own shared memory. The order is fixed, so the result is
+// deterministic and the same for every Addr policy.
+template <int GM>
+struct ClusterMerge {
+  float* rA;  // [n][per] elements
+  float* rM;  // [n][GM]
+  float* rL;  // [n][GM]
+  int n, rank, per, G, dh;
+
+  __device__ __forceinline__ ClusterMerge(float* region, int G_, int dh_, int cap)
+      : rA(region), rM(region + cap + CLUSTER_MAX), rL(rM + CLUSTER_MAX * GM),
+        n((int)gridDim.x), rank((int)blockIdx.x), per((G_ * dh_ + (int)gridDim.x - 1) /
+                                                      (int)gridDim.x), G(G_), dh(dh_) {}
+
+  __device__ __forceinline__ void push_acc(int g, int d, float a) const {
+    if (g >= G || d >= dh) return;
+    const int e = g * dh + d, o = e / per;
+    *cg::this_cluster().map_shared_rank(rA + rank * per + (e - o * per), o) = a;
+  }
+  // (m, l) of head g to owner o, if o's outputs include some of head g
+  __device__ __forceinline__ void push_ml(int g, int o, float m, float l) const {
+    if (g >= G || o >= n || (g + 1) * dh <= o * per || (o + 1) * per <= g * dh) return;
+    *cg::this_cluster().map_shared_rank(rM + rank * GM + g, o) = m;
+    *cg::this_cluster().map_shared_rank(rL + rank * GM + g, o) = l;
+  }
+  template <typename T>
+  __device__ __forceinline__ void finish(T* __restrict__ out, int b, int kvh, int KV) const {
+    cluster_arrive();  // this block's pushes are done
+    cluster_wait();    // and every peer's
+    const int e0 = rank * per, e1 = min(G * dh, e0 + per);
+    for (int e = e0 + (int)threadIdx.x; e < e1; e += (int)blockDim.x) {
+      const int g = e / dh, j = e - e0;
+      float M = NEG_INF;
+      for (int r = 0; r < n; ++r) M = fmaxf(M, rM[r * GM + g]);
+      float L = 0.f, A = 0.f;
+      for (int r = 0; r < n; ++r) {
+        const float c = expf(rM[r * GM + g] - M);
+        L += rL[r * GM + g] * c;
+        A += rA[r * per + j] * c;
+      }
+      out[(((size_t)b * KV + kvh) * G) * dh + e] = from_f<T>(A / (L == 0.f ? 1.f : L));
+    }
+  }
+};
+
+// ---------------------------------------------------------------------------
+// The Hopper body
+// ---------------------------------------------------------------------------
+constexpr int SM90_WARPS = 8;
+constexpr int SM90_THREADS = 32 * SM90_WARPS;
+constexpr int SM90_TILE = 64;                 // slots per tile
+constexpr int QS = SM90_TILE / SM90_WARPS;    // slots of a warp's share (one mma N)
+constexpr int STAGES = 3;                   // ring depth of each warp
+
+template <int DHP, int GM>
+struct Sm90Geom {
+  static constexpr int KS = DHP + 8;                     // K row stride (elements)
+  static constexpr int K_BYTES = QS * KS * 2;
+  static constexpr int V_BYTES = QS * DHP * 2;
+  static constexpr int STAGE = K_BYTES + V_BYTES;
+  static constexpr int RING = STAGES * STAGE;            // one warp's ring
+  static constexpr int P_OFF = SM90_WARPS * RING;        // float [warp][QS][GM]
+  static constexpr int C_OFF = P_OFF + SM90_WARPS * QS * GM * 4;  // float [warp][GM]
+  static constexpr int R_OFF = C_OFF + SM90_WARPS * GM * 4;    // the merge's receive region
+  static constexpr int BYTES = R_OFF + merge_floats<GM, DHP>() * 4;
+  // after the loop: a warp's partial (A [GM][DHP], M [GM], L [GM]) in its
+  // own ring
+  static constexpr int PART = (GM * DHP + 2 * GM) * 4;
+  static_assert(PART <= RING, "a warp's partial must fit its ring");
+};
+
+template <int DHP, int GM>
+constexpr int sm90_decode_smem_bytes() {
+  return Sm90Geom<DHP, GM>::BYTES;
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// Grid (n_split, KV, B), clusters of n_split blocks along x. Block `split`
+// walks slots [split·chunk, min(S, (split + 1)·chunk)) in 64-slot tiles;
+// warp w takes slots 8w .. 8w + 7 of each tile.
+template <int DHP, int GM, typename Addr>
+__global__ void __launch_bounds__(SM90_THREADS, GM <= 8 ? 2 : 1) decode_sm90_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, Addr addr, __nv_bfloat16* __restrict__ out, int S,
+    int KV, int G, int dh, float scale, int chunk) {
+  using L = Sm90Geom<DHP, GM>;
+  constexpr int KK = DHP / 16;       // mma K steps
+  constexpr int NC = DHP / 8;        // 16-byte chunks of a row
+  constexpr int CPL = DHP / 32;      // output columns of a lane in PV
+  constexpr int CH = QS * NC / 32;   // chunks of a share's K (and V) per lane
+  extern __shared__ __align__(128) unsigned char smem[];
+
+  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int H = KV * G;
+  cluster_arrive_relaxed();  // this block runs (see cluster_wait below)
+  Addr a = addr;
+  a.begin(b);
+
+  // Q as the A operand: a[0] rows gid, a[1] rows gid + 8, columns
+  // 16·kk + 2·tig (+ 8 for a[2], a[3]); zero past G and dh
+  uint32_t qa[KK][4];
+  {
+    const __nv_bfloat16* qb = q + ((size_t)b * H + (size_t)kvh * G) * dh;
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int g = gid + 8 * (j & 1), col = 16 * kk + 2 * tig + 8 * (j >> 1);
+        qa[kk][j] = (GM > 8 || g < 8) && g < G && col < dh ? ld_u32(qb + g * dh + col) : 0u;
+      }
+    }
+  }
+
+  unsigned char* ring = smem + warp * L::RING;
+  float* p_s = reinterpret_cast<float*>(smem + L::P_OFF) + warp * QS * GM;  // [QS][GM]
+  float* c_s = reinterpret_cast<float*>(smem + L::C_OFF) + warp * GM;       // [GM]
+  const uint32_t ring_u32 = (uint32_t)__cvta_generic_to_shared(ring);
+
+  const int s0 = split * chunk;
+  const int s1 = min(S, s0 + chunk);
+  const int n_t = s1 > s0 ? (s1 - s0 + SM90_TILE - 1) / SM90_TILE : 0;
+  const int my = warp * QS + (lane & (QS - 1));  // this lane's slot in a tile
+
+  // Share t: slot ids read ahead (raw), issued into stage t % STAGES with
+  // the visible-slot mask kept in oks (8 bits a stage).
+  auto fetch = [&](int t) {
+    const int s = s0 + t * SM90_TILE + my;
+    return t < n_t && s < s1 ? a.fetch(s) : -1;
+  };
+  unsigned oks = 0;
+  auto issue = [&](int t, int raw) {
+    const int st = t % STAGES;
+    const int row = raw < 0 ? -1 : a.row(raw, s0 + t * SM90_TILE + my);
+    const unsigned okm = __ballot_sync(0xffffffffu, row >= 0) & ((1u << QS) - 1);
+    oks = (oks & ~(0xffu << (8 * st))) | (okm << (8 * st));
+    if (okm) {
+      const uint32_t ks = ring_u32 + st * L::STAGE, vs = ks + L::K_BYTES;
+#pragma unroll
+      for (int u = 0; u < CH; ++u) {
+        const int c = lane + 32 * u;
+        const int r = c / NC, d0 = (c % NC) * 8;
+        const int rr = __shfl_sync(0xffffffffu, row, r);
+        const bool in = rr >= 0 && d0 < dh;
+        const size_t off = in ? ((size_t)rr * KV + kvh) * dh + d0 : 0;
+        cp_async16(ks + (r * L::KS + d0) * 2, k + off, in ? 16 : 0);
+        cp_async16(vs + (r * DHP + d0) * 2, v + off, in ? 16 : 0);
+      }
+    }
+    cp_async_commit();
+  };
+
+  float m[2] = {NEG_INF, NEG_INF};  // heads gid, gid + 8
+  float l[2] = {0.f, 0.f};          // this lane's share of their sums
+  float acc[GM][CPL];
+#pragma unroll
+  for (int g = 0; g < GM; ++g) {
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) acc[g][c] = 0.f;
+  }
+
+  int raw[STAGES];
+#pragma unroll
+  for (int t = 0; t < STAGES; ++t) raw[t] = fetch(t);
+#pragma unroll
+  for (int t = 0; t < STAGES - 1; ++t) issue(t, raw[t]);
+  int raw_next = raw[STAGES - 1];
+
+  for (int t = 0; t < n_t; ++t) {
+    issue(t + STAGES - 1, raw_next);
+    raw_next = fetch(t + STAGES);
+    cp_async_wait<STAGES - 1>();
+    __syncwarp();
+    const int st = t % STAGES;
+    const unsigned okm = (oks >> (8 * st)) & 0xffu;
+    if (okm) {
+      // S (16 heads x 8 slots) = Q K^T: c[0], c[1] head gid, slots 2·tig,
+      // 2·tig + 1; c[2], c[3] head gid + 8
+      const uint32_t ks = ring_u32 + st * L::STAGE;
+      // two accumulator chains (even and odd K steps), added at the end
+      float s[4] = {0.f, 0.f, 0.f, 0.f}, s2[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int kk = 0; kk < KK; kk += 2) {
+        uint32_t kb[4];
+        ldmatrix_x4(kb, ks + ((lane & 7) * L::KS + 16 * kk + 8 * (lane >> 3)) * 2);
+        mma_bf16_16816(s, qa[kk], kb[0], kb[1]);
+        mma_bf16_16816(s2, qa[kk + 1], kb[2], kb[3]);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[i] += s2[i];
+      const bool ok0 = (okm >> (2 * tig)) & 1u, ok1 = (okm >> (2 * tig + 1)) & 1u;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (GM <= 8 && h == 1) break;
+        float s0v = ok0 ? s[2 * h] * scale : NEG_INF;
+        float s1v = ok1 ? s[2 * h + 1] * scale : NEG_INF;
+        float mx = fmaxf(s0v, s1v);
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[h], mx);
+        const float p0 = ok0 ? expf(s0v - m_new) : 0.f;
+        const float p1 = ok1 ? expf(s1v - m_new) : 0.f;
+        const float corr = expf(m[h] - m_new);
+        l[h] = l[h] * corr + (p0 + p1);
+        m[h] = m_new;
+        const int g = gid + 8 * h;
+        p_s[(2 * tig) * GM + g] = p0;
+        p_s[(2 * tig + 1) * GM + g] = p1;
+        if (tig == 0) c_s[g] = corr;
+      }
+      __syncwarp();
+      // PV: columns CPL·lane .. CPL·lane + CPL - 1 of every head
+      const __nv_bfloat16* vst =
+          reinterpret_cast<const __nv_bfloat16*>(ring + st * L::STAGE + L::K_BYTES);
+#pragma unroll
+      for (int g = 0; g < GM; ++g) {
+        if (g < G) {
+          const float c = c_s[g];
+#pragma unroll
+          for (int e = 0; e < CPL; ++e) acc[g][e] *= c;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < QS; ++j) {
+        float vv[CPL];
+        if constexpr (CPL == 4) {
+          const uint2 w = *reinterpret_cast<const uint2*>(vst + j * DHP + 4 * lane);
+          const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&w.x);
+          const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&w.y);
+          vv[0] = __low2float(lo);
+          vv[1] = __high2float(lo);
+          vv[2] = __low2float(hi);
+          vv[3] = __high2float(hi);
+        } else {
+          const __nv_bfloat162 w =
+              *reinterpret_cast<const __nv_bfloat162*>(vst + j * DHP + 2 * lane);
+          vv[0] = __low2float(w);
+          vv[1] = __high2float(w);
+        }
+        const float4* pj = reinterpret_cast<const float4*>(p_s + j * GM);
+#pragma unroll
+        for (int g4 = 0; g4 < GM / 4; ++g4) {
+          if (4 * g4 < G) {
+            const float4 p = pj[g4];
+            const float pv[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+#pragma unroll
+              for (int e = 0; e < CPL; ++e) acc[4 * g4 + i][e] += pv[i] * vv[e];
+            }
+          }
+        }
+      }
+    }
+    __syncwarp();  // stage st and p_s are free for the next issue
+  }
+  cp_async_wait<0>();
+
+  // this warp's partial into its own ring: A [GM][DHP], M [GM], L [GM]
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+  __syncwarp();
+  float* wA = reinterpret_cast<float*>(ring);
+  float* wM = wA + GM * DHP;
+  float* wL = wM + GM;
+#pragma unroll
+  for (int g = 0; g < GM; ++g) {
+#pragma unroll
+    for (int e = 0; e < CPL; ++e) wA[g * DHP + CPL * lane + e] = acc[g][e];
+  }
+  if (tig == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (GM > 8 || h == 0) {
+        wM[gid + 8 * h] = m[h];
+        wL[gid + 8 * h] = l[h];
+      }
+    }
+  }
+  __syncthreads();
+
+  // the block's partial, the eight warps' merged in warp order, pushed to
+  // the blocks that own its elements
+  const ClusterMerge<GM> merge(reinterpret_cast<float*>(smem + L::R_OFF), G, dh,
+                               GM * DHP);
+  cluster_wait();  // every block of the cluster runs
+  constexpr int EPT = GM * DHP / SM90_THREADS;
+#pragma unroll
+  for (int i = 0; i < EPT; ++i) {
+    const int e = tid + SM90_THREADS * i;
+    const int g = e / DHP, d = e % DHP;
+    float M = NEG_INF;
+#pragma unroll
+    for (int w = 0; w < SM90_WARPS; ++w) {
+      M = fmaxf(M, reinterpret_cast<const float*>(smem + w * L::RING)[GM * DHP + g]);
+    }
+    float Ls = 0.f, As = 0.f;
+#pragma unroll
+    for (int w = 0; w < SM90_WARPS; ++w) {
+      const float* pw = reinterpret_cast<const float*>(smem + w * L::RING);
+      const float c = expf(pw[GM * DHP + g] - M);
+      Ls += pw[GM * DHP + GM + g] * c;
+      As += pw[g * DHP + d] * c;
+    }
+    merge.push_acc(g, d, As);
+    merge.push_ml(g, d, M, Ls);  // the threads of columns 0 .. n-1 of head g
+  }
+  merge.finish(out, b, kvh, KV);
+}
+
+// ---------------------------------------------------------------------------
+// The fp32-FMA body (fp32, dh 129-256, unaligned rows)
+// ---------------------------------------------------------------------------
 template <typename T, int DHP>
 struct TileGeom {
   // row stride in 4-byte words: an odd count keeps the lane-per-slot reads
@@ -61,19 +451,17 @@ struct TileGeom {
 template <typename T, int GMAX, int DHP>
 constexpr int decode_smem_bytes() {
   return (GMAX * DHP + 2 * TS * TileGeom<T, DHP>::RW + GMAX * TS + GMAX) * 4 +
-         TS * (int)sizeof(long long);
+         TS * (int)sizeof(long long) + merge_floats<GMAX, DHP>() * 4;
 }
 
-// Pass 1. Grid (n_split, KV, B). Writes part_ml[b, kv, split, g] = (m, l)
-// and part_acc[b, kv, split, g, :] = acc, or with n_split == 1 the
-// normalized output directly. Addr::offset(b, kvh, t) is the element
-// offset of slot t's K/V row (of head kvh) or -1 when the slot is not
-// visible; S is the number of slots walked.
+// Grid (n_split, KV, B), clusters of n_split blocks along x. Lanes take
+// slots for QK^T (warp w owns heads w, w+4, ...), the warp reduces max and
+// sum over its 32 slots with shuffles, and for PV each thread owns two
+// columns of a few heads.
 template <typename T, int GMAX, int DHP, typename Addr>
 __global__ void __launch_bounds__(DEC_THREADS) decode_tile_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, Addr addr,
-    T* __restrict__ out, float* __restrict__ part_acc, float* __restrict__ part_ml, int S,
-    int KV, int G, int dh, float scale, int chunk, int vec) {
+    T* __restrict__ out, int S, int KV, int G, int dh, float scale, int chunk, int vec) {
   using Geo = TileGeom<T, DHP>;
   constexpr int RW = Geo::RW, CH = Geo::CH, NC = DHP / CH;
   constexpr int NDP = DHP / 2;                 // column pairs
@@ -82,8 +470,8 @@ __global__ void __launch_bounds__(DEC_THREADS) decode_tile_kernel(
   constexpr int GPW = GMAX / DEC_WARPS;        // heads per warp in QK^T
   static_assert(DEC_THREADS % NDP == 0, "DHP must divide 256");
 
-  extern __shared__ __align__(16) float smem[];
-  float* q_s = smem;                            // [GMAX][DHP]
+  extern __shared__ __align__(16) float smem_f[];
+  float* q_s = smem_f;                          // [GMAX][DHP]
   uint32_t* k_s = reinterpret_cast<uint32_t*>(q_s + GMAX * DHP);  // [TS][RW]
   uint32_t* v_s = k_s + TS * RW;                // [TS][RW]
   float* p_s = reinterpret_cast<float*>(v_s + TS * RW);  // [GMAX][TS]
@@ -91,11 +479,14 @@ __global__ void __launch_bounds__(DEC_THREADS) decode_tile_kernel(
   // [TS] row offsets, -1 = not visible (8-byte aligned: the float count
   // before it is even for every instantiation)
   long long* off_s = reinterpret_cast<long long*>(corr_s + GMAX);
+  float* recv = reinterpret_cast<float*>(off_s + TS);  // the merge's receive region
 
   const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
-  const int n_split = gridDim.x;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int H = KV * G;
+  cluster_arrive_relaxed();  // this block runs (see cluster_wait below)
+  Addr a = addr;
+  a.begin(b);
 
   for (int idx = tid; idx < GMAX * DHP; idx += DEC_THREADS) {
     const int g = idx / DHP, d = idx % DHP;
@@ -124,7 +515,8 @@ __global__ void __launch_bounds__(DEC_THREADS) decode_tile_kernel(
     int live = 0;
     if (tid < TS) {
       const int s = t0 + tid;
-      const long long off = s < s1 ? addr.offset(b, kvh, s) : -1;
+      const int row = s < s1 ? a.row(a.fetch(s), s) : -1;
+      const long long off = row >= 0 ? ((long long)row * KV + kvh) * dh : -1;
       off_s[tid] = off;
       live = off >= 0;
     }
@@ -230,95 +622,111 @@ __global__ void __launch_bounds__(DEC_THREADS) decode_tile_kernel(
     }
   }
 
-  // (m, l) of each head from its owning warp, then write
-  __syncthreads();
-  float* m_s = p_s;             // reuse: [GMAX]
-  float* l_s = p_s + GMAX;      // [GMAX]
-  if (lane == 0) {
+  // this split's partial, pushed to the blocks that own its elements: acc
+  // from every thread, (m, l) of each head from its owning warp
+  const ClusterMerge<GMAX> merge(recv, G, dh, GMAX * DHP);
+  cluster_wait();  // every block of the cluster runs
 #pragma unroll
-    for (int i = 0; i < GPW; ++i) {
-      m_s[warp + DEC_WARPS * i] = m[i];
-      l_s[warp + DEC_WARPS * i] = l[i];
-    }
-  }
-  __syncthreads();
+  for (int i = 0; i < GPW; ++i) merge.push_ml(warp + DEC_WARPS * i, lane, m[i], l[i]);
 #pragma unroll
   for (int i = 0; i < GPT; ++i) {
-    const int g = gg + NGG * i;
-    if (g >= G) continue;
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int d = 2 * dp + e;
-      if (d >= dh) continue;
-      if (n_split == 1) {
-        const float L = l_s[g];
-        out[((size_t)b * H + (size_t)kvh * G + g) * dh + d] =
-            from_f<T>(acc[i][e] / (L == 0.f ? 1.f : L));
-      } else {
-        const size_t p = (((size_t)b * KV + kvh) * n_split + split) * G + g;
-        part_acc[p * dh + d] = acc[i][e];
-        if (d == 0) {
-          part_ml[2 * p] = m_s[g];
-          part_ml[2 * p + 1] = l_s[g];
-        }
-      }
-    }
+    merge.push_acc(gg + NGG * i, 2 * dp, acc[i][0]);
+    merge.push_acc(gg + NGG * i, 2 * dp + 1, acc[i][1]);
   }
+  merge.finish(out, b, kvh, KV);
 }
 
-// Pass 2. Grid (KV, B): merge the n_split partials of each (b, kv, g).
-template <typename T>
-__global__ void __launch_bounds__(DEC_THREADS) decode_combine_kernel(
-    const float* __restrict__ part_acc, const float* __restrict__ part_ml,
-    T* __restrict__ out, int KV, int G, int dh, int n_split) {
-  const int kvh = blockIdx.x, b = blockIdx.y;
-  const int H = KV * G;
-  for (int idx = threadIdx.x; idx < G * dh; idx += DEC_THREADS) {
-    const int g = idx / dh, d = idx % dh;
-    const size_t p0 = (((size_t)b * KV + kvh) * n_split) * G + g;
-    float M = NEG_INF;
-    for (int s = 0; s < n_split; ++s) M = fmaxf(M, part_ml[2 * (p0 + (size_t)s * G)]);
-    float L = 0.f, A = 0.f;
-    for (int s = 0; s < n_split; ++s) {
-      const size_t p = p0 + (size_t)s * G;
-      const float c = expf(part_ml[2 * p] - M);
-      L += part_ml[2 * p + 1] * c;
-      A += part_acc[p * dh + d] * c;
-    }
-    out[((size_t)b * H + (size_t)kvh * G + g) * dh + d] = from_f<T>(A / (L == 0.f ? 1.f : L));
+// ---------------------------------------------------------------------------
+// Launch: one kernel, clusters of n_split blocks
+// ---------------------------------------------------------------------------
+// What a kernel's first launches found out, kept per kernel.
+struct ClusterLaunch {
+  bool attr_set = false;
+  int fits[CLUSTER_MAX + 1] = {};  // by cluster size: 0 unknown, 1 fits, -1 does not
+};
+
+// Refuses (cudaErrorInvalidConfiguration) a cluster that cannot be
+// co-resident at this kernel's shared-memory size
+// (cudaOccupancyMaxActiveClusters == 0); never falls back.
+template <typename Kern, typename... Args>
+int launch_clustered(ClusterLaunch& st, Kern kern, int threads, int smem, dim3 grid,
+                     int n_split, cudaStream_t stream, Args... args) {
+  if (n_split < 1 || n_split > CLUSTER_MAX) return (int)cudaErrorInvalidValue;
+  bool& attr_set = st.attr_set;
+  int* fits = st.fits;
+  if (!attr_set) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
   }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = n_split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (!fits[n_split]) {
+    int n = 0;
+    const cudaError_t e = cudaOccupancyMaxActiveClusters(&n, kern, &cfg);
+    if (e != cudaSuccess) return (int)e;
+    fits[n_split] = n > 0 ? 1 : -1;
+  }
+  if (fits[n_split] < 0) return (int)cudaErrorInvalidConfiguration;
+  return (int)cudaLaunchKernelEx(&cfg, kern, args...);
+}
+
+template <int DHP, int GM, typename Addr>
+int launch_decode_sm90(const void* q, const void* k, const void* v, const Addr& addr,
+                       void* out, int B, int S, int KV, int G, int dh, float scale,
+                       int n_split, cudaStream_t stream) {
+  static ClusterLaunch st;
+  const int chunk = (S + n_split - 1) / n_split;
+  return launch_clustered(st, decode_sm90_kernel<DHP, GM, Addr>, SM90_THREADS,
+                          sm90_decode_smem_bytes<DHP, GM>(),
+                          dim3(n_split, KV, B), n_split, stream, (const __nv_bfloat16*)q,
+                          (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, addr,
+                          (__nv_bfloat16*)out, S, KV, G, dh, scale, chunk);
 }
 
 template <typename T, int GMAX, int DHP, typename Addr>
 int launch_decode(const void* q, const void* k, const void* v, const Addr& addr, void* out,
-                  float* part_acc, float* part_ml, int B, int S, int KV, int G, int dh,
-                  float scale, int n_split, int vec, cudaStream_t stream) {
-  constexpr int smem = decode_smem_bytes<T, GMAX, DHP>();
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(decode_tile_kernel<T, GMAX, DHP, Addr>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-    attr_set = true;
-  }
+                  int B, int S, int KV, int G, int dh, float scale, int n_split, int vec,
+                  cudaStream_t stream) {
+  static ClusterLaunch st;
   const int chunk = (S + n_split - 1) / n_split;
-  decode_tile_kernel<T, GMAX, DHP, Addr><<<dim3(n_split, KV, B), DEC_THREADS, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, addr, (T*)out, part_acc, part_ml, S, KV, G, dh,
-      scale, chunk, vec);
-  if (n_split > 1) {
-    decode_combine_kernel<T><<<dim3(KV, B), DEC_THREADS, 0, stream>>>(part_acc, part_ml, (T*)out,
-                                                                       KV, G, dh, n_split);
-  }
-  return 0;
+  return launch_clustered(st, decode_tile_kernel<T, GMAX, DHP, Addr>, DEC_THREADS,
+                          decode_smem_bytes<T, GMAX, DHP>(), dim3(n_split, KV, B), n_split,
+                          stream, (const T*)q, (const T*)k, (const T*)v, addr, (T*)out, S, KV,
+                          G, dh, scale, chunk, vec);
 }
 
+// The body by shape: decode_sm90_kernel for bf16 with decode_sm90_takes,
+// decode_tile_kernel otherwise.
 template <typename T, typename Addr>
 int dispatch_decode(const void* q, const void* k, const void* v, const Addr& addr, void* out,
-                    float* part_acc, float* part_ml, int B, int S, int KV, int G, int dh,
-                    float scale, int n_split, int vec, cudaStream_t stream) {
-#define REPRO_DECODE(GM, DP)                                                                   \
-  return launch_decode<T, GM, DP, Addr>(q, k, v, addr, out, part_acc, part_ml, B, S, KV, G, dh, \
-                                        scale, n_split, vec, stream)
+                    int B, int S, int KV, int G, int dh, float scale, int n_split, int vec,
+                    int dtype, cudaStream_t stream) {
+  if (dtype == DTYPE_BF16 && decode_sm90_takes(dh, vec, G)) {
+#define REPRO_DECODE_SM90(DP, GM) \
+  return launch_decode_sm90<DP, GM, Addr>(q, k, v, addr, out, B, S, KV, G, dh, scale, n_split, stream)
+    if (dh <= 64) {
+      if (G <= 8) REPRO_DECODE_SM90(64, 8);
+      REPRO_DECODE_SM90(64, 16);
+    }
+    if (G <= 8) REPRO_DECODE_SM90(128, 8);
+    REPRO_DECODE_SM90(128, 16);
+#undef REPRO_DECODE_SM90
+  }
+#define REPRO_DECODE(GM, DP)                                                                \
+  return launch_decode<T, GM, DP, Addr>(q, k, v, addr, out, B, S, KV, G, dh, scale, n_split, \
+                                        vec, stream)
   if (G <= 8) {
     if (dh <= 64) REPRO_DECODE(8, 64);
     if (dh <= 128) REPRO_DECODE(8, 128);

@@ -28,13 +28,17 @@ namespace {
 struct PagedAddr {
   const int* block_tables;  // (B, max_pages), -1 = unallocated
   const int* ctx_lens;      // (B,)
-  int max_pages, page_size, KV, dh, window;
-  __device__ __forceinline__ long long offset(int b, int kvh, int t) const {
-    const int ctx = ctx_lens[b];
-    if (t >= ctx || ctx - 1 - t >= window) return -1;
-    const int page = block_tables[(size_t)b * max_pages + t / page_size];
-    if (page < 0) return -1;
-    return (((long long)page * page_size + t % page_size) * KV + kvh) * dh;
+  int max_pages, page_size, window;
+  const int* bt;  // this sequence's table
+  int ctx;        // and its length
+  __device__ __forceinline__ void begin(int b) {
+    bt = block_tables + (size_t)b * max_pages;
+    ctx = ctx_lens[b];
+  }
+  __device__ __forceinline__ int fetch(int t) const { return bt[t / page_size]; }
+  __device__ __forceinline__ int row(int page, int t) const {
+    if (page < 0 || t >= ctx || ctx - 1 - t >= window) return -1;
+    return page * page_size + t % page_size;
   }
 };
 
@@ -42,33 +46,29 @@ struct PagedAddr {
 }  // namespace repro
 
 // q (B, 1, H, dh); k_pool, v_pool (P, page_size, KV, dh); block_tables
-// (B, max_pages) int32; ctx_lens (B,) int32; out (B, 1, H, dh); part_acc /
-// part_ml as repro_decode_attention's over S = max_pages · page_size slots.
-// Returns cudaGetLastError() after the launches (or a refusal code).
+// (B, max_pages) int32; ctx_lens (B,) int32; out (B, 1, H, dh); n_split and
+// vec as repro_decode_attention's over S = max_pages · page_size slots.
+// Returns cudaGetLastError() after the launch (or a refusal code).
 extern "C" int repro_paged_decode_attention(const void* q, const void* k_pool,
                                             const void* v_pool, const void* block_tables,
-                                            const void* ctx_lens, void* out, void* part_acc,
-                                            void* part_ml, int B, int max_pages,
-                                            int page_size, int H, int KV, int dh, int window,
-                                            float scale, int n_split, int vec, int dtype,
-                                            void* stream) {
+                                            const void* ctx_lens, void* out, int B,
+                                            int max_pages, int page_size, int H, int KV,
+                                            int dh, int window, float scale, int n_split,
+                                            int vec, int dtype, void* stream) {
   using namespace repro;
-  if (KV < 1 || H % KV || n_split < 1 || page_size < 8 || page_size % 8) {
-    return (int)cudaErrorInvalidValue;
-  }
+  if (KV < 1 || H % KV || page_size < 8 || page_size % 8) return (int)cudaErrorInvalidValue;
   const int G = H / KV;
   const int S = max_pages * page_size;
   const PagedAddr addr{(const int*)block_tables, (const int*)ctx_lens, max_pages, page_size,
-                       KV, dh, window};
+                       window, nullptr, 0};
   cudaStream_t st = (cudaStream_t)stream;
   int rc;
   if (dtype == DTYPE_BF16) {
-    rc = dispatch_decode<__nv_bfloat16>(q, k_pool, v_pool, addr, out, (float*)part_acc,
-                                        (float*)part_ml, B, S, KV, G, dh, scale, n_split, vec,
-                                        st);
+    rc = dispatch_decode<__nv_bfloat16>(q, k_pool, v_pool, addr, out, B, S, KV, G, dh, scale,
+                                        n_split, vec, dtype, st);
   } else if (dtype == DTYPE_F32) {
-    rc = dispatch_decode<float>(q, k_pool, v_pool, addr, out, (float*)part_acc,
-                                (float*)part_ml, B, S, KV, G, dh, scale, n_split, vec, st);
+    rc = dispatch_decode<float>(q, k_pool, v_pool, addr, out, B, S, KV, G, dh, scale, n_split,
+                                vec, dtype, st);
   } else {
     rc = (int)cudaErrorInvalidValue;
   }

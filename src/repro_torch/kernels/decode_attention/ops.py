@@ -20,9 +20,13 @@ from repro_torch.kernels import _launch, build
 
 NEG_INF = -2.0e30
 GLOBAL_WINDOW = 2 ** 30
-TILE_SLOTS = 32       # slots per shared-memory tile in the kernel
+TILE_SLOTS = 64       # slots per tile of the Hopper body: the split's unit
+CLUSTER_MAX = 8       # splits of one (b, kv group): the blocks of one cluster
+HOPPER_MAX_HEAD_DIM = 128
+HOPPER_MAX_GROUP = 16
 
 launches = 0          # kernel launches since the last reset (main-path proof)
+hopper_launches = 0   # those of them through decode_sm90_kernel
 
 
 def decode_attention_plain(q, k_cache, v_cache, pos_ids, pos, *, window=None):
@@ -49,19 +53,33 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def _n_split(B: int, KV: int, S_c: int, device) -> int:
-    """Enough S_c splits for about four blocks per SM, each a whole number
-    of the kernel's 32-slot tiles."""
-    want = max(1, math.ceil(4 * _sm_count(device.index) / (B * KV)))
-    chunk = TILE_SLOTS * max(1, math.ceil(S_c / (want * TILE_SLOTS)))
-    return math.ceil(S_c / chunk)
+def split_count(B: int, KV: int, S: int, sms: int) -> int:
+    """Blocks per (b, kv group): about one block per SM, at most
+    CLUSTER_MAX (they merge as one thread block cluster), each a whole
+    number of the Hopper body's 64-slot tiles. On the H100 the main decode
+    shape ran faster at 4 splits (128 blocks) than at 8, and B 1 at 8
+    (``tools/ablate_decode.py``). The paged kernel splits its
+    S = max_pages · page_size slots by the same rule."""
+    want = min(CLUSTER_MAX, max(1, math.ceil(sms / (B * KV))))
+    chunk = TILE_SLOTS * max(1, math.ceil(S / (want * TILE_SLOTS)))
+    return math.ceil(S / chunk)
+
+
+def takes_hopper_decode(dtype, dh: int, vec: int, G: int) -> bool:
+    """Whether a call runs decode_sm90_kernel (QK^T on the tensor cores, a
+    cp.async K/V ring) in place of the fp32-FMA body: bf16, 16-byte aligned
+    rows of at most 128 elements, a group of at most 16 heads. The rule of
+    ``dispatch_decode`` (``decode_sm90_takes``); shapes alone decide, so
+    kernels 1 and 3 pick alike."""
+    return dtype == torch.bfloat16 and bool(vec) and dh % 8 == 0 \
+        and dh <= HOPPER_MAX_HEAD_DIM and G <= HOPPER_MAX_GROUP
 
 
 def decode_attention(q, k_cache, v_cache, pos_ids, pos, *, window=None):
     """q: (B, 1, H, dh); k/v_cache: (B, S_c, KV, dh); pos_ids: (S_c,)
     int32; pos: int -> (B, 1, H, dh). CPU tensors take the plain version;
     CUDA tensors launch the kernel or raise."""
-    global launches
+    global launches, hopper_launches
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, pos_ids, pos,
                                       window=window)
@@ -82,24 +100,17 @@ def decode_attention(q, k_cache, v_cache, pos_ids, pos, *, window=None):
         raise ValueError("decode_attention: pos_ids must be a contiguous "
                          f"({S_c},) int32 tensor on {q.device}")
     window = GLOBAL_WINDOW if window is None else int(window)
-    n_split = _n_split(B, KV, S_c, q.device)
+    n_split = split_count(B, KV, S_c, _sm_count(q.device.index))
+    vec = _launch.vector_ok(dh, q, k_cache, v_cache)
     out = torch.empty_like(q)
-    part_acc = part_ml = None
-    if n_split > 1:
-        part_acc = torch.empty((B, KV, n_split, G, dh), dtype=torch.float32,
-                               device=q.device)
-        part_ml = torch.empty((B, KV, n_split, G, 2), dtype=torch.float32,
-                              device=q.device)
     rc = build.load().repro_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        pos_ids.data_ptr(), out.data_ptr(),
-        None if part_acc is None else part_acc.data_ptr(),
-        None if part_ml is None else part_ml.data_ptr(),
-        B, S_c, H, KV, dh, int(pos), window, float(dh) ** -0.5, n_split,
-        _launch.vector_ok(dh, k_cache, v_cache), dtype,
+        pos_ids.data_ptr(), out.data_ptr(), B, S_c, H, KV, dh, int(pos),
+        window, float(dh) ** -0.5, n_split, vec, dtype,
         _launch.stream_handle(q.device))
     if rc:
         raise RuntimeError(f"decode_attention kernel launch failed: "
                            f"CUDA error {rc}")
     launches += 1
+    hopper_launches += takes_hopper_decode(q.dtype, dh, vec, G)
     return out

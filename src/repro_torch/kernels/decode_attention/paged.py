@@ -21,11 +21,13 @@ import torch
 
 from repro_torch.kernels import _launch, build
 from repro_torch.kernels.decode_attention.ops import (GLOBAL_WINDOW, NEG_INF,
-                                                      _n_split)
+                                                      _sm_count, split_count,
+                                                      takes_hopper_decode)
 
 PAGE_MULTIPLE = 8     # the kernel takes page sizes that are multiples of 8
 
 launches = 0          # kernel launches since the last reset (main-path proof)
+hopper_launches = 0   # those of them through decode_sm90_kernel
 
 
 def _walk_pages(qg, k_pool, v_pool, block_tables, visible, scale):
@@ -104,7 +106,7 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, ctx_lens, *,
     (B, max_pages) int32; ctx_lens: (B,) int32 -> (B, 1, H, dh). CPU
     tensors take the plain version; CUDA tensors launch the kernel or
     raise."""
-    global launches
+    global launches, hopper_launches
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pool, v_pool, block_tables,
                                             ctx_lens, window=window)
@@ -125,25 +127,18 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, ctx_lens, *,
     window = GLOBAL_WINDOW if window is None else int(window)
     max_pages = block_tables.shape[1]
     # the contiguous kernel's split of the same S = max_pages · ps slots
-    n_split = _n_split(B, KV, max_pages * ps, q.device)
+    n_split = split_count(B, KV, max_pages * ps, _sm_count(q.device.index))
+    vec = _launch.vector_ok(dh, q, k_pool, v_pool)
     out = torch.empty_like(q)
-    part_acc = part_ml = None
-    if n_split > 1:
-        part_acc = torch.empty((B, KV, n_split, G, dh), dtype=torch.float32,
-                               device=q.device)
-        part_ml = torch.empty((B, KV, n_split, G, 2), dtype=torch.float32,
-                              device=q.device)
     rc = build.load().repro_paged_decode_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         block_tables.data_ptr(), ctx_lens.data_ptr(), out.data_ptr(),
-        None if part_acc is None else part_acc.data_ptr(),
-        None if part_ml is None else part_ml.data_ptr(),
-        B, max_pages, ps, H, KV, dh, window, float(dh) ** -0.5, n_split,
-        _launch.vector_ok(dh, k_pool, v_pool), dtype,
-        _launch.stream_handle(q.device))
+        B, max_pages, ps, H, KV, dh, window, float(dh) ** -0.5, n_split, vec,
+        dtype, _launch.stream_handle(q.device))
     if rc:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
     launches += 1
+    hopper_launches += takes_hopper_decode(q.dtype, dh, vec, G)
     return out
 
 

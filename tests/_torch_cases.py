@@ -37,6 +37,25 @@ DECODE_CASES = [
     (2, 96, 10, 2, 64, 70, 64, False),      # G 5 (Hymba's grouping), window
 ]
 
+# The Hopper decode body (decode_sm90_kernel) at its ring's and cluster's
+# edges: split counts 1 to 8 (the cluster cap), G 1-16, dh 64 / 80 / 128,
+# caches that are not whole 64-slot tiles, a ring with a window, a head
+# with no visible slot (pos -1: every pos_id lies past it).
+DECODE_SM90_CASES = [
+    # B, S_c, H, KV, dh, pos, window, ring
+    (4, 1024, 64, 8, 128, 1023, None, False),        # main: 4 splits
+    (1, 1024, 64, 8, 128, 543, None, False),         # B 1: 8 splits, 5 live
+    (4, 1024, 25, 5, 64, 543, 1024, False),          # Hymba: G 5, window
+    (72, 64, 64, 8, 128, 63, None, False),           # B·KV 576: 1 split
+    (2, 100, 16, 2, 128, 99, None, False),           # S_c % 64 != 0
+    (2, 77, 2, 2, 64, 70, None, False),              # G 1, S_c 77
+    (2, 300, 32, 2, 128, 299, None, False),          # G 16
+    (1, 130, 16, 1, 64, 100, 40, False),             # G 16, dh 64, window
+    (2, 200, 16, 2, 80, 150, None, False),           # dh 80 in 128
+    (2, 512, 64, 8, 128, 1500, 300, True),           # ring + window
+    (2, 64, 16, 2, 64, -1, None, False),             # nothing visible
+]
+
 MQ_CASES = [
     # B, q_len, S_c, H, KV, dh, pos, window, cache kind: "linear" (slots
     # up to pos + q_len - 1 filled), "ring" (a ring buffer after position
@@ -172,6 +191,15 @@ PAGED_CASES = [
     (2, 16, 2, 128, 16, 3, (5, 48), None),           # G 8
     (1, 4, 4, 64, 8, 6, (41,), 9),                   # window in a page
     (2, 8, 2, 64, 16, 4, (1, 30), None),             # one live slot
+]
+
+# The Hopper decode body through block tables: page sizes 8, 24, 64.
+PAGED_SM90_CASES = [
+    # B, H, KV, dh, page_size, max_pages, ctx_lens, window
+    (4, 64, 8, 128, 64, 16, (1019, 700, 300, 130), None),
+    (4, 64, 8, 128, 8, 128, (1019, 700, 300, 130), 500),
+    (3, 25, 5, 64, 24, 43, (1019, 545, 24), 1024),   # Hymba's heads
+    (2, 32, 2, 80, 24, 10, (239, 7), None),          # dh 80, G 16
 ]
 
 MQ_PAGED_CASES = [

@@ -13,9 +13,10 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_cases import (BF16_REL, DECODE_CASES, F32_REL, FLASH_CASES,
-                          FLASH_HOPPER_CASES, MQ_CASES, MQ_HOPPER_CASES,
-                          MQ_PAGED_CASES, MQ_PAGED_HOPPER_CASES, PAGED_CASES,
+from _torch_cases import (BF16_REL, DECODE_CASES, DECODE_SM90_CASES, F32_REL,
+                          FLASH_CASES, FLASH_HOPPER_CASES, MQ_CASES,
+                          MQ_HOPPER_CASES, MQ_PAGED_CASES,
+                          MQ_PAGED_HOPPER_CASES, PAGED_CASES, PAGED_SM90_CASES,
                           SCAN_REL, SSM_CASES, WKV_CASES, decode_inputs,
                           flash_inputs, gathered_ids, mq_inputs,
                           mq_paged_case_inputs, np_rand, paged_case_inputs,
@@ -607,3 +608,87 @@ def test_mq_paged_hopper_reads_only_filled_slots(case, cuda_device):
     clean = mq.mq_paged_decode_attention(q, k, v, bt, ctxn, window=window)
     got = mq.mq_paged_decode_attention(q, kd, vd, bt, ctxn, window=window)
     assert torch.isfinite(got.float()).all() and torch.equal(got, clean)
+
+
+# ----------------------------------------------------------------------------
+# the Hopper decode body (decode_sm90_kernel: kernels 1 and 3)
+# ----------------------------------------------------------------------------
+@pytest.mark.parametrize("case", DECODE_SM90_CASES,
+                         ids=lambda c: f"B{c[0]}S{c[1]}H{c[2]}kv{c[3]}d{c[4]}p{c[5]}"
+                                       f"w{c[6]}{'r' if c[7] else ''}")
+def test_decode_sm90_kernel_vs_plain(case, cuda_device):
+    """One launch a call, through the Hopper body; within BF16_REL of the
+    plain version; two calls bit-equal (the cluster merges in a fixed
+    order); a head that sees no slot outputs 0; kernel 4 at q_len 1 within
+    BF16_REL of it."""
+    B, S_c, H, KV, dh, pos, window, ring = case
+    q, k, v, ids = decode_inputs(case, seed=2)
+    q, k, v = (to_torch(a, "bf16", cuda_device) for a in (q, k, v))
+    ids = torch.from_numpy(ids).to(cuda_device)
+    n0 = (da.launches, da.hopper_launches)
+    out = da.decode_attention(q, k, v, ids, pos, window=window)
+    again = da.decode_attention(q, k, v, ids, pos, window=window)
+    torch.cuda.synchronize()
+    assert (da.launches, da.hopper_launches) == (n0[0] + 2, n0[1] + 2)
+    assert torch.equal(out, again)
+    ref = da.decode_attention_plain(q, k, v, ids, pos, window=window)
+    assert rel_err(out, ref) <= BF16_REL
+    if pos < 0:
+        assert torch.count_nonzero(out) == 0
+    a = mq.mq_decode_attention(q, k, v, ids, pos, window=window)
+    assert rel_err(a, out) <= BF16_REL
+
+
+@pytest.mark.parametrize("shape", [(4, 1024, 64, 8, 128, 543, 300),
+                                   (4, 1024, 25, 5, 64, 543, 1024),
+                                   (1, 100, 16, 2, 80, 60, 32)],
+                         ids=["llama", "hymba", "dh80"])
+def test_decode_sm90_reads_only_visible_slots(shape, cuda_device):
+    """NaN in every slot that is not visible (past pos, before the window,
+    never written): the output must equal the clean cache's bit for bit."""
+    B, S_c, H, KV, dh, pos, window = shape
+    q, k, v, ids = decode_inputs((B, S_c, H, KV, dh, pos, window, False), seed=4)
+    q, k, v = (to_torch(a, "bf16", cuda_device) for a in (q, k, v))
+    ids = torch.from_numpy(ids).to(cuda_device)
+    hidden = (ids < 0) | (ids > pos) | (pos - ids >= window)
+    kd, vd = k.clone(), v.clone()
+    kd[:, hidden] = float("nan")
+    vd[:, hidden] = float("nan")
+    clean = da.decode_attention(q, k, v, ids, pos, window=window)
+    got = da.decode_attention(q, kd, vd, ids, pos, window=window)
+    assert torch.isfinite(got.float()).all() and torch.equal(got, clean)
+
+
+@pytest.mark.parametrize("case", PAGED_SM90_CASES,
+                         ids=lambda c: f"H{c[1]}kv{c[2]}d{c[3]}ps{c[4]}w{c[7]}")
+def test_paged_sm90_kernel(case, cuda_device):
+    """Kernel 3 through the Hopper body at page sizes 8, 24 and 64: one
+    launch, within BF16_REL of its plain version over ragged ctx; NaN in
+    unallocated pages and past ctx changes nothing; and with a uniform ctx
+    bit-equal to kernel 1 on the gathered cache."""
+    B, H, KV, dh, ps, maxp, ctx, window = case
+    q, k, v, bt, ctxn = _paged_on(cuda_device, *paged_case_inputs(case, seed=7))
+    n0 = (pg.launches, pg.hopper_launches)
+    out = pg.paged_decode_attention(q, k, v, bt, ctxn, window=window)
+    torch.cuda.synchronize()
+    assert (pg.launches, pg.hopper_launches) == (n0[0] + 1, n0[1] + 1)
+    ref = pg.paged_decode_attention_plain(q, k, v, bt, ctxn, window=window)
+    assert rel_err(out, ref) <= BF16_REL
+    dirty = torch.ones(k.shape[:2], dtype=torch.bool, device=cuda_device)
+    for b, n in enumerate(ctx):
+        t = torch.arange(n, device=cuda_device)
+        dirty[bt[b, t // ps].long(), t % ps] = False
+    kd, vd = k.clone(), v.clone()
+    kd[dirty] = float("nan")
+    vd[dirty] = float("nan")
+    got = pg.paged_decode_attention(q, kd, vd, bt, ctxn, window=window)
+    assert torch.isfinite(got.float()).all() and torch.equal(got, out)
+    (q, k, v, bt, ctxn), _ = _uniform(case, 1)
+    q, k, v, bt, ctxn = _paged_on(cuda_device, q, k, v, bt, ctxn)
+    c = int(ctxn[0])
+    out = pg.paged_decode_attention(q, k, v, bt, ctxn, window=window)
+    ids = torch.from_numpy(gathered_ids(maxp * ps, c)).to(cuda_device)
+    ref = da.decode_attention(q, pg.gather_pages(k, bt).contiguous(),
+                              pg.gather_pages(v, bt).contiguous(), ids, c - 1,
+                              window=window)
+    assert torch.equal(out, ref)
