@@ -11,9 +11,11 @@ Phases; any failure exits non-zero without the final ``ok`` line:
    (``csrc/attention_sm90.cuh``) in each of its three sources (flash,
    kernels 4 and 5) must hold HGMMA (wgmma) and UTMALDG (TMA), and each of
    the four instantiations of the Hopper decode body (decode_sm90_kernel
-   in ``csrc/decode_attention.cuh``) in kernels 1 and 3 HMMA (mma.sync)
-   and LDGSTS (cp.async) (cuobjdump); no decode_combine_kernel is built;
-   their registers and spills from ptxas.
+   in ``csrc/decode_attention.cuh``) in kernels 1 and 3 and of the verify
+   body (verify_sm90_kernel in ``csrc/mq_decode_attention.cuh``) in
+   kernels 4 and 5 HMMA (mma.sync) and LDGSTS (cp.async) (cuobjdump); no
+   second pass (decode_combine_kernel, mq_combine_kernel) is built; their
+   registers and spills from ptxas.
 1. kernels against their plain PyTorch versions on the card, at the main
    path's shapes (Hymba's G 5 / dh 64 / window 1024 attention included)
    and at ring-buffer / window / unaligned / offset cases,
@@ -23,9 +25,13 @@ Phases; any failure exits non-zero without the final ``ok`` line:
    events, L2 flushed and host enqueue hidden before each call), its
    bound, the plain version's time and one PyTorch library call's time as
    a yardstick (flash at LLaMA's and at Hymba's shape; kernels 4 and 5 at
-   their verify and prefill-round shapes; kernel 1 at its main, B 1 and
-   Hymba shapes, SDPA on the visible prefix), and for kernels 1 and 3 the
-   time's split over the CUDA kernels one call launches (torch.profiler). The paged kernels (3: decode, 5: multi-query) run at phase
+   their verify and prefill-round shapes, kernel 4 also at phase 3b's
+   sporadic verify shape, B 1 at pos 516; kernel 1 at its main, B 1 and
+   Hymba shapes, SDPA on the visible prefix), and for kernels 1, 3, 4 and
+   5 the time's split over the CUDA kernels one call launches
+   (torch.profiler). Each multi-query call must take the body its shapes
+   imply (the verify body at q_len·G <= 128 rows: two calls bit-equal;
+   the Hopper mainloop above). The paged kernels (3: decode, 5: multi-query) run at phase
    2b's shapes (page 64, 16 pages, ctx 1019; q_len 128 and 5) with
    shuffled non-contiguous block tables, ragged ctx, windows and dh 80 /
    page 16, reject planted faults (page index +-1, ctx - 1, row // G off
@@ -62,9 +68,10 @@ Phases; any failure exits non-zero without the final ``ok`` line:
    paged kernels' µs per call in a profiled serve.
 3a. the interleaved engine against the model on phase 2's weights, in a
    plan forced to stream (2 chunks of 2 resident + 2 streamed layers):
-   decode and verify logits bit-equal to the model's kernel path, the
-   engine's chunked prefill (multi-query rounds) within the logit limit of
-   the model's flash prefill.
+   decode and verify logits bit-equal to the model's kernel path (every
+   verify launch through the verify body), the engine's chunked prefill
+   (multi-query rounds) within the logit limit of the model's flash
+   prefill.
 3c. the recurrent families on the single-device path, after phase 2's
    weights are freed: RWKV6-3B, then Hymba-1.5B, each at full width and all
    32 layers, random weights from seed 0, served bursty and sporadic
@@ -97,10 +104,12 @@ Phases; any failure exits non-zero without the final ``ok`` line:
    the copy time of the streamed bytes, and a profiler breakdown of one
    pass.
 Every flash launch of phases 2, 2b and 3c, every prefill round of kernel 5
-(2b) and of kernel 4 (3a, 3b) must run the Hopper mainloop, and every
-launch of kernels 1 and 3 in phases 2, 2b, 3b and 3c the Hopper decode
-body (the wrappers' hopper counters); the profiled serves show no second
-decode pass (decode_combine_kernel).
+(2b) and of kernel 4 (3a, 3b) must run the Hopper mainloop, every verify
+pass of kernel 4 (3a, 3b) the verify body (none of kernel 5 is served),
+and every launch of kernels 1 and 3 in phases 2, 2b, 3b and 3c the Hopper
+decode body (the wrappers' hopper and verify counters); the profiled
+serves show no second pass (decode_combine_kernel, mq_combine_kernel), and
+phase 3b's pass profiles give each attention kernel's µs per call.
 4. a JSON line of per-kernel numbers, then the ``ok`` line.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -508,41 +517,63 @@ def mq_phase(gen, rows):
         ("stale pos_ids > pos, pos 300", 2, 5, 1024, 64, 8, 128, 300, None, "stale",
          [("diagonal dropped: <= -> <", dict(pos=299))]),
         ("q9 G8 S100 dh64 w32 unaligned", 1, 9, 100, 16, 2, 64, 50, 32, "linear", []),
+        # phase 3b's sporadic verify pass: 8 splits, the last four see nothing
+        ("sporadic B1 q5 S1024 H64 KV8 dh128 pos516", 1, 5, 1024, 64, 8, 128, 516, None,
+         "linear", [("diagonal dropped: <= -> <", dict(pos=515)),
+                    ("row // G off by one", dict(pos=517))]),
+        ("G1 q5 S300 dh64 stale", 2, 5, 300, 8, 8, 64, 290, None, "stale",
+         [("diagonal dropped: <= -> <", dict(pos=289))]),
     ]
     for name, B, Q, S_c, H, KV, dh, pos, window, kind, planted in cases:
         q = randn((B, Q, H, dh), bf16, gen)
         k = randn((B, S_c, KV, dh), bf16, gen)
         v = randn((B, S_c, KV, dh), bf16, gen)
         ids = mq_ids(S_c, pos, Q, kind)
+        n0 = (mq.verify_sm90_launches, mq.hopper_launches)
         out = mq.mq_decode_attention(q, k, v, ids, pos, window=window)
         torch.cuda.synchronize()
+        body = mq.mq_body(Q, H // KV, dh, 1)          # torch's allocations are aligned
+        if (mq.verify_sm90_launches - n0[0], mq.hopper_launches - n0[1]) \
+                != (body == "verify", body == "mainloop"):
+            raise AssertionError(f"{name}: the call did not take the {body} body")
         ref = mq.mq_decode_attention_plain(q, k, v, ids, pos, window=window)
         faults = [(label, mq.mq_decode_attention_plain(
             q, k, v, ids, **{"pos": pos, "window": window, **kw}))
             for label, kw in planted]
-        err = check(name, out, ref, BF16_REL, faults)
-        if not name.startswith(("verify", "prefill")):
+        err = check(f"{name} ({body} body)", out, ref, BF16_REL, faults)
+        if body == "verify":
+            again = mq.mq_decode_attention(q, k, v, ids, pos, window=window)
+            if not torch.equal(out, again):
+                raise AssertionError(f"{name}: two calls differ")
+        if not name.startswith(("verify", "prefill", "sporadic")):
             continue
         vis = mq_visible(ids, pos, Q, window)
         mask = vis.clone()
-        ms = time_ms(lambda: mq.mq_decode_attention(q, k, v, ids, pos))
+
+        def fn():
+            return mq.mq_decode_attention(q, k, v, ids, pos)
+        ms = time_ms(fn)
         plain = time_ms(lambda: mq.mq_decode_attention_plain(q, k, v, ids, pos),
                         reps=10)
         lib = library_time_ms(lambda: F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             attn_mask=mask, enable_gqa=True))
+        split = pass_split(fn)
         n_read = int(vis.any(0).sum())                  # slots some row sees
         pairs = int(vis.sum())                          # visible (row, slot)
         byts = 2 * B * n_read * KV * dh * k.element_size() \
             + nbytes(q, ids) + nbytes(q)                # K, V rows; q, ids; out
         flops = 2 * 2 * B * H * pairs * dh              # QK^T and PV (tensor cores)
         r = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
-                 bytes=byts, flops=flops,
+                 bytes=byts, flops=flops, split=split,
                  bytes_bound_ms=byts / HBM_BYTES_PER_S * 1e3,
                  ops_bound_ms=flops / BF16_TENSOR_FLOPS * 1e3)
+        log(f"    {ms:.4f} ms; sdpa {lib} ms; split over kernels (µs per call, launches "
+            f"per call) {split}")
         # the verify shape is the per-round call of the served path: its
-        # numbers go into the kernels line; the prefill round's into the log
-        rows["mq_decode_attention" if name.startswith("verify")
+        # numbers go into the kernels line; the others' into the log
+        rows["mq_decode_attention" if name.startswith("verify") else
+             "mq_decode_attention@B1" if name.startswith("sporadic")
              else "mq_decode_attention@prefill"] = r
 
     # q_len 1: the multi-query kernel is the one-token decode
@@ -673,8 +704,15 @@ def paged_phase(gen, rows):
         kern = pg.paged_decode_attention if Q == 1 else mq.mq_paged_decode_attention
         plain = pg.paged_decode_attention_plain if Q == 1 \
             else mq.mq_paged_decode_attention_plain
+        n0 = (mq.paged_verify_sm90_launches, mq.paged_hopper_launches)
         out = kern(q, k, v, bt, ctx, window=window)
         torch.cuda.synchronize()
+        if Q > 1:
+            body = mq.mq_body(Q, H // KV, dh, 1)
+            if (mq.paged_verify_sm90_launches - n0[0], mq.paged_hopper_launches - n0[1]) \
+                    != (body == "verify", body == "mainloop"):
+                raise AssertionError(f"{name}: the call did not take the {body} body")
+            log(f"  {name}: the {body} body")
         ref = plain(q, k, v, bt, ctx, window=window)
         faults = []
         for label, kw in planted:
@@ -1073,23 +1111,49 @@ def csrc_kernel(name):
     decode, flash, mq, wkv or ssm. Every kernel lives in namespace repro:
     the mma.sync and SIMT kernels are named after their file (decode_*kernel
     in decode_attention.cu, flash_*kernel, mq_*kernel, wkv_*, ssm_*); the
-    Hopper mainloop is sm90::attention_kernel<DHP, Addr>, whose Addr names
-    its caller (FlashAddr; ContigMqAddr, PagedMqAddr). Both forms hold for
+    verify body of kernels 4 and 5 is verify_sm90_kernel; the Hopper
+    mainloop is sm90::attention_kernel<DHP, Addr>, whose Addr names its
+    caller (FlashAddr; ContigMqAddr, PagedMqAddr). Both forms hold for
     mangled and demangled names."""
     name = name.lower()
     if "repro" not in name:
         return None
     if "sm90" in name and "attention_kernel" in name:
         return ("flash" if "flashaddr" in name else "mq"), "sm90_attention_kernel"
+    if "verify_sm90_kernel" in name:
+        return "mq", "verify_sm90_kernel"
     m = re.search(r"(decode|flash|mq|wkv|ssm)_[a-z0-9_]*?kernel", name)
     return (m.group(1), m.group(0)) if m else None
 
 
-def one_decode_pass(name):
-    """A profiled kernel name must not be a second pass of kernels 1 and 3:
-    they merge their splits inside one launch."""
-    if "decode_combine_kernel" in name:
-        raise AssertionError(f"a second decode pass ran: {name}")
+def one_pass(name):
+    """A profiled kernel name must not be a second pass: kernels 1, 3, 4
+    and 5 merge their splits inside one launch (no decode_combine_kernel,
+    no mq_combine_kernel)."""
+    if "combine_kernel" in name:
+        raise AssertionError(f"a second pass ran: {name}")
+
+
+def profiled(fn, kernel):
+    """(profiler, wall µs) of fn() under torch.profiler (CPU and CUDA
+    activity). The card's profiler now and then returns a session that
+    holds not one device event of a kernel that ran (all of them lost, the
+    serve itself fine); then fn runs once more under a new session. A count
+    that is there but wrong is left to the caller to reject."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for attempt in (1, 2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.monotonic() - t0) * 1e6
+        seen = any(e.device_type == torch.autograd.DeviceType.CUDA and "repro" in e.name
+                   and kernel in e.name for e in prof.events())
+        if seen or attempt == 2:
+            return prof, wall_us
+        log(f"  the profiler returned no device event of {kernel}, which ran: "
+            "profiling the serve once more")
 
 
 def breakdown(cfg, params, card):
@@ -1097,15 +1161,11 @@ def breakdown(cfg, params, card):
     kernels' own time), and the device's idle share of the serve's wall
     time under the profiler."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs.base import Family
     prompts = make_prompts(4, cfg.vocab_size, 7)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        serve(cfg, params, "bursty", prompts, "kernel")
-        torch.cuda.synchronize()
-        wall_us = (time.monotonic() - t0) * 1e6
+    prof, wall_us = profiled(lambda: serve(cfg, params, "bursty", prompts, "kernel"),
+                             "decode_sm90_kernel")
     by = {"decode_attention": 0.0, "flash_attention": 0.0, "gemm": 0.0,
           "other": 0.0}
     seen = {"decode_attention": {}, "flash_attention": {}}
@@ -1116,7 +1176,7 @@ def breakdown(cfg, params, card):
         if us is None:
             us = e.self_cuda_time_total
         name = e.key.lower()
-        one_decode_pass(name)
+        one_pass(name)
         m = csrc_kernel(name)
         if m is not None:
             cls = m[0] + "_attention"
@@ -1191,7 +1251,10 @@ def kernel_counters():
             "decode_attention@hopper": (da, "hopper_launches"),
             "paged_decode_attention@hopper": (pg, "hopper_launches"),
             "mq_decode_attention@prefill": (mq, "hopper_launches"),
-            "mq_paged_decode_attention@prefill": (mq, "paged_hopper_launches")}
+            "mq_paged_decode_attention@prefill": (mq, "paged_hopper_launches"),
+            # and of the verify body
+            "mq_decode_attention@verify": (mq, "verify_sm90_launches"),
+            "mq_paged_decode_attention@verify": (mq, "paged_verify_sm90_launches")}
 
 
 def read_counts():
@@ -1349,15 +1412,13 @@ def prefix_profile(cfg, params, reqs, card):
     server (4 prefill rounds, 15 decode steps), and the device's idle
     share: the paged kernels' µs per call in the serve."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    srv = prefix_server(cfg, params)
-    for r in reqs:
-        srv.queue.submit(r.prompt, r.max_new_tokens)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
+
+    def cold_epoch():
+        srv = prefix_server(cfg, params)
+        for r in reqs:
+            srv.queue.submit(r.prompt, r.max_new_tokens)
         srv.serve_all()
-        torch.cuda.synchronize()
-        wall_us = (time.monotonic() - t0) * 1e6
+    prof, wall_us = profiled(cold_epoch, "decode_sm90_kernel")
     by = {"paged_decode": 0.0, "mq_paged": 0.0, "gemm": 0.0, "other": 0.0}
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -1366,7 +1427,7 @@ def prefix_profile(cfg, params, reqs, card):
         if us is None:
             us = e.self_cuda_time_total
         name = e.key.lower()
-        one_decode_pass(name)
+        one_pass(name)
         # only the paged kernels of csrc/ run in this serve: decode is
         # kernel 3, mq kernel 5
         m = csrc_kernel(name)
@@ -1555,8 +1616,13 @@ def engine_check_phase(cfg, params, card):
                       el, ml[:, 0]))
         tok = el[:, :V].argmax(-1, keepdim=True)
     mat = torch.cat([tok, toks[:, 1:5]], 1)
+    v0 = mq.verify_sm90_launches
     el, st = eng.verify_step(st, mat)
     ml, mc = M.verify_step(cfg, params, mc, mat, impl="kernel")
+    torch.cuda.synchronize()
+    if mq.verify_sm90_launches - v0 != 2 * cfg.n_layers:
+        raise AssertionError("verify q_len 5: every layer's mq launch must take the verify "
+                             f"body ({mq.verify_sm90_launches - v0} of {2 * cfg.n_layers})")
     steps.append(("verify q_len 5", el, ml))
     for name, e, m in steps:
         same = torch.equal(e, m)
@@ -1577,7 +1643,11 @@ def engine_check_phase(cfg, params, card):
         ld.append(el[:, :V].float())
         seq.append(el[:, :V].argmax(-1, keepdim=True))
     eng.rollback(st, P)
+    v0, m0 = mq.verify_sm90_launches, mq.launches
     lv, st = eng.verify_step(st, torch.cat(seq[:8], 1))
+    torch.cuda.synchronize()
+    if (mq.verify_sm90_launches - v0, mq.launches - m0) != (cfg.n_layers,) * 2:
+        raise AssertionError("verify q_len 8: every mq launch must take the verify body")
     d = (torch.stack(ld, 1) - lv[..., :V].float()).abs().amax(-1)
     rel = d / torch.stack(ld, 1).abs().amax(-1)
     log(f"  decode steps vs one verify pass over the same 8 positions: logit "
@@ -1746,16 +1816,12 @@ def recurrent_breakdown(cfg, params, card):
     (GEMMs, the scan, the attention kernels, other), each port kernel's µs
     per call, and the device's idle share of the serve's wall time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs.base import Family
     prompts = make_prompts(4, cfg.vocab_size, 7)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        serve(cfg, params, "bursty", prompts, "kernel")
-        torch.cuda.synchronize()
-        wall_us = (time.monotonic() - t0) * 1e6
     scan = "wkv_scan" if cfg.family == Family.SSM else "ssm_scan"
+    prof, wall_us = profiled(lambda: serve(cfg, params, "bursty", prompts, "kernel"),
+                             scan + "_kernel")
     by = {scan: 0.0, "flash_attention": 0.0, "decode_attention": 0.0, "gemm": 0.0,
           "other": 0.0}
     # the scan's launches in time order: the first n_layers are the
@@ -1777,7 +1843,7 @@ def recurrent_breakdown(cfg, params, card):
         if us is None:
             us = e.self_cuda_time_total
         name = e.key.lower()
-        one_decode_pass(name)
+        one_pass(name)
         m = csrc_kernel(name)
         if m is not None:
             cls = {"wkv": "wkv_scan", "ssm": "ssm_scan", "decode": "decode_attention",
@@ -1962,16 +2028,21 @@ def drive(srv, prompts, pattern, n_layers, retier_at=()):
     n_pf = math.ceil(PROMPT_LEN / PREFILL_CHUNK)
     prefills, applied = 0, []
     mq.launches = da.launches = mq.hopper_launches = da.hopper_launches = 0
+    mq.verify_sm90_launches = 0
     while True:
         n_rounds, res = len(be.rounds), len(eng.resident_layer_ids())
         m0, d0, h0, hd0 = mq.launches, da.launches, mq.hopper_launches, da.hopper_launches
+        v0 = mq.verify_sm90_launches
         if not sched.step():
             break
         got = (mq.launches - m0, da.launches - d0)
         # prefill rounds (q_len 512) run the Hopper mainloop, verify passes
-        # (q_len k + 1) the split body
+        # (q_len k + 1) the verify body
         if mq.hopper_launches - h0 != (got[0] if len(be.rounds) == n_rounds else 0):
             raise AssertionError(f"{pattern}: {mq.hopper_launches - h0} Hopper-mainloop "
+                                 f"launches in a step of {got[0]} mq launches")
+        if mq.verify_sm90_launches - v0 != (got[0] if len(be.rounds) > n_rounds else 0):
+            raise AssertionError(f"{pattern}: {mq.verify_sm90_launches - v0} verify-body "
                                  f"launches in a step of {got[0]} mq launches")
         if da.hopper_launches - hd0 != got[1]:
             raise AssertionError(f"{pattern}: {da.hopper_launches - hd0} Hopper decode "
@@ -1994,7 +2065,7 @@ def drive(srv, prompts, pattern, n_layers, retier_at=()):
     if prefills != (1 if pattern == "bursty" else len(prompts)):
         raise AssertionError(f"{pattern}: {prefills} prefill steps")
     return done, sched.stats, (mq.launches, da.launches, mq.hopper_launches,
-                               da.hopper_launches), applied
+                               da.hopper_launches, mq.verify_sm90_launches), applied
 
 
 def reference_check(eng, params, cfg, prompts, got, pattern):
@@ -2109,6 +2180,7 @@ def pass_profile(eng, st, P, fn, card, label):
     import torch
     from torch.profiler import ProfilerActivity, profile
     by = {"gemm": 0.0, "attention": 0.0, "memcpy_h2d": 0.0, "other": 0.0}
+    kern = {}                                    # csrc/ kernel: [µs, launches]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall = timed_s(fn)
     eng.rollback(st, P)
@@ -2119,11 +2191,15 @@ def pass_profile(eng, st, P, fn, card, label):
         if us is None:
             us = e.self_cuda_time_total
         name = e.key.lower()
-        one_decode_pass(name)
+        one_pass(name)
+        m = csrc_kernel(name)
         if "memcpy" in name and "htod" in name:
             cls = "memcpy_h2d"
-        elif csrc_kernel(name) is not None:
+        elif m is not None:
             cls = "attention"
+            k = kern.setdefault(m[1], [0.0, 0])
+            k[0] += us
+            k[1] += e.count
         elif any(x in name for x in ("gemm", "nvjet", "xmma", "cutlass")):
             cls = "gemm"
         else:
@@ -2134,6 +2210,8 @@ def pass_profile(eng, st, P, fn, card, label):
     log(f"  profile of one {label} pass: {parts}; compute busy "
         f"{compute / 1e3:.2f} ms of {wall * 1e3:.2f} ms wall, compute idle "
         f"{1 - compute / (wall * 1e6):.1%} [{card}]")
+    log("    attention kernels (launches, µs per call): " + ", ".join(
+        f"{k} {n}, {us / n:.2f}" for k, (us, n) in sorted(kern.items())))
     return by, wall
 
 
@@ -2212,7 +2290,8 @@ def full_model_phase(card):
     prompts = make_prompts(4, cfg.vocab_size, 0)
     spec = SpecConfig(k=SPEC_K, adapt_k=False)
     launches = {"mq_decode_attention": 0, "decode_attention": 0,
-                "mq_decode_attention@prefill": 0, "decode_attention@hopper": 0}
+                "mq_decode_attention@prefill": 0, "decode_attention@hopper": 0,
+                "mq_decode_attention@verify": 0}
     torch.cuda.reset_peak_memory_stats()
     served = {}
     for pattern, n_req, retier_at in (("bursty", 4, RETIER_AT),
@@ -2221,13 +2300,14 @@ def full_model_phase(card):
                          pattern=pattern, spec=spec,
                          prefill_chunk_tokens=PREFILL_CHUNK)
         t0 = time.monotonic()
-        done, stats, (m, d, h, hd), applied = drive(srv, prompts[:n_req], pattern, L,
-                                                    retier_at)
+        done, stats, (m, d, h, hd, vf), applied = drive(srv, prompts[:n_req], pattern, L,
+                                                        retier_at)
         wall = time.monotonic() - t0
         launches["mq_decode_attention"] += m
         launches["decode_attention"] += d
         launches["mq_decode_attention@prefill"] += h
         launches["decode_attention@hopper"] += hd
+        launches["mq_decode_attention@verify"] += vf
         be = srv.make_backend()
         rep = summarize(done, pattern=pattern, backend="engine", stats=stats)
         spec_rounds = [c for k, c in be.rounds if k]
@@ -2237,7 +2317,7 @@ def full_model_phase(card):
             f"ms/token per request (p50); acceptance {rep.spec_acceptance_rate:.3f} "
             f"({rep.spec_accepted}/{rep.spec_drafted} drafts); "
             f"{len(be.rounds)} rounds, committed per round mean "
-            f"{np.mean(spec_rounds):.2f}; launches mq {m}, decode {d}; retier "
+            f"{np.mean(spec_rounds):.2f}; launches mq {m} ({vf} verify body), decode {d}; retier "
             f"{applied}; {wall:.1f} s wall [{card}; {L} layers]")
         if pattern == "bursty" and not (applied and applied[0][2]):
             raise AssertionError("bursty: the retier(+1) did not land mid-serve")
@@ -2295,8 +2375,12 @@ def _leaves(t):
 # ----------------------------------------------------------------------------
 HOPPER_SOURCES = ("_flash_attention_cu", "_mq_decode_attention_cu",
                   "_mq_paged_decode_attention_cu")
-# decode_sm90_kernel<DHP, GM, Addr>: four per source, Addr names the source
+# decode_sm90_kernel<DHP, GM, Addr> (kernels 1, 3: DHP 64 / 128 x GM 8 / 16)
+# and verify_sm90_kernel<DHP, NW, Addr> (kernels 4, 5: DHP 64 / 128 x 3, 5
+# or 8 row warps) per source, Addr naming the source
 DECODE_SM90 = {"decode_attention.cu": "ContigAddr", "paged_decode_attention.cu": "PagedAddr"}
+VERIFY_SM90 = {"mq_decode_attention.cu": "ContigMqAddr",
+               "mq_paged_decode_attention.cu": "PagedMqAddr"}
 
 
 def _cuobjdump():
@@ -2316,10 +2400,11 @@ def _cuobjdump():
 def hopper_sass_check(lib_path):
     """Each source's instantiations of the Hopper mainloop
     (sm90::attention_kernel) must run on wgmma and TMA: HGMMA and UTMALDG
-    in their SASS; each of decode_sm90_kernel's (kernels 1 and 3) on the
-    tensor cores and asynchronous copies: HMMA and LDGSTS; and no second
-    decode pass is left (decode_combine_kernel). Prints their registers
-    and spills from ptxas.log."""
+    in their SASS; each of decode_sm90_kernel's (kernels 1 and 3) and of
+    verify_sm90_kernel's (kernels 4 and 5) on the tensor cores and
+    asynchronous copies: HMMA and LDGSTS; and no second pass is left
+    (decode_combine_kernel, mq_combine_kernel). Prints their registers and
+    spills from ptxas.log."""
     sass = subprocess.run([_cuobjdump(), "-sass", str(lib_path)], capture_output=True,
                           text=True, timeout=300, check=True).stdout
     ops, cur = {}, None
@@ -2327,10 +2412,10 @@ def hopper_sass_check(lib_path):
         m = re.search(r"Function : (\S+)", line)
         if m:
             f = m.group(1)
-            if "decode_combine_kernel" in f:
-                raise AssertionError(f"a second decode pass is still built: {f}")
+            if "combine_kernel" in f:
+                raise AssertionError(f"a second pass is still built: {f}")
             cur = f if ("sm90" in f and "attention_kernel" in f) \
-                or "decode_sm90_kernel" in f else None
+                or "decode_sm90_kernel" in f or "verify_sm90_kernel" in f else None
             if cur:
                 ops[cur] = set()
         elif cur:
@@ -2343,7 +2428,7 @@ def hopper_sass_check(lib_path):
         elif cur and ("registers" in line or "spill" in line):
             regs[cur] = regs.get(cur, "") + " " + line.split(":", 1)[-1].strip()
     for src in HOPPER_SOURCES:
-        fns = [f for f in ops if "decode_sm90_kernel" not in f and src in f
+        fns = [f for f in ops if "attention_kernel" in f and src in f
                and (src != "_mq_decode_attention_cu" or "_paged_" not in f)]
         if not fns:
             raise AssertionError(f"no Hopper mainloop kernel in {src[1:]}")
@@ -2354,18 +2439,20 @@ def hopper_sass_check(lib_path):
             if not {"HGMMA", "UTMALDG"} <= ops[f]:
                 raise AssertionError(f"{src[1:]} attention_kernel<{dhp}>: no HGMMA or "
                                      "UTMALDG in its SASS")
-    for src, addr in DECODE_SM90.items():
-        fns = [f for f in ops if "decode_sm90_kernel" in f and addr in f]
-        if len(fns) != 4:
-            raise AssertionError(f"{src}: {len(fns)} decode_sm90_kernel instantiations, "
-                                 "expected 4")
-        for f in fns:
-            dhp, gm = re.search(r"decode_sm90_kernelILi(\d+)ELi(\d+)", f).groups()
-            log(f"  sass {src} decode_sm90_kernel<{dhp}, {gm}>: {sorted(ops[f])};"
-                f"{regs.get(f, ' ptxas: not found')}")
-            if not {"HMMA", "LDGSTS"} <= ops[f]:
-                raise AssertionError(f"{src} decode_sm90_kernel<{dhp}, {gm}>: no HMMA or "
-                                     "LDGSTS in its SASS")
+    for kern, sources, count in (("decode_sm90_kernel", DECODE_SM90, 4),
+                                 ("verify_sm90_kernel", VERIFY_SM90, 6)):
+        for src, addr in sources.items():
+            fns = [f for f in ops if kern in f and f"{len(addr)}{addr}" in f]
+            if len(fns) != count:
+                raise AssertionError(f"{src}: {len(fns)} {kern} instantiations, expected "
+                                     f"{count}")
+            for f in fns:
+                a, b = re.search(kern + r"ILi(\d+)ELi(\d+)", f).groups()
+                log(f"  sass {src} {kern}<{a}, {b}>: {sorted(ops[f])};"
+                    f"{regs.get(f, ' ptxas: not found')}")
+                if not {"HMMA", "LDGSTS"} <= ops[f]:
+                    raise AssertionError(f"{src} {kern}<{a}, {b}>: no HMMA or LDGSTS in "
+                                         "its SASS")
 
 
 # ----------------------------------------------------------------------------
@@ -2401,7 +2488,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log("  ptxas: " + line.strip())
         log("phase 0: the Hopper mainloop's SASS (wgmma = HGMMA, TMA = UTMALDG) and the "
-            "decode body's (mma.sync = HMMA, cp.async = LDGSTS)")
+            "decode and verify bodies' (mma.sync = HMMA, cp.async = LDGSTS)")
         hopper_sass_check(lib_path)
 
         t_run = time.monotonic()
@@ -2433,7 +2520,8 @@ def main() -> int:
         for k, n in engine_launches.items():
             launches[k] = launches.get(k, 0) + n
 
-        for name in ("decode_attention@hopper", "paged_decode_attention@hopper"):
+        for name in ("decode_attention@hopper", "paged_decode_attention@hopper",
+                     "mq_decode_attention@verify"):
             if launches.get(name, 0) <= 0:
                 raise AssertionError(f"{name} never launched on the main path")
         log(f"main-path launches: {launches}")

@@ -26,7 +26,9 @@
 //    blocks that own its outputs (stores to distributed shared memory);
 //    after one cluster barrier every block merges its slice of the G·dh
 //    outputs over the splits in rank order. No partials go through global
-//    memory, and the order is fixed, so the result is deterministic.
+//    memory, and the order is fixed, so the result is deterministic. The
+//    merge (ClusterMerge) lives in cluster_merge.cuh, shared with the
+//    multi-query bodies.
 //  * An asynchronous K/V ring per warp. A block of 8 warps walks its
 //    slots in 64-slot tiles, each warp an 8-slot share of every tile; a
 //    warp streams its shares through a ring of 3 stages with cp.async
@@ -62,94 +64,19 @@
 // view of the K/V tensors, or -1 when the slot is not visible.
 #pragma once
 
-#include <cooperative_groups.h>
-
-#include "common.cuh"
+#include "cluster_merge.cuh"
 
 namespace repro {
 namespace {
 
-namespace cg = cooperative_groups;
-
 constexpr int DEC_THREADS = 128;
 constexpr int DEC_WARPS = DEC_THREADS / 32;
 constexpr int TS = 32;           // slots per tile of the fp32-FMA body
-constexpr int CLUSTER_MAX = 8;   // splits of one (b, kv group): a cluster's blocks
 
 // The shapes decode_sm90_kernel takes (bf16 besides).
 inline bool decode_sm90_takes(int dh, int vec, int G) {
   return vec != 0 && dh % 8 == 0 && dh <= 128 && G <= 16;
 }
-
-// barrier.cluster halves. Every kernel arrives (relaxed) as it starts and
-// waits before its first store to a peer: DSMEM of a block may be written
-// only once that block runs.
-__device__ __forceinline__ void cluster_arrive_relaxed() {
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-// Floats of the region in which a block receives its peers' partials.
-template <int GM, int DHP>
-constexpr int merge_floats() {
-  return GM * DHP + CLUSTER_MAX + 2 * CLUSTER_MAX * GM;
-}
-
-// The cluster's merge, by pushes. Block `rank` of the n blocks of a
-// cluster owns outputs [rank·per, (rank + 1)·per) of the G·dh (row-major
-// g, d). Every block pushes each element of its split's partial (acc,
-// unnormalized) and its (m, l) of every head into the owner's receive
-// region (stores to distributed shared memory: no round trip); after one
-// cluster barrier each owner merges its elements over the splits in rank
-// order from its own shared memory. The order is fixed, so the result is
-// deterministic and the same for every Addr policy.
-template <int GM>
-struct ClusterMerge {
-  float* rA;  // [n][per] elements
-  float* rM;  // [n][GM]
-  float* rL;  // [n][GM]
-  int n, rank, per, G, dh;
-
-  __device__ __forceinline__ ClusterMerge(float* region, int G_, int dh_, int cap)
-      : rA(region), rM(region + cap + CLUSTER_MAX), rL(rM + CLUSTER_MAX * GM),
-        n((int)gridDim.x), rank((int)blockIdx.x), per((G_ * dh_ + (int)gridDim.x - 1) /
-                                                      (int)gridDim.x), G(G_), dh(dh_) {}
-
-  __device__ __forceinline__ void push_acc(int g, int d, float a) const {
-    if (g >= G || d >= dh) return;
-    const int e = g * dh + d, o = e / per;
-    *cg::this_cluster().map_shared_rank(rA + rank * per + (e - o * per), o) = a;
-  }
-  // (m, l) of head g to owner o, if o's outputs include some of head g
-  __device__ __forceinline__ void push_ml(int g, int o, float m, float l) const {
-    if (g >= G || o >= n || (g + 1) * dh <= o * per || (o + 1) * per <= g * dh) return;
-    *cg::this_cluster().map_shared_rank(rM + rank * GM + g, o) = m;
-    *cg::this_cluster().map_shared_rank(rL + rank * GM + g, o) = l;
-  }
-  template <typename T>
-  __device__ __forceinline__ void finish(T* __restrict__ out, int b, int kvh, int KV) const {
-    cluster_arrive();  // this block's pushes are done
-    cluster_wait();    // and every peer's
-    const int e0 = rank * per, e1 = min(G * dh, e0 + per);
-    for (int e = e0 + (int)threadIdx.x; e < e1; e += (int)blockDim.x) {
-      const int g = e / dh, j = e - e0;
-      float M = NEG_INF;
-      for (int r = 0; r < n; ++r) M = fmaxf(M, rM[r * GM + g]);
-      float L = 0.f, A = 0.f;
-      for (int r = 0; r < n; ++r) {
-        const float c = expf(rM[r * GM + g] - M);
-        L += rL[r * GM + g] * c;
-        A += rA[r * per + j] * c;
-      }
-      out[(((size_t)b * KV + kvh) * G) * dh + e] = from_f<T>(A / (L == 0.f ? 1.f : L));
-    }
-  }
-};
 
 // ---------------------------------------------------------------------------
 // The Hopper body
@@ -180,24 +107,6 @@ struct Sm90Geom {
 template <int DHP, int GM>
 constexpr int sm90_decode_smem_bytes() {
   return Sm90Geom<DHP, GM>::BYTES;
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
 }
 
 // Grid (n_split, KV, B), clusters of n_split blocks along x. Block `split`
@@ -410,8 +319,7 @@ __global__ void __launch_bounds__(SM90_THREADS, GM <= 8 ? 2 : 1) decode_sm90_ker
 
   // the block's partial, the eight warps' merged in warp order, pushed to
   // the blocks that own its elements
-  const ClusterMerge<GM> merge(reinterpret_cast<float*>(smem + L::R_OFF), G, dh,
-                               GM * DHP);
+  const ClusterMerge<GM, DHP> merge(reinterpret_cast<float*>(smem + L::R_OFF), G, dh);
   cluster_wait();  // every block of the cluster runs
   constexpr int EPT = GM * DHP / SM90_THREADS;
 #pragma unroll
@@ -432,9 +340,9 @@ __global__ void __launch_bounds__(SM90_THREADS, GM <= 8 ? 2 : 1) decode_sm90_ker
       As += pw[g * DHP + d] * c;
     }
     merge.push_acc(g, d, As);
-    merge.push_ml(g, d, M, Ls);  // the threads of columns 0 .. n-1 of head g
+    if (d == 0) merge.push_ml(g, M, Ls);
   }
-  merge.finish(out, b, kvh, KV);
+  merge.finish([&](int g) { return out + (((size_t)b * KV + kvh) * G + g) * dh; });
 }
 
 // ---------------------------------------------------------------------------
@@ -624,64 +532,23 @@ __global__ void __launch_bounds__(DEC_THREADS) decode_tile_kernel(
 
   // this split's partial, pushed to the blocks that own its elements: acc
   // from every thread, (m, l) of each head from its owning warp
-  const ClusterMerge<GMAX> merge(recv, G, dh, GMAX * DHP);
+  const ClusterMerge<GMAX, DHP> merge(recv, G, dh);
   cluster_wait();  // every block of the cluster runs
+  if (lane == 0) {
 #pragma unroll
-  for (int i = 0; i < GPW; ++i) merge.push_ml(warp + DEC_WARPS * i, lane, m[i], l[i]);
+    for (int i = 0; i < GPW; ++i) merge.push_ml(warp + DEC_WARPS * i, m[i], l[i]);
+  }
 #pragma unroll
   for (int i = 0; i < GPT; ++i) {
     merge.push_acc(gg + NGG * i, 2 * dp, acc[i][0]);
     merge.push_acc(gg + NGG * i, 2 * dp + 1, acc[i][1]);
   }
-  merge.finish(out, b, kvh, KV);
+  merge.finish([&](int g) { return out + (((size_t)b * KV + kvh) * G + g) * dh; });
 }
 
 // ---------------------------------------------------------------------------
 // Launch: one kernel, clusters of n_split blocks
 // ---------------------------------------------------------------------------
-// What a kernel's first launches found out, kept per kernel.
-struct ClusterLaunch {
-  bool attr_set = false;
-  int fits[CLUSTER_MAX + 1] = {};  // by cluster size: 0 unknown, 1 fits, -1 does not
-};
-
-// Refuses (cudaErrorInvalidConfiguration) a cluster that cannot be
-// co-resident at this kernel's shared-memory size
-// (cudaOccupancyMaxActiveClusters == 0); never falls back.
-template <typename Kern, typename... Args>
-int launch_clustered(ClusterLaunch& st, Kern kern, int threads, int smem, dim3 grid,
-                     int n_split, cudaStream_t stream, Args... args) {
-  if (n_split < 1 || n_split > CLUSTER_MAX) return (int)cudaErrorInvalidValue;
-  bool& attr_set = st.attr_set;
-  int* fits = st.fits;
-  if (!attr_set) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-    attr_set = true;
-  }
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = n_split;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  if (!fits[n_split]) {
-    int n = 0;
-    const cudaError_t e = cudaOccupancyMaxActiveClusters(&n, kern, &cfg);
-    if (e != cudaSuccess) return (int)e;
-    fits[n_split] = n > 0 ? 1 : -1;
-  }
-  if (fits[n_split] < 0) return (int)cudaErrorInvalidConfiguration;
-  return (int)cudaLaunchKernelEx(&cfg, kern, args...);
-}
-
 template <int DHP, int GM, typename Addr>
 int launch_decode_sm90(const void* q, const void* k, const void* v, const Addr& addr,
                        void* out, int B, int S, int KV, int G, int dh, float scale,

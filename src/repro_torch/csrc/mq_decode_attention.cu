@@ -20,9 +20,13 @@ struct ContigMqAddr {
   long long map_rows, map_outer;  // the cache as (B, S_c, KV, dh) for TMA
   int box_rows;                   // 64: a tile is one box
   __device__ __forceinline__ int qbase(int, int) const { return pos; }
-  __device__ __forceinline__ int slot(int b, int kvh, int t, long long& off) const {
+  __device__ __forceinline__ int fetch(int, int t) const { return pos_ids[t]; }
+  __device__ __forceinline__ int locate(int b, int kvh, int t, int raw, long long& off) const {
     off = (((long long)b * S_c + t) * KV + kvh) * dh;
-    return pos_ids[t];
+    return raw;
+  }
+  __device__ __forceinline__ int slot(int b, int kvh, int t, long long& off) const {
+    return locate(b, kvh, t, fetch(b, t), off);
   }
   __device__ __forceinline__ bool box(int b, int t0, int& row, int& outer) const {
     row = t0;
@@ -35,23 +39,21 @@ struct ContigMqAddr {
 }  // namespace repro
 
 // q (B, Q, H, dh) bf16; k, v (B, S_c, KV, dh) bf16; pos_ids (S_c,) int32;
-// out (B, Q, H, dh); part_acc (B, KV, n_split, Q·G, dh) and part_ml
-// (B, KV, n_split, Q·G, 2) fp32 scratch, unused (may be null) when
-// n_split == 1. vec != 0 promises dh % 8 == 0 and 16-byte aligned bases.
-// Returns cudaGetLastError() after the launches (or a refusal code).
+// out (B, Q, H, dh). One launch: n_split (1-8) blocks per (b, kv head) in
+// one cluster, or the Hopper mainloop unsplit (see mq_body). vec != 0
+// promises dh % 8 == 0 and 16-byte aligned bases. Returns
+// cudaGetLastError() after the launch (or a refusal code).
 extern "C" int repro_mq_decode_attention(const void* q, const void* k, const void* v,
-                                         const void* pos_ids, void* out, void* part_acc,
-                                         void* part_ml, int B, int Q, int S_c, int H, int KV,
-                                         int dh, int pos, int window, float scale, int n_split,
-                                         int vec, int dtype, void* stream) {
+                                         const void* pos_ids, void* out, int B, int Q, int S_c,
+                                         int H, int KV, int dh, int pos, int window, float scale,
+                                         int n_split, int vec, int dtype, void* stream) {
   using namespace repro;
   if (dtype != DTYPE_BF16 || KV < 1 || H % KV || Q < 1 || n_split < 1) {
     return (int)cudaErrorInvalidValue;
   }
   const ContigMqAddr addr{(const int*)pos_ids, S_c, KV, dh, pos, S_c, B, 64};
-  const int rc = dispatch_mq(q, k, v, addr, out, (float*)part_acc, (float*)part_ml, B, Q, S_c,
-                             KV, H / KV, dh, window, scale, n_split, vec,
-                             (cudaStream_t)stream);
+  const int rc = dispatch_mq(q, k, v, addr, out, B, Q, S_c, KV, H / KV, dh, window, scale,
+                             n_split, vec, (cudaStream_t)stream);
   if (rc) return rc;
   return (int)cudaGetLastError();
 }

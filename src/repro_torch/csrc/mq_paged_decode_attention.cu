@@ -16,8 +16,8 @@
 //  * slot t holds position t when its page is allocated and t < ctx[b];
 //    otherwise it is empty (never read). With the tile skip, a prefill
 //    round reads only the filled pages below ctx.
-//  * the slot walk (S = max_pages · ps), split count and tile order are the
-//    contiguous kernel's, so on the gathered cache (pos = ctx - q_len,
+//  * the slot walk (S = max_pages · ps), body, split count and tile order
+//    are the contiguous kernel's, so on the gathered cache (pos = ctx - q_len,
 //    pos_ids = t below ctx, -1 past it) the result is bit-identical to it.
 
 #include "mq_decode_attention.cuh"
@@ -32,12 +32,17 @@ struct PagedMqAddr {
   long long map_rows, map_outer;  // the pool as (P, page_size, KV, dh) for TMA
   int box_rows;                   // gcd(page_size, 64): a box never spans pages
   __device__ __forceinline__ int qbase(int b, int Q) const { return ctx_lens[b] - Q; }
-  __device__ __forceinline__ int slot(int b, int kvh, int t, long long& off) const {
-    if (t >= ctx_lens[b]) return -1;
-    const int page = block_tables[(size_t)b * max_pages + t / page_size];
+  // the page of slot t, -1 past ctx or unallocated
+  __device__ __forceinline__ int fetch(int b, int t) const {
+    return t < ctx_lens[b] ? block_tables[(size_t)b * max_pages + t / page_size] : -1;
+  }
+  __device__ __forceinline__ int locate(int, int kvh, int t, int page, long long& off) const {
     if (page < 0) return -1;
     off = (((long long)page * page_size + t % page_size) * KV + kvh) * dh;
     return t;
+  }
+  __device__ __forceinline__ int slot(int b, int kvh, int t, long long& off) const {
+    return locate(b, kvh, t, fetch(b, t), off);
   }
   __device__ __forceinline__ bool box(int b, int t0, int& row, int& outer) const {
     if (t0 >= ctx_lens[b]) return false;
@@ -52,13 +57,12 @@ struct PagedMqAddr {
 
 // q (B, Q, H, dh) bf16; k_pool, v_pool (P, page_size, KV, dh) bf16 (P pages);
 // block_tables (B, max_pages) int32; ctx_lens (B,) int32; out
-// (B, Q, H, dh); part_acc / part_ml as repro_mq_decode_attention's over
+// (B, Q, H, dh). One launch, as repro_mq_decode_attention's over
 // S = max_pages · page_size slots. Returns cudaGetLastError() after the
-// launches (or a refusal code).
+// launch (or a refusal code).
 extern "C" int repro_mq_paged_decode_attention(const void* q, const void* k_pool,
                                                const void* v_pool, const void* block_tables,
-                                               const void* ctx_lens, void* out,
-                                               void* part_acc, void* part_ml, int B, int Q,
+                                               const void* ctx_lens, void* out, int B, int Q,
                                                int P, int max_pages, int page_size, int H,
                                                int KV, int dh, int window, float scale,
                                                int n_split, int vec, int dtype, void* stream) {
@@ -71,9 +75,8 @@ extern "C" int repro_mq_paged_decode_attention(const void* q, const void* k_pool
   while (page_size % box_rows) box_rows /= 2;  // gcd(page_size, 64): page_size % 8 == 0
   const PagedMqAddr addr{(const int*)block_tables, (const int*)ctx_lens, max_pages, page_size,
                          KV, dh, page_size, P, box_rows};
-  const int rc = dispatch_mq(q, k_pool, v_pool, addr, out, (float*)part_acc, (float*)part_ml, B,
-                             Q, max_pages * page_size, KV, H / KV, dh, window, scale, n_split,
-                             vec, (cudaStream_t)stream);
+  const int rc = dispatch_mq(q, k_pool, v_pool, addr, out, B, Q, max_pages * page_size, KV,
+                             H / KV, dh, window, scale, n_split, vec, (cudaStream_t)stream);
   if (rc) return rc;
   return (int)cudaGetLastError();
 }

@@ -33,12 +33,12 @@ SIGNATURES = {
                                I, P],
     "repro_flash_attention": [P, P, P, P, I, I, I, I, I, I, I, I, I, F, I,
                               I, P],
-    "repro_mq_decode_attention": [P, P, P, P, P, P, P, I, I, I, I, I, I, I,
-                                  I, F, I, I, I, P],
+    "repro_mq_decode_attention": [P, P, P, P, P, I, I, I, I, I, I, I, I, F,
+                                  I, I, I, P],
     "repro_paged_decode_attention": [P, P, P, P, P, P, I, I, I, I, I, I, I, F,
                                      I, I, I, P],
-    "repro_mq_paged_decode_attention": [P, P, P, P, P, P, P, P, I, I, I, I, I,
-                                        I, I, I, I, F, I, I, I, P],
+    "repro_mq_paged_decode_attention": [P, P, P, P, P, P, I, I, I, I, I, I,
+                                        I, I, I, F, I, I, I, P],
     "repro_wkv_scan": [P, P, P, P, P, P, P, I, I, I, I, I, P],
     "repro_ssm_scan": [P, P, P, P, P, P, P, I, I, I, I, I, I, P],
 }

@@ -30,18 +30,22 @@ import math
 import torch
 
 from repro_torch.kernels import _launch, build
-from repro_torch.kernels.decode_attention.ops import (GLOBAL_WINDOW, NEG_INF,
+from repro_torch.kernels.decode_attention.ops import (CLUSTER_MAX,
+                                                      GLOBAL_WINDOW, NEG_INF,
                                                       _sm_count)
 from repro_torch.kernels.decode_attention.paged import (_walk_pages,
                                                         check_tables)
 
 ROWS_PER_BLOCK = 64   # query rows (q_len·G) of one block of the mma.sync body
-TILE_SLOTS = 64       # cache slots per shared-memory tile in the kernel
+TILE_SLOTS = 64       # cache slots per tile of every body
+VERIFY_ROWS = 128     # rows (q_len·G) the verify body takes (csrc VERIFY_ROWS)
 
 launches = 0          # kernel launches since the last reset (main-path proof)
 paged_launches = 0    # the same for the paged kernel
 hopper_launches = 0   # launches of each through the Hopper mainloop (the
-paged_hopper_launches = 0  # unsplit prefill regime)
+paged_hopper_launches = 0  # prefill rounds: mq_body "mainloop")
+verify_sm90_launches = 0   # launches of each through the verify body
+paged_verify_sm90_launches = 0  # (verify_sm90_kernel: mq_body "verify")
 
 
 def mq_decode_attention_plain(q, k_cache, v_cache, pos_ids, pos, *,
@@ -68,25 +72,51 @@ def mq_decode_attention_plain(q, k_cache, v_cache, pos_ids, pos, *,
     return out.to(v_cache.dtype).reshape(B, Q, H, dh)
 
 
+def mq_body(Q: int, G: int, dh: int, vec: int) -> str:
+    """Which body a call launches, the rule of ``mq_body`` in
+    ``csrc/mq_decode_attention.cuh``: "verify" (verify_sm90_kernel) for
+    the rows the Hopper mainloop takes (16-byte aligned bf16, dh <= 128)
+    when there are at most VERIFY_ROWS of them per (b, kv head), the
+    Hopper mainloop of ``csrc/attention_sm90.cuh`` ("mainloop") for more,
+    and the mma.sync body ("mma") for dh > 128 and unaligned rows. Shapes
+    alone decide, so kernels 4 and 5 pick alike."""
+    if not _launch.hopper_mainloop(dh, vec, G):
+        return "mma"
+    return "verify" if Q * G <= VERIFY_ROWS else "mainloop"
+
+
+def verify_split_count(B: int, KV: int, S: int, sms: int) -> int:
+    """Blocks per (b, kv head) of the verify body: about one block per SM,
+    at most CLUSTER_MAX (they merge as one thread block cluster), each a
+    whole number of at least two 64-slot tiles, so no split is empty (4
+    splits of 256 slots at the verify shape B 4, KV 8, S 1024; 8 of 128 at
+    B 1). The paged kernel splits its S = max_pages · page_size slots by
+    the same rule."""
+    want = min(CLUSTER_MAX, max(1, math.ceil(sms / (B * KV))))
+    chunk = TILE_SLOTS * max(2, math.ceil(S / (want * TILE_SLOTS)))
+    return math.ceil(S / chunk)
+
+
 def split_count(B: int, Q: int, H: int, KV: int, S: int, sms: int) -> int:
-    """Split the S slots over blocks when the (64-row tile, kv head, batch)
-    grid alone gives fewer than about two blocks per SM (the verify shape):
-    about four blocks per SM, each a whole number of the kernel's slot
-    tiles. 1: unsplit (the prefill rounds)."""
+    """The mma.sync body's split: split the S slots over blocks when the
+    (64-row tile, kv head, batch) grid alone gives fewer than about two
+    blocks per SM: about four blocks per SM, at most CLUSTER_MAX, each a
+    whole number of the kernel's slot tiles. 1: unsplit."""
     blocks = math.ceil(Q * (H // KV) / ROWS_PER_BLOCK) * KV * B
     if blocks >= 2 * sms:
         return 1
-    want = max(1, math.ceil(4 * sms / blocks))
+    want = min(CLUSTER_MAX, max(1, math.ceil(4 * sms / blocks)))
     chunk = TILE_SLOTS * max(1, math.ceil(S / (want * TILE_SLOTS)))
     return math.ceil(S / chunk)
 
 
-def takes_hopper_mainloop(n_split: int, dh: int, vec: int, G: int) -> bool:
-    """Whether a call launches the Hopper mainloop (wgmma, TMA) of
-    ``csrc/attention_sm90.cuh`` in place of the mma.sync body: an unsplit
-    call with aligned rows of dh <= 128, the rule of ``dispatch_mq``. It
-    depends on the shapes only, so kernels 4 and 5 pick alike."""
-    return n_split == 1 and _launch.hopper_mainloop(dh, vec, G)
+def n_splits(body: str, B: int, Q: int, H: int, KV: int, S: int,
+             sms: int) -> int:
+    """The split count of a call that takes `body` (``mq_body``): the
+    mainloop runs unsplit."""
+    if body == "verify":
+        return verify_split_count(B, KV, S, sms)
+    return 1 if body == "mainloop" else split_count(B, Q, H, KV, S, sms)
 
 
 def mq_decode_attention(q, k_cache, v_cache, pos_ids, pos, *, window=None):
@@ -94,7 +124,7 @@ def mq_decode_attention(q, k_cache, v_cache, pos_ids, pos, *, window=None):
     int32; pos: int, the position of query 0 -> (B, q_len, H, dh). CPU
     tensors take the plain version; CUDA tensors launch the kernel or
     raise (bf16 only: the kernel's products run on bf16 tensor cores)."""
-    global launches, hopper_launches
+    global launches, hopper_launches, verify_sm90_launches
     if q.device.type == "cpu":
         return mq_decode_attention_plain(q, k_cache, v_cache, pos_ids, pos,
                                          window=window)
@@ -121,28 +151,21 @@ def mq_decode_attention(q, k_cache, v_cache, pos_ids, pos, *, window=None):
     window = GLOBAL_WINDOW if window is None else int(window)
     if window < 1:
         raise ValueError(f"mq_decode_attention: window={window} must be >= 1")
-    R = Q * (H // KV)
-    n_split = split_count(B, Q, H, KV, S_c, _sm_count(q.device.index))
     vec = _launch.vector_ok(dh, q, k_cache, v_cache)
+    body = mq_body(Q, H // KV, dh, vec)
+    n_split = n_splits(body, B, Q, H, KV, S_c, _sm_count(q.device.index))
     out = torch.empty_like(q)
-    part_acc = part_ml = None
-    if n_split > 1:
-        part_acc = torch.empty((B, KV, n_split, R, dh), dtype=torch.float32,
-                               device=q.device)
-        part_ml = torch.empty((B, KV, n_split, R, 2), dtype=torch.float32,
-                              device=q.device)
     rc = build.load().repro_mq_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        pos_ids.data_ptr(), out.data_ptr(),
-        None if part_acc is None else part_acc.data_ptr(),
-        None if part_ml is None else part_ml.data_ptr(),
-        B, Q, S_c, H, KV, dh, int(pos), window, float(dh) ** -0.5, n_split,
-        vec, dtype, _launch.stream_handle(q.device))
+        pos_ids.data_ptr(), out.data_ptr(), B, Q, S_c, H, KV, dh, int(pos),
+        window, float(dh) ** -0.5, n_split, vec, dtype,
+        _launch.stream_handle(q.device))
     if rc:
         raise RuntimeError(f"mq_decode_attention kernel launch failed: "
                            f"CUDA error {rc}")
     launches += 1
-    hopper_launches += takes_hopper_mainloop(n_split, dh, vec, H // KV)
+    hopper_launches += body == "mainloop"
+    verify_sm90_launches += body == "verify"
     return out
 
 
@@ -177,7 +200,7 @@ def mq_paged_decode_attention(q, k_pool, v_pool, block_tables, ctx_lens, *,
     block_tables: (B, max_pages) int32; ctx_lens: (B,) int32 including the
     q_len new tokens -> (B, q_len, H, dh). CPU tensors take the plain
     version; CUDA tensors launch the kernel or raise (bf16 only)."""
-    global paged_launches, paged_hopper_launches
+    global paged_launches, paged_hopper_launches, paged_verify_sm90_launches
     if q.device.type == "cpu":
         return mq_paged_decode_attention_plain(q, k_pool, v_pool,
                                                block_tables, ctx_lens,
@@ -201,28 +224,21 @@ def mq_paged_decode_attention(q, k_pool, v_pool, block_tables, ctx_lens, *,
     if window < 1:
         raise ValueError(f"{name}: window={window} must be >= 1")
     max_pages = block_tables.shape[1]
-    R = Q * (H // KV)
-    # the contiguous kernel's split of the same S = max_pages · ps slots
-    n_split = split_count(B, Q, H, KV, max_pages * ps,
-                          _sm_count(q.device.index))
     vec = _launch.vector_ok(dh, q, k_pool, v_pool)
+    # the contiguous kernel's body and split of the same S = max_pages · ps
+    # slots
+    body = mq_body(Q, H // KV, dh, vec)
+    n_split = n_splits(body, B, Q, H, KV, max_pages * ps,
+                       _sm_count(q.device.index))
     out = torch.empty_like(q)
-    part_acc = part_ml = None
-    if n_split > 1:
-        part_acc = torch.empty((B, KV, n_split, R, dh), dtype=torch.float32,
-                               device=q.device)
-        part_ml = torch.empty((B, KV, n_split, R, 2), dtype=torch.float32,
-                              device=q.device)
     rc = build.load().repro_mq_paged_decode_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         block_tables.data_ptr(), ctx_lens.data_ptr(), out.data_ptr(),
-        None if part_acc is None else part_acc.data_ptr(),
-        None if part_ml is None else part_ml.data_ptr(),
         B, Q, P, max_pages, ps, H, KV, dh, window, float(dh) ** -0.5, n_split,
         vec, dtype, _launch.stream_handle(q.device))
     if rc:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
     paged_launches += 1
-    paged_hopper_launches += takes_hopper_mainloop(n_split, dh, vec,
-                                                   H // KV)
+    paged_hopper_launches += body == "mainloop"
+    paged_verify_sm90_launches += body == "verify"
     return out

@@ -70,6 +70,34 @@ MQ_CASES = [
     (1, 9, 96, 16, 2, 128, 60, None, "stale"),       # q_len 9, G 8
     (1, 3, 32, 4, 2, 32, 5, None, "masked"),
     (1, 3, 32, 4, 2, 32, 5, None, "first-masked"),
+    (2, 5, 64, 4, 4, 64, 40, None, "stale"),         # G 1: a verify pass
+    (1, 9, 80, 2, 2, 32, 60, 4, "ring"),             # G 1, window < q_len
+]
+
+# The verify body (verify_sm90_kernel, kernels 4 and 5 at q_len·G <= 128)
+# at its edges: q_len 1-9, split counts 1 to 8 (the cluster cap; the count
+# each case gets on 132 SMs in the comment), 4 and 8 warps (40, 72, 128
+# rows), G 1 / 2 / 8 / 16, dh 64 / 80 / 128, caches that are not whole
+# 64-slot tiles, windows shorter than q_len, stale ids past every row's
+# position, rows that see nothing.
+VERIFY_SM90_CASES = [
+    # B, q_len, S_c, H, KV, dh, pos, window, cache kind (as MQ_CASES)
+    (4, 5, 1024, 64, 8, 128, 1019, None, "linear"),     # main: 4 splits
+    (1, 5, 1024, 64, 8, 128, 516, None, "linear"),      # sporadic: 8, half empty
+    (33, 2, 1024, 4, 2, 64, 1000, None, "linear"),      # 2 splits of 512
+    (11, 3, 1024, 16, 4, 64, 1021, None, "stale"),      # 3 splits of 384
+    (4, 5, 640, 64, 8, 128, 600, None, "stale"),        # 5 splits of 128
+    (11, 5, 1024, 16, 2, 128, 1019, None, "linear"),    # 6 splits of 192
+    (1, 5, 896, 38, 19, 64, 891, None, "linear"),       # 7 splits, G 2
+    (132, 2, 128, 16, 8, 128, 100, None, "linear"),     # 1 split
+    (2, 1, 300, 16, 2, 128, 299, None, "linear"),       # q_len 1
+    (1, 9, 1000, 64, 8, 128, 900, None, "stale"),       # 72 rows: 8 warps
+    (2, 8, 512, 32, 2, 128, 400, None, "linear"),       # G 16: 128 rows
+    (2, 3, 100, 4, 4, 64, 90, None, "linear"),          # G 1, S_c 100
+    (3, 7, 777, 8, 8, 80, 700, 5, "ring"),              # G 1, dh 80, window 5
+    (1, 4, 64, 16, 2, 64, 40, 2, "linear"),             # window 2 < q_len 4
+    (2, 6, 200, 16, 2, 64, 150, None, "first-masked"),  # row 0 sees nothing
+    (1, 3, 200, 16, 2, 128, 5, None, "masked"),         # no row sees a slot
 ]
 
 # Shapes the Hopper mainloop (csrc/attention_sm90.cuh) takes: flash at
@@ -210,6 +238,19 @@ MQ_PAGED_CASES = [
     (1, 4, 4, 1, 80, 8, 6, (44,), 12),               # dh 80, window
     (2, 9, 16, 2, 64, 16, 4, (64, 20), None),        # q_len 9, G 8
     (3, 9, 4, 2, 80, 8, 5, (9, 25, 40), 7),          # window < q_len
+    (2, 5, 4, 4, 64, 8, 6, (45, 30), None),          # G 1: a verify pass
+    (2, 3, 2, 2, 64, 16, 4, (50, 7), 2),             # G 1, window < q_len
+]
+
+# The verify body through block tables (main path: page 64, 16 pages;
+# page 16 and 8; ragged ctx; a window; G 1)
+MQ_PAGED_VERIFY_CASES = [
+    # B, q_len, H, KV, dh, page_size, max_pages, ctx_lens, window
+    (4, 5, 64, 8, 128, 64, 16, (1019, 700, 300, 130), None),
+    (1, 5, 64, 8, 128, 64, 16, (516,), None),
+    (4, 9, 64, 8, 128, 16, 64, (1019, 700, 300, 130), 300),
+    (3, 3, 8, 8, 64, 8, 100, (777, 21, 3), 2),
+    (2, 1, 16, 2, 80, 24, 43, (1000, 517), None),
 ]
 
 

@@ -76,7 +76,10 @@ def test_python_rule_is_the_c_rule():
     assert m and (int(m.group(1)), int(m.group(2))) \
         == (da.HOPPER_MAX_HEAD_DIM, da.HOPPER_MAX_GROUP)
     assert "if (dtype == DTYPE_BF16 && decode_sm90_takes(dh, vec, G))" in src
-    assert int(re.search(r"constexpr int CLUSTER_MAX = (\d+);", src).group(1)) \
+    # the cluster cap lives with the merge the decode body includes
+    assert '#include "cluster_merge.cuh"' in src
+    merge = (CSRC / "cluster_merge.cuh").read_text()
+    assert int(re.search(r"constexpr int CLUSTER_MAX = (\d+);", merge).group(1)) \
         == da.CLUSTER_MAX
     assert int(re.search(r"constexpr int SM90_TILE = (\d+);", src).group(1)) \
         == da.TILE_SLOTS

@@ -16,8 +16,9 @@ import torch
 from _torch_cases import (BF16_REL, DECODE_CASES, DECODE_SM90_CASES, F32_REL,
                           FLASH_CASES, FLASH_HOPPER_CASES, MQ_CASES,
                           MQ_HOPPER_CASES, MQ_PAGED_CASES,
-                          MQ_PAGED_HOPPER_CASES, PAGED_CASES, PAGED_SM90_CASES,
-                          SCAN_REL, SSM_CASES, WKV_CASES, decode_inputs,
+                          MQ_PAGED_HOPPER_CASES, MQ_PAGED_VERIFY_CASES,
+                          PAGED_CASES, PAGED_SM90_CASES, SCAN_REL, SSM_CASES,
+                          VERIFY_SM90_CASES, WKV_CASES, decode_inputs,
                           flash_inputs, gathered_ids, mq_inputs,
                           mq_paged_case_inputs, np_rand, paged_case_inputs,
                           paged_inputs, rel_err, ssm_inputs, to_torch,
@@ -692,3 +693,137 @@ def test_paged_sm90_kernel(case, cuda_device):
                               pg.gather_pages(v, bt).contiguous(), ids, c - 1,
                               window=window)
     assert torch.equal(out, ref)
+
+
+# ----------------------------------------------------------------------------
+# the verify body (verify_sm90_kernel: kernels 4 and 5 at q_len·G <= 128)
+# ----------------------------------------------------------------------------
+def _verify_counts():
+    return (mq.launches, mq.verify_sm90_launches, mq.hopper_launches,
+            mq.paged_launches, mq.paged_verify_sm90_launches)
+
+
+@pytest.mark.parametrize("case", VERIFY_SM90_CASES,
+                         ids=lambda c: f"B{c[0]}q{c[1]}S{c[2]}H{c[3]}kv{c[4]}d{c[5]}"
+                                       f"p{c[6]}w{c[7]}-{c[8]}")
+def test_verify_sm90_kernel_vs_plain(case, cuda_device):
+    """One launch a call, through the verify body; within BF16_REL of the
+    plain version; two calls bit-equal (the cluster merges in a fixed
+    order); rows that see nothing output 0; at q_len 1 within BF16_REL of
+    kernel 1."""
+    B, Q, S_c, H, KV, dh, pos, window, kind = case
+    q, k, v, ids = mq_inputs(case, seed=8)
+    q, k, v = (to_torch(a, "bf16", cuda_device) for a in (q, k, v))
+    ids = torch.from_numpy(ids).to(cuda_device)
+    n0 = _verify_counts()
+    out = mq.mq_decode_attention(q, k, v, ids, pos, window=window)
+    again = mq.mq_decode_attention(q, k, v, ids, pos, window=window)
+    torch.cuda.synchronize()
+    assert _verify_counts() == (n0[0] + 2, n0[1] + 2, n0[2], n0[3], n0[4])
+    assert torch.equal(out, again)
+    ref = mq.mq_decode_attention_plain(q, k, v, ids, pos, window=window)
+    assert rel_err(out, ref) <= BF16_REL
+    if kind == "masked":
+        assert torch.count_nonzero(out) == 0
+    if Q == 1:
+        one = da.decode_attention(q, k, v, ids, pos, window=window)
+        assert rel_err(out, one) <= BF16_REL
+
+
+@pytest.mark.parametrize("case", [VERIFY_SM90_CASES[i] for i in (0, 1, 3, 9, 12)],
+                         ids=["main", "sporadic", "stale", "q9", "ring-w5"])
+def test_verify_sm90_reads_only_visible_slots(case, cuda_device):
+    """NaN in every slot no row sees (empty, past the last row's position,
+    before the window): the output must equal the clean cache's bit for
+    bit."""
+    B, Q, S_c, H, KV, dh, pos, window, kind = case
+    q, k, v, ids = mq_inputs(case, seed=9)
+    q, k, v = (to_torch(a, "bf16", cuda_device) for a in (q, k, v))
+    ids = torch.from_numpy(ids).to(cuda_device)
+    w = 2 ** 30 if window is None else window
+    hidden = (ids < 0) | (ids > pos + Q - 1) | (pos - ids >= w)
+    kd, vd = k.clone(), v.clone()
+    kd[:, hidden] = float("nan")
+    vd[:, hidden] = float("nan")
+    clean = mq.mq_decode_attention(q, k, v, ids, pos, window=window)
+    got = mq.mq_decode_attention(q, kd, vd, ids, pos, window=window)
+    assert torch.isfinite(got.float()).all() and torch.equal(got, clean)
+
+
+@pytest.mark.parametrize("case", MQ_PAGED_VERIFY_CASES,
+                         ids=lambda c: f"B{c[0]}q{c[1]}kv{c[3]}d{c[4]}ps{c[5]}w{c[8]}")
+def test_paged_verify_sm90_kernel(case, cuda_device):
+    """Kernel 5 through the verify body: one launch, within BF16_REL of its
+    plain version over ragged ctx; NaN in unallocated pages and past ctx
+    changes nothing; two calls bit-equal; and with a uniform ctx bit-equal
+    to kernel 4 on the gathered cache (5 == 4)."""
+    B, Q, H, KV, dh, ps, maxp, ctx, window = case
+    q, k, v, bt, ctxn = _paged_on(cuda_device, *paged_inputs(
+        B, Q, H, KV, dh, ps, maxp, ctx, seed=10))
+    n0 = _verify_counts()
+    out = mq.mq_paged_decode_attention(q, k, v, bt, ctxn, window=window)
+    again = mq.mq_paged_decode_attention(q, k, v, bt, ctxn, window=window)
+    torch.cuda.synchronize()
+    assert _verify_counts() == (n0[0], n0[1], n0[2], n0[3] + 2, n0[4] + 2)
+    assert torch.equal(out, again)
+    ref = mq.mq_paged_decode_attention_plain(q, k, v, bt, ctxn, window=window)
+    assert rel_err(out, ref) <= BF16_REL
+    dirty = torch.ones(k.shape[:2], dtype=torch.bool, device=cuda_device)
+    for b, n in enumerate(ctx):
+        t = torch.arange(n, device=cuda_device)
+        dirty[bt[b, t // ps].long(), t % ps] = False
+    kd, vd = k.clone(), v.clone()
+    kd[dirty] = float("nan")
+    vd[dirty] = float("nan")
+    got = mq.mq_paged_decode_attention(q, kd, vd, bt, ctxn, window=window)
+    assert torch.isfinite(got.float()).all() and torch.equal(got, out)
+    c = max(ctx)
+    q, k, v, bt, ctxn = _paged_on(cuda_device, *paged_inputs(
+        B, Q, H, KV, dh, ps, maxp, (c,) * B, seed=11))
+    n0 = _verify_counts()
+    out = mq.mq_paged_decode_attention(q, k, v, bt, ctxn, window=window)
+    ids = torch.from_numpy(gathered_ids(maxp * ps, c)).to(cuda_device)
+    ref = mq.mq_decode_attention(q, pg.gather_pages(k, bt).contiguous(),
+                                 pg.gather_pages(v, bt).contiguous(), ids,
+                                 c - Q, window=window)
+    torch.cuda.synchronize()
+    assert _verify_counts() == (n0[0] + 1, n0[1] + 1, n0[2], n0[3] + 1, n0[4] + 1)
+    assert torch.equal(out, ref)
+
+
+def _misaligned(a, device):
+    """A contiguous bf16 copy of numpy array a whose base is 2 bytes past a
+    16-byte boundary: rows the kernels cannot read in 16-byte vectors."""
+    flat = torch.empty(a.size + 8, dtype=torch.bfloat16, device=device)
+    t = flat[1:1 + a.size].view(a.shape)
+    t.copy_(to_torch(a, "bf16", device))
+    return t
+
+
+@pytest.mark.parametrize("case,aligned", [
+    ((2, 5, 300, 8, 2, 256, 290, None, "stale"), True),     # dh 256, 5 splits
+    ((1, 130, 300, 8, 2, 256, 100, 64, "linear"), True),    # dh 256, 9 row tiles
+    ((2, 5, 300, 16, 2, 128, 290, 100, "linear"), False),   # unaligned rows
+    ((1, 3, 64, 4, 4, 64, 50, None, "masked"), False),      # G 1, nothing seen
+], ids=["dh256", "dh256-rows", "unaligned", "unaligned-masked"])
+def test_mq_mma_body(case, aligned, cuda_device):
+    """The mma.sync body (dh > 128, unaligned rows): one launch merging its
+    splits in a cluster, neither the verify body nor the mainloop; within
+    BF16_REL of the plain version; two calls bit-equal."""
+    B, Q, S_c, H, KV, dh, pos, window, kind = case
+    qn, kn, vn, ids = mq_inputs(case, seed=12)
+    if aligned:
+        q, k, v = (to_torch(a, "bf16", cuda_device) for a in (qn, kn, vn))
+    else:
+        q, k, v = (_misaligned(a, cuda_device) for a in (qn, kn, vn))
+    ids = torch.from_numpy(ids).to(cuda_device)
+    n0 = _verify_counts()
+    out = mq.mq_decode_attention(q, k, v, ids, pos, window=window)
+    again = mq.mq_decode_attention(q, k, v, ids, pos, window=window)
+    torch.cuda.synchronize()
+    assert _verify_counts() == (n0[0] + 2,) + n0[1:]
+    assert torch.equal(out, again)
+    ref = mq.mq_decode_attention_plain(q, k, v, ids, pos, window=window)
+    assert rel_err(out, ref) <= BF16_REL
+    if kind == "masked":
+        assert torch.count_nonzero(out) == 0

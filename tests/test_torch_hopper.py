@@ -20,20 +20,28 @@ H100_SMS = 132
 
 
 @pytest.mark.parametrize("shape,want", [
-    ((4, 128, 64, 8, 1024, 128), True),   # kernel 5's prefill round (2b)
-    ((4, 512, 64, 8, 1024, 128), True),   # kernel 4's chunked prefill
-    ((4, 5, 64, 8, 1024, 128), False),    # a k = 4 verify pass: split
-    ((4, 1, 64, 8, 1024, 128), False),    # one token
-    ((1, 128, 64, 8, 1024, 128), False),  # 128 blocks < 2 per SM: split
-    ((4, 128, 64, 8, 1024, 256), False),  # dh 256: the mma.sync body
-    ((4, 128, 64, 8, 1024, 80), True),    # dh 80 runs as 128
-    ((4, 512, 25, 5, 1024, 64), True),    # Hymba's heads
+    ((4, 128, 64, 8, 1024, 128), "mainloop"),  # kernel 5's prefill round (2b)
+    ((4, 512, 64, 8, 1024, 128), "mainloop"),  # kernel 4's chunked prefill
+    ((4, 5, 64, 8, 1024, 128), "verify"),      # a k = 4 verify pass: 40 rows
+    ((4, 1, 64, 8, 1024, 128), "verify"),      # one token
+    ((1, 128, 64, 8, 1024, 128), "mainloop"),  # 1024 rows: unsplit
+    ((4, 128, 64, 8, 1024, 256), "mma"),       # dh 256: the mma.sync body
+    ((4, 128, 64, 8, 1024, 80), "mainloop"),   # dh 80 runs as 128
+    ((4, 512, 25, 5, 1024, 64), "mainloop"),   # Hymba's heads
 ], ids=["k5-round", "k4-round", "verify", "q1", "B1", "dh256", "dh80", "G5"])
 def test_mq_dispatch_rule_at_the_main_shapes(shape, want):
+    """The Hopper mainloop takes the aligned calls of more than 128 rows,
+    unsplit; the verify body (verify_sm90_kernel) those of at most 128,
+    split by its own rule; unaligned rows take neither."""
     B, Q, H, KV, S, dh = shape
-    n_split = mq.split_count(B, Q, H, KV, S, H100_SMS)
-    assert mq.takes_hopper_mainloop(n_split, dh, vec=1, G=H // KV) is want
-    assert not mq.takes_hopper_mainloop(n_split, dh, vec=0, G=H // KV)
+    G = H // KV
+    assert mq.mq_body(Q, G, dh, vec=1) == want
+    assert mq.mq_body(Q, G, dh, vec=0) == "mma"
+    n_split = mq.n_splits(want, B, Q, H, KV, S, H100_SMS)
+    if want == "mainloop":
+        assert n_split == 1
+    elif want == "verify":
+        assert n_split == mq.verify_split_count(B, KV, S, H100_SMS) > 1
 
 
 @pytest.mark.parametrize("dtype,dh,vec,G,want", [
@@ -59,8 +67,9 @@ def test_python_rule_is_the_c_rule():
     m = re.search(r"constexpr int CONSUMERS = (\d+);", src)
     assert "constexpr int BM = 64 * CONSUMERS;" in src
     assert 64 * int(m.group(1)) == _launch.HOPPER_ROWS
-    assert "n_split == 1 && sm90::takes(dh, vec, G)" \
-        in (CSRC / "mq_decode_attention.cuh").read_text()
+    mq_src = (CSRC / "mq_decode_attention.cuh").read_text()
+    assert "if (!sm90::takes(dh, vec, G)) return MQ_MMA;" in mq_src
+    assert "if (body == MQ_MAINLOOP) {\n    if (n_split != 1)" in mq_src
     assert "sm90::takes(dh, vec, H / KV)" \
         in (CSRC / "flash_attention.cu").read_text()
 

@@ -4,8 +4,9 @@
     python3 tools/ablate_decode.py      # on a machine with one CUDA card
 
 Builds the kernels' library once as it is and once per ablation, each a
-copy of csrc/ with one part of csrc/decode_attention.cuh cut out (the
-results are wrong then; only the time means anything), and times kernel 1
+copy of csrc/ with one part of csrc/decode_attention.cuh (or of the merge
+it includes, csrc/cluster_merge.cuh) cut out (the results are wrong then;
+only the time means anything), and times kernel 1
 at its main, B 1 and Hymba shapes and kernel 3 at its main shape with
 chip_smoke.py's timer (CUDA events, L2 flushed). A part whose removal
 barely moves the time is not what bounds the kernel. The library as built
@@ -27,9 +28,8 @@ import sys
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
 
-HEADER = "decode_attention.cuh"
-DSMEM = [("*cg::this_cluster().map_shared_rank(rA + rank * per + (e - o * per), o) = a;",
-          "rA[rank * per + (e - o * per)] = a;"),
+DSMEM = [("return cg::this_cluster().map_shared_rank(rA + (rank * rpo + g - o * rpo) * RST, o);",
+          "return rA + (rank * rpo + g - o * rpo) * RST;"),
          ("*cg::this_cluster().map_shared_rank(rM + rank * GM + g, o) = m;",
           "rM[rank * GM + g] = m;"),
          ("*cg::this_cluster().map_shared_rank(rL + rank * GM + g, o) = l;",
@@ -135,17 +135,17 @@ def launch_floor(cs, build):
     return ms
 
 
-def variant(name, patches, csrc):
-    """csrc copied under build/ablate_decode/<name>/ with the patches applied."""
-    dst = ROOT / "build" / "ablate_decode" / re.sub(r"[^a-z0-9]+", "_", name.lower()) / "csrc"
+def variant(name, patches, csrc, tool="ablate_decode"):
+    """csrc copied under build/<tool>/<name>/ with the patches applied: each
+    to the one header (csrc/*.cuh) that holds its text exactly once."""
+    dst = ROOT / "build" / tool / re.sub(r"[^a-z0-9]+", "_", name.lower()) / "csrc"
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(csrc, dst)
-    src = (dst / HEADER).read_text()
     for old, new in patches:
-        if src.count(old) != 1:
-            raise SystemExit(f"{name}: the body no longer has {old.strip()[:60]!r}")
-        src = src.replace(old, new)
-    (dst / HEADER).write_text(src)
+        holders = [h for h in sorted(dst.glob("*.cuh")) if h.read_text().count(old) == 1]
+        if len(holders) != 1:
+            raise SystemExit(f"{name}: no one header has {old.strip()[:60]!r} once")
+        holders[0].write_text(holders[0].read_text().replace(old, new))
     return dst
 
 
