@@ -13,9 +13,12 @@ Phases; any failure exits non-zero without the final ``ok`` line:
    the four instantiations of the Hopper decode body (decode_sm90_kernel
    in ``csrc/decode_attention.cuh``) in kernels 1 and 3 and of the verify
    body (verify_sm90_kernel in ``csrc/mq_decode_attention.cuh``) in
-   kernels 4 and 5 HMMA (mma.sync) and LDGSTS (cp.async) (cuobjdump); no
-   second pass (decode_combine_kernel, mq_combine_kernel) is built; their
-   registers and spills from ptxas.
+   kernels 4 and 5 HMMA (mma.sync) and LDGSTS (cp.async) (cuobjdump), and
+   so must each of the 12 instantiations of the scans' chunked bodies
+   (wkv_scan_kernel_chunked, ssm_scan_kernel_chunked in
+   ``csrc/scan_chunked.cuh``), with no spills; no second pass
+   (decode_combine_kernel, mq_combine_kernel) is built; their registers
+   and spills from ptxas.
 1. kernels against their plain PyTorch versions on the card, at the main
    path's shapes (Hymba's G 5 / dh 64 / window 1024 attention included)
    and at ring-buffer / window / unaligned / offset cases,
@@ -37,12 +40,16 @@ Phases; any failure exits non-zero without the final ``ok`` line:
    page 16, reject planted faults (page index +-1, ctx - 1, row // G off
    by one, window - 1), and equal kernels 1 and 4 bit for bit on the
    gathered cache. The recurrent scans (6: WKV, 7: selective scan) run at
-   phase 3c's prefill and decode shapes and at S 7 / 50 with dh 32 / 128,
-   from a nonzero state, output and final state (updated in place) within
-   SCAN_REL; planted faults rejected (u dropped, decay on the v index, the
-   state updated before the output; B and C swapped, dt left out of the
-   update, decay exp(A) for exp(A dt)); two calls over the halves of a
-   sequence bit-equal to one.
+   phase 3c's prefill shapes (B 4 and B 1, S 512: the chunked bodies, also
+   held to their models *_chunked_plain), decode shapes (S 1) and at S 7 /
+   50 with dh 32 / 128 (the sequential bodies), from a nonzero state, and
+   at the B 4 prefill shape with extreme decays (held to fp64, no NaN);
+   output and final state (updated in place) within SCAN_REL; each call on
+   the body its shape implies (the @chunked counters); planted faults
+   rejected (u dropped, decay on the v index, the state updated before the
+   output; B and C swapped, dt left out of the update, decay exp(A) for
+   exp(A dt); for both, a chunk's state carried without its decay); two
+   calls over the halves of a sequence bit-equal to one.
 2. the single-device path: LLaMA-3.3-70B at full width, depth cut to 8
    of 80 layers, random weights from a seed, served through LimeServer ->
    ContinuousBatchingScheduler -> EngineBackend under bursty and sporadic
@@ -78,7 +85,9 @@ Phases; any failure exits non-zero without the final ``ok`` line:
    through LimeServer; every scheduler step launches exactly what it
    implies (RWKV6: 32 WKV kernels per prefill and per decode step; Hymba:
    32 flash and 32 scan kernels per prefill, 32 decode-attention and 32
-   scan kernels per decode step); the reference serve's tokens fed through
+   scan kernels per decode step; every prefill's scans on the chunked
+   body, no decode step's, by the counters and in the profile); the
+   reference serve's tokens fed through
    both impls (argmax equal or a near tie, logits within a fixed 10% of
    |logit| max; the reference's own noise floor at this depth read and
    held under 8%); the one-pass prefill's cache, last prompt logits and
@@ -818,79 +827,201 @@ def ssm_variant(x, dt, bm, cm, A, h, dt_in_update=True, dt_in_decay=True):
     return torch.stack(ys, 1), h
 
 
+def chunk_fault(chunked_plain, args, L, n_seq):
+    """A chunked scan's model with a planted fault only a chunked scan can
+    make: each chunk's state carried to the next without the chunk's decay
+    (S_{c+1} = S_c + dS_c, dS_c the chunk's final state from zero). args:
+    the scan's inputs, the first n_seq of them per step, the state last.
+    Returns (out, final state)."""
+    import torch
+    seq, rest, s = args[:n_seq], args[n_seq:-1], args[-1]
+    outs = []
+    for lo in range(0, seq[0].shape[1], L):
+        part = [t[:, lo:lo + L].contiguous() for t in seq]
+        outs.append(chunked_plain(*part, *rest, s)[0])
+        s = s + chunked_plain(*part, *rest, torch.zeros_like(s))[1]
+    return torch.cat(outs, 1), s
+
+
+def scan_inputs(kind, shape, gen):
+    """Inputs of kernel 6 ("wkv": B, S, H, dh) or 7 ("ssm": B, S, H, dh, N)
+    on the card in the model's types (r, k, v, u; x, B, C bf16), from a
+    nonzero state."""
+    import torch
+    bf16, f32 = torch.bfloat16, torch.float32
+    if kind == "wkv":
+        B, S, H, dh = shape
+        r, k, v = (randn((B, S, H, dh), f32, gen).mul_(0.5).to(bf16) for _ in range(3))
+        w = torch.sigmoid(randn((B, S, H, dh), f32, gen)) * 0.9 + 0.05
+        u = randn((H, dh), f32, gen).mul_(0.1).to(bf16)
+        return [r, k, v, w, u, randn((B, H, dh, dh), f32, gen).mul_(2)]
+    B, S, H, dh, N = shape
+    x = randn((B, S, H, dh), f32, gen).mul_(0.5).to(bf16)
+    dt = torch.nn.functional.softplus(randn((B, S, H), f32, gen))
+    bm, cm = (randn((B, S, N), f32, gen).mul_(0.5).to(bf16) for _ in range(2))
+    A = -torch.exp(randn((H,), f32, gen) * 0.3)
+    return [x, dt, bm, cm, A, randn((B, H, N, dh), f32, gen)]
+
+
+def extreme_decays(kind, a, gen):
+    """The inputs a with extreme decays: WKV's w 0 at every 61st step and
+    otherwise 1e-30 or 1 - 1e-6 (3:7); the selective scan's dt 20 at every
+    61st step (a decay of e^-20 and less) and 1e-3 at every 7th (a decay of
+    about 1). Both reset the state now and then and keep it for stretches
+    in between."""
+    import torch
+    a = list(a)
+    if kind == "wkv":
+        pick = torch.rand(a[3].shape, generator=gen, device="cuda") < 0.3
+        a[3] = torch.where(pick, 1e-30, 1 - 1e-6).float()
+        a[3][:, ::61] = 0.0
+    else:
+        a[1] = a[1].clone()
+        a[1][:, ::7] = 1e-3
+        a[1][:, ::61] = 20.0
+    return a
+
+
+def scan_f64(kind, a):
+    """The scan's time loop in fp64 on the card: the reference of the
+    extreme-decay cases, where an output that is one fresh, nearly
+    cancelling term can leave the fp32 loop itself more than SCAN_REL off
+    (up to 5e-4 in tests/test_torch_scan_chunked.py's cases)."""
+    import torch
+    if kind == "wkv":
+        r, k, v, w, u, S = (t.double() for t in a)
+        outs = []
+        for t in range(r.shape[1]):
+            kv = k[:, t, :, :, None] * v[:, t, :, None, :]
+            outs.append(torch.einsum("bhk,bhkd->bhd", r[:, t], S + u[None, :, :, None] * kv))
+            S = w[:, t, :, :, None] * S + kv
+        return torch.stack(outs, 1), S
+    x, dt, bm, cm, A, h = (t.double() for t in a)
+    dec = torch.exp(A[None, None, :, None] * dt[..., None])
+    ys = []
+    for t in range(x.shape[1]):
+        h = dec[:, t, :, :, None] * h \
+            + dt[:, t, :, None, None] * bm[:, t, None, :, None] * x[:, t, :, None, :]
+        ys.append(torch.einsum("bn,bhnd->bhd", cm[:, t], h))
+    return torch.stack(ys, 1), h
+
+
+def scan_bounds(kind, a, out, chunked):
+    """(bytes, flops, bytes bound ms, operations bound ms) of one scan
+    call: every input read once, the state read and written, out (fp32)
+    written; the sequential body's 5 fp32 operations per state element and
+    step at the SIMT peak, the chunked form's matrix products (each counted
+    once, the three-term splits not) at the bf16 tensor-core peak."""
+    byts = nbytes(*a[:5]) + 2 * nbytes(a[5]) + nbytes(out)
+    B, S, H, dh = a[0].shape
+    if not chunked:
+        flops = 5 * B * S * H * dh * (dh if kind == "wkv" else a[2].shape[-1])
+        return byts, flops, byts / HBM_BYTES_PER_S * 1e3, flops / FP32_SIMT_FLOPS * 1e3
+    if kind == "wkv":
+        from repro_torch.kernels.rwkv6_scan import ops as wkv
+        L, sub = wkv.chunk_len(dh), wkv.SUB
+        ns = L // sub
+        # dS_T (twice: the chunk's dS, the sub-chunk states), o = q·S_T,
+        # D·v, per chunk
+        per = 2 * dh * dh * sub * (2 * ns - 1) + 2 * sub * dh * dh * ns + 2 * sub * sub * dh * ns
+    else:
+        from repro_torch.kernels.ssm_scan import ops as ssm
+        L, N = ssm.CHUNK, a[2].shape[-1]
+        # C·Bᵀ, M·x, C·h, dh
+        per = 2 * L * L * N + 2 * L * L * dh + 2 * L * N * dh + 2 * N * L * dh
+    flops = per * B * H * -(-S // L)
+    return byts, flops, byts / HBM_BYTES_PER_S * 1e3, flops / BF16_TENSOR_FLOPS * 1e3
+
+
 def scan_phase(gen, rows):
     """Kernels 6 and 7 against their plain versions on the card: at the
-    serves' prefill shapes (RWKV6-3B: B 4, S 512, H 40, dh 64; Hymba-1.5B:
-    B 4, S 512, H 25, dh 64, N 16) and decode shapes (S = 1), at S 7 and 50
-    with dh 32 and 128 (B 1), every case from a nonzero initial state; both
-    the output and the final state (updated in place) within SCAN_REL of
-    each vector's largest |ref|; planted faults rejected; two calls over
-    the halves of a sequence bit-equal to one call; device times at the
-    prefill and decode shapes."""
+    serves' prefill shapes (RWKV6-3B: B 4 and B 1, S 512, H 40, dh 64;
+    Hymba-1.5B: H 25, N 16), decode shapes (S 1), at S 7 and 50 with dh 32
+    and 128 (B 1), every case from a nonzero state, and at the B 4 prefill
+    shape with extreme decays (held to fp64, no NaN); the output and the
+    final state (updated in place) within SCAN_REL of each vector's largest
+    |ref|. A bf16 call of S >= 128 must run the chunked body (its counter)
+    and agree with that body's model (*_chunked_plain) as well; planted
+    faults rejected, among them one only a chunked scan can make (a
+    chunk's state carried without the chunk's decay); two calls over the
+    halves of a sequence bit-equal to one. Device times, bounds and the
+    profiler's µs per call at the prefill (B 4, B 1) and decode shapes."""
     import torch
 
     from repro_torch.kernels.rwkv6_scan import ops as wkv
     from repro_torch.kernels.ssm_scan import ops as ssm
 
-    bf16, f32 = torch.bfloat16, torch.float32
-
-    def wkv_in(B, S, H, dh):
-        r, k, v = (randn((B, S, H, dh), f32, gen).mul_(0.5).to(bf16) for _ in range(3))
-        w = torch.sigmoid(randn((B, S, H, dh), f32, gen)) * 0.9 + 0.05
-        u = randn((H, dh), f32, gen).mul_(0.1).to(bf16)
-        return r, k, v, w, u, randn((B, H, dh, dh), f32, gen).mul_(2)
-
-    def ssm_in(B, S, H, dh, N):
-        x = randn((B, S, H, dh), f32, gen).mul_(0.5).to(bf16)
-        dt = torch.nn.functional.softplus(randn((B, S, H), f32, gen))
-        bm, cm = (randn((B, S, N), f32, gen).mul_(0.5).to(bf16) for _ in range(2))
-        A = -torch.exp(randn((H,), f32, gen) * 0.3)
-        return x, dt, bm, cm, A, randn((B, H, N, dh), f32, gen)
-
-    # (name, kernel module, plain version, inputs, planted faults, key of
-    # the timed shapes or None)
+    # (name, kind, shape, planted faults, key of the timed shapes or None,
+    # extreme decays)
     cases = []
-    for shape in ((4, 512, 40, 64), (4, 1, 40, 64), (1, 7, 40, 32), (1, 50, 40, 128)):
-        a = wkv_in(*shape)
-        faults = []
-        if shape[1] == 512:
-            # (label, plain outputs with the fault, whether it changes
-            # the final state)
-            faults = [("u dropped",
-                       wkv.wkv_plain(*a[:4], torch.zeros_like(a[4]), a[5]), False),
-                      ("decay on the v index", wkv_variant(*a, decay_on_v=True), True),
-                      ("state updated before the output",
-                       wkv_variant(*a, update_first=True), False)]
-        cases.append(("wkv_scan B%d S%d H%d dh%d" % shape, wkv, wkv.wkv_plain, a, faults,
-                      "wkv_scan" if shape[1] == 512 else
-                      ("wkv_scan@decode" if shape[1] == 1 else None)))
-    for shape in ((4, 512, 25, 64, 16), (4, 1, 25, 64, 16), (1, 7, 25, 32, 16),
-                  (1, 50, 25, 128, 16)):
-        a = ssm_in(*shape)
-        faults = []
-        if shape[1] == 512:
-            x, dt, bm, cm, A, h0 = a
-            faults = [("B and C swapped", ssm.ssm_scan_plain(x, dt, cm, bm, A, h0), True),
-                      ("dt left out of the update",
-                       ssm_variant(*a, dt_in_update=False), True),
-                      ("decay exp(A), not exp(A dt)",
-                       ssm_variant(*a, dt_in_decay=False), True)]
-        cases.append(("ssm_scan B%d S%d H%d dh%d N%d" % shape, ssm, ssm.ssm_scan_plain, a,
-                      faults, "ssm_scan" if shape[1] == 512 else
-                      ("ssm_scan@decode" if shape[1] == 1 else None)))
+    for shape, key in (((4, 512, 40, 64), "wkv_scan"), ((1, 512, 40, 64), "wkv_scan@B1"),
+                       ((4, 1, 40, 64), "wkv_scan@decode"), ((1, 7, 40, 32), None),
+                       ((1, 50, 40, 128), None)):
+        cases.append(("wkv_scan B%d S%d H%d dh%d" % shape, "wkv", shape, key == "wkv_scan",
+                      key, False))
+    for shape, key in (((4, 512, 25, 64, 16), "ssm_scan"),
+                       ((1, 512, 25, 64, 16), "ssm_scan@B1"),
+                       ((4, 1, 25, 64, 16), "ssm_scan@decode"), ((1, 7, 25, 32, 16), None),
+                       ((1, 50, 25, 128, 16), None)):
+        cases.append(("ssm_scan B%d S%d H%d dh%d N%d" % shape, "ssm", shape,
+                      key == "ssm_scan", key, False))
+    cases += [("wkv_scan B4 S512 H40 dh64, extreme decays", "wkv", (4, 512, 40, 64), False,
+               None, True),
+              ("ssm_scan B4 S512 H25 dh64 N16, extreme decays", "ssm", (4, 512, 25, 64, 16),
+               False, None, True)]
 
-    for name, mod, plain, a, faults, key in cases:
-        log(f"phase 1: {name}, nonzero initial state")
-        fn = mod.wkv if mod is wkv else mod.ssm_scan
-        ref_o, ref_s = plain(*a)
+    for name, kind, shape, planted, key, extreme in cases:
+        mod = wkv if kind == "wkv" else ssm
+        fn = mod.wkv if kind == "wkv" else mod.ssm_scan
+        plain = mod.wkv_plain if kind == "wkv" else mod.ssm_scan_plain
+        chunked_plain = mod.wkv_chunked_plain if kind == "wkv" else mod.ssm_scan_chunked_plain
+        a = scan_inputs(kind, shape, gen)
+        if extreme:
+            a = extreme_decays(kind, a, gen)
+        S, dh = shape[1], shape[3]
+        chunked = wkv.takes_chunked(S, a[0].dtype, dh) if kind == "wkv" \
+            else ssm.takes_chunked(S, a[0].dtype, dh, shape[4])
+        log(f"phase 1: {name}, nonzero initial state, "
+            f"{'chunked' if chunked else 'sequential'} body")
+        ref_o, ref_s = scan_f64(kind, a) if extreme else plain(*a)
+        if extreme:        # the conditioning: the fp32 time loop against fp64
+            log(f"  the fp32 time loop against fp64: output rel_err "
+                f"{rel_err(plain(*a)[0], ref_o):.3e}")
         s = a[5].clone()
+        n0 = (mod.launches, mod.chunked_launches)
         out = fn(*a[:5], s)
         torch.cuda.synchronize()
+        if (mod.launches, mod.chunked_launches) != (n0[0] + 1, n0[1] + chunked):
+            raise AssertionError(f"{name}: launched {mod.launches - n0[0]} kernels, "
+                                 f"{mod.chunked_launches - n0[1]} on the chunked body")
+        faults = []
+        if planted:
+            # (label, plain outputs with the fault, whether it changes the
+            # final state)
+            if kind == "wkv":
+                faults = [("u dropped",
+                           wkv.wkv_plain(*a[:4], torch.zeros_like(a[4]), a[5]), False),
+                          ("decay on the v index", wkv_variant(*a, decay_on_v=True), True),
+                          ("state updated before the output",
+                           wkv_variant(*a, update_first=True), False)]
+            else:
+                x, dt, bm, cm, A, h0 = a
+                faults = [("B and C swapped", ssm.ssm_scan_plain(x, dt, cm, bm, A, h0), True),
+                          ("dt left out of the update",
+                           ssm_variant(*a, dt_in_update=False), True),
+                          ("decay exp(A), not exp(A dt)",
+                           ssm_variant(*a, dt_in_decay=False), True)]
+            L = wkv.chunk_len(dh) if kind == "wkv" else ssm.CHUNK
+            faults.append(("a chunk's state carried without its decay",
+                           chunk_fault(chunked_plain, a, L, 4), True))
         err = check(name + " output", out, ref_o, SCAN_REL,
                     [(label, bad[0]) for label, bad, _ in faults])
         check(name + " final state (in place)", s, ref_s, SCAN_REL,
               [(label, bad[1]) for label, bad, touches in faults if touches])
-        S = a[0].shape[1]
+        if chunked:        # and the chunked body's own model
+            m_o, m_s = chunked_plain(*a)
+            check(name + " output vs the chunked model", out, m_o, SCAN_REL)
+            check(name + " final state vs the chunked model", s, m_s, SCAN_REL)
         if S > 1:          # chained: the halves of the sequence, state in place
             h = S // 2
             s2 = a[5].clone()
@@ -907,17 +1038,12 @@ def scan_phase(gen, rows):
         s_t = a[5].clone()
         ms = time_ms(lambda: fn(*a[:5], s_t))
         plain_ms = time_ms(lambda: plain(*a), reps=5 if S > 1 else 30)
-        B, _, H, dh = a[0].shape
-        # every input read once, the state read and written, out (fp32)
-        byts = nbytes(*a[:5]) + 2 * nbytes(a[5]) + nbytes(out)
-        # per state element and step: the dot product (2) and the update
-        # (3) of WKV's dh x dh state, the update and C·h of the N x dh one
-        flops = 5 * B * S * H * dh * (dh if mod is wkv else a[2].shape[-1])
+        byts, flops, bb, ob = scan_bounds(kind, a, out, chunked)
+        split = pass_split(lambda: fn(*a[:5], s_t))
         rows[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
-                         bytes=byts, flops=flops,
-                         bytes_bound_ms=byts / HBM_BYTES_PER_S * 1e3,
-                         ops_bound_ms=flops / FP32_SIMT_FLOPS * 1e3)
-        log(f"    no single PyTorch call computes this scan: library time none")
+                         bytes=byts, flops=flops, bytes_bound_ms=bb, ops_bound_ms=ob)
+        log(f"    device µs and launches per call (profiler): {split}; no single "
+            "PyTorch call computes this scan: library time none")
 
 
 # ----------------------------------------------------------------------------
@@ -1113,8 +1239,10 @@ def csrc_kernel(name):
     in decode_attention.cu, flash_*kernel, mq_*kernel, wkv_*, ssm_*); the
     verify body of kernels 4 and 5 is verify_sm90_kernel; the Hopper
     mainloop is sm90::attention_kernel<DHP, Addr>, whose Addr names its
-    caller (FlashAddr; ContigMqAddr, PagedMqAddr). Both forms hold for
-    mangled and demangled names."""
+    caller (FlashAddr; ContigMqAddr, PagedMqAddr); the scans' chunked
+    bodies are wkv_scan_kernel_chunked and ssm_scan_kernel_chunked
+    (labelled with the suffix). Both forms hold for mangled and demangled
+    names."""
     name = name.lower()
     if "repro" not in name:
         return None
@@ -1123,7 +1251,10 @@ def csrc_kernel(name):
     if "verify_sm90_kernel" in name:
         return "mq", "verify_sm90_kernel"
     m = re.search(r"(decode|flash|mq|wkv|ssm)_[a-z0-9_]*?kernel", name)
-    return (m.group(1), m.group(0)) if m else None
+    if m is None:
+        return None
+    # the chunked bodies of the scans: wkv_scan_kernel_chunked, ...
+    return m.group(1), m.group(0) + ("_chunked" if "scan_kernel_chunked" in name else "")
 
 
 def one_pass(name):
@@ -1254,7 +1385,10 @@ def kernel_counters():
             "mq_paged_decode_attention@prefill": (mq, "paged_hopper_launches"),
             # and of the verify body
             "mq_decode_attention@verify": (mq, "verify_sm90_launches"),
-            "mq_paged_decode_attention@verify": (mq, "paged_verify_sm90_launches")}
+            "mq_paged_decode_attention@verify": (mq, "paged_verify_sm90_launches"),
+            # and of the scans' chunked bodies
+            "wkv_scan@chunked": (wkv, "chunked_launches"),
+            "ssm_scan@chunked": (ssm, "chunked_launches")}
 
 
 def read_counts():
@@ -1681,12 +1815,16 @@ STATE_REL_TOL = 0.25
 
 def step_launches(cfg, decode):
     """What one scheduler step of the recurrent serves must launch: the
-    scan kernel once per layer, and for Hymba flash (prefill) or decode
-    attention (decode step) once per layer."""
+    scan kernel once per layer (a prefill's 512 steps on its chunked body,
+    a decode step's one on the sequential body), and for Hymba flash
+    (prefill) or decode attention (decode step) once per layer."""
     from repro_torch.configs.base import Family
     L = cfg.n_layers
     want = dict.fromkeys(kernel_counters(), 0)
-    want["wkv_scan" if cfg.family == Family.SSM else "ssm_scan"] = L
+    scan = "wkv_scan" if cfg.family == Family.SSM else "ssm_scan"
+    want[scan] = L
+    if not decode:
+        want[scan + "@chunked"] = L
     if cfg.family == Family.HYBRID:
         want["decode_attention" if decode else "flash_attention"] = L
         want["decode_attention@hopper" if decode else "flash_attention@hopper"] = L
@@ -1825,8 +1963,9 @@ def recurrent_breakdown(cfg, params, card):
     by = {scan: 0.0, "flash_attention": 0.0, "decode_attention": 0.0, "gemm": 0.0,
           "other": 0.0}
     # the scan's launches in time order: the first n_layers are the
-    # prefill's (the serve prefills once), the rest decode steps'
-    scan_us = sorted((e.time_range.start, e.time_range.elapsed_us())
+    # prefill's (the serve prefills once), on the chunked body; the rest
+    # decode steps', on the sequential one
+    scan_us = sorted((e.time_range.start, e.time_range.elapsed_us(), "chunked" in e.name)
                      for e in prof.events()
                      if e.device_type == torch.autograd.DeviceType.CUDA
                      and "repro" in e.name and scan + "_kernel" in e.name)
@@ -1834,8 +1973,11 @@ def recurrent_breakdown(cfg, params, card):
     if len(scan_us) != L * MAX_NEW:
         raise AssertionError(f"breakdown: {len(scan_us)} {scan} kernel events, "
                              f"expected {L * MAX_NEW}")
-    pre_us = sum(d for _, d in scan_us[:L]) / L
-    dec_us = sum(d for _, d in scan_us[L:]) / (L * (MAX_NEW - 1))
+    if not all(c for _, _, c in scan_us[:L]) or any(c for _, _, c in scan_us[L:]):
+        raise AssertionError(f"breakdown: {scan}'s prefill calls not all on the chunked "
+                             "body, or a decode call on it")
+    pre_us = sum(d for _, d, _ in scan_us[:L]) / L
+    dec_us = sum(d for _, d, _ in scan_us[L:]) / (L * (MAX_NEW - 1))
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -1866,7 +2008,8 @@ def recurrent_breakdown(cfg, params, card):
     log(f"  {cfg.name} bursty serve under the profiler: {per}; {scan} {pre_us:.2f} us "
         f"per prefill call (S {PROMPT_LEN}, {L} calls), {dec_us:.2f} us per decode "
         f"call ({L * (MAX_NEW - 1)} calls); device time {parts}; "
-        f"busy {busy / 1e3:.2f} ms of {wall_us / 1e3:.2f} ms wall, idle share "
+        f"(every prefill call on the chunked body, every decode call on the "
+        f"sequential one); busy {busy / 1e3:.2f} ms of {wall_us / 1e3:.2f} ms wall, idle share "
         f"{1 - busy / wall_us:.1%} [{card}]")
 
 
@@ -2400,11 +2543,13 @@ def _cuobjdump():
 def hopper_sass_check(lib_path):
     """Each source's instantiations of the Hopper mainloop
     (sm90::attention_kernel) must run on wgmma and TMA: HGMMA and UTMALDG
-    in their SASS; each of decode_sm90_kernel's (kernels 1 and 3) and of
-    verify_sm90_kernel's (kernels 4 and 5) on the tensor cores and
-    asynchronous copies: HMMA and LDGSTS; and no second pass is left
-    (decode_combine_kernel, mq_combine_kernel). Prints their registers and
-    spills from ptxas.log."""
+    in their SASS; each of decode_sm90_kernel's (kernels 1 and 3), of
+    verify_sm90_kernel's (kernels 4 and 5) and of the scans' chunked bodies
+    (wkv_scan_kernel_chunked, ssm_scan_kernel_chunked: kernels 6 and 7) on
+    the tensor cores and asynchronous copies: HMMA and LDGSTS, the scans'
+    with no spills; and no second pass is left (decode_combine_kernel,
+    mq_combine_kernel). Prints their registers and spills from
+    ptxas.log."""
     sass = subprocess.run([_cuobjdump(), "-sass", str(lib_path)], capture_output=True,
                           text=True, timeout=300, check=True).stdout
     ops, cur = {}, None
@@ -2415,7 +2560,8 @@ def hopper_sass_check(lib_path):
             if "combine_kernel" in f:
                 raise AssertionError(f"a second pass is still built: {f}")
             cur = f if ("sm90" in f and "attention_kernel" in f) \
-                or "decode_sm90_kernel" in f or "verify_sm90_kernel" in f else None
+                or "decode_sm90_kernel" in f or "verify_sm90_kernel" in f \
+                or "scan_kernel_chunked" in f else None
             if cur:
                 ops[cur] = set()
         elif cur:
@@ -2453,6 +2599,24 @@ def hopper_sass_check(lib_path):
                 if not {"HMMA", "LDGSTS"} <= ops[f]:
                     raise AssertionError(f"{src} {kern}<{a}, {b}>: no HMMA or LDGSTS in "
                                          "its SASS")
+    # the scans' chunked bodies: on the tensor cores and asynchronous
+    # copies, and nothing spilled (their states live in registers)
+    bad = []
+    for kern, count in (("wkv_scan_kernel_chunked", 3), ("ssm_scan_kernel_chunked", 9)):
+        fns = [f for f in ops if kern in f]
+        if len(fns) != count:
+            raise AssertionError(f"{len(fns)} {kern} instantiations, expected {count}")
+        for f in fns:
+            args = ", ".join(re.search(kern + r"((?:ILi\d+E|Li\d+E)+)", f).group(1)
+                             .replace("I", "").replace("E", "").split("Li")[1:])
+            ptx = regs.get(f, " ptxas: not found")
+            log(f"  sass {kern}<{args}>: {sorted(ops[f])};{ptx}")
+            if not {"HMMA", "LDGSTS"} <= ops[f]:
+                bad.append(f"{kern}<{args}>: no HMMA or LDGSTS in its SASS")
+            if not re.search(r"(?<!\d)0 bytes spill stores", ptx):
+                bad.append(f"{kern}<{args}>: spills ({ptx.strip()})")
+    if bad:
+        raise AssertionError("; ".join(bad))
 
 
 # ----------------------------------------------------------------------------
@@ -2521,7 +2685,7 @@ def main() -> int:
             launches[k] = launches.get(k, 0) + n
 
         for name in ("decode_attention@hopper", "paged_decode_attention@hopper",
-                     "mq_decode_attention@verify"):
+                     "mq_decode_attention@verify", "wkv_scan@chunked", "ssm_scan@chunked"):
             if launches.get(name, 0) <= 0:
                 raise AssertionError(f"{name} never launched on the main path")
         log(f"main-path launches: {launches}")

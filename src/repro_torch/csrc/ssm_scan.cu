@@ -9,36 +9,35 @@
 //
 // B_t and C_t (N values) are shared by every head of a batch row.
 //
-// Bound on the H100: bytes, far below either bound in practice. Each step
-// reads x (dh), dt (1), B and C (N each) and writes y (dh) per (b, h), and
-// does ~5·N·dh fp32 operations. At Hymba-1.5B's prefill shape (B 4, S 512,
-// H 25, dh 64, N 16; x bf16, y fp32) that is ~21 MB (~6 us at 3.35 TB/s)
-// against ~0.2 GFLOP. The time axis is sequential and only B·H·dh
-// independent state columns exist, so the kernel is latency-bound.
+// Two bodies, one launch a call (ssm_takes_chunked, below; ops.py's
+// takes_chunked):
 //
-// Design:
-//  * Column d of h evolves alone. One block per (b, h), one thread per
-//    column d, holding its N fp32 state values in registers for the whole
-//    sequence (the TPU kernel kept h in VMEM across its sequential grid
-//    axis).
-//  * x, B_t and C_t of a chunk of TC time steps are staged in shared
-//    memory (fp32), with dt_t and the decay exp(A_h · dt_t), one scalar per
-//    (b, t, h), computed once per step by one thread each; every thread
-//    then reads B, C, dt and the decay as broadcasts. A chunk's loads are
-//    issued eight rows at a time before its steps run, so no step waits on
-//    device memory (a first version loaded x inside the step loop and paid
-//    one load latency per step: 0.32 ms at the prefill shape on an H100).
-//  * x is read and y written in the model layout (B, S, H, dh), coalesced
-//    over d: no transpose, no padding of dh or of the time axis.
-//  * The initial state is read from and the final state written to the same
-//    buffer, so the decode cache's layer state is updated in place.
-//  * The update keeps the reference's order, (dt · B_n) · x_d, then
-//    y_d = Σ_n C_n h_nd; the only difference from the reference is fp32
-//    summation order (and fused multiply-adds).
-// Correct first: the chunked (SSD, matrix-form) scan on the tensor cores
-// is later work.
+// The chunked (SSD, matrix-form) body (bf16 calls of S >= 128: every
+// prefill), in scan_chunked.cuh: chunks of 64 steps are the blocks of a
+// thread block cluster per (b, h); C·Bᵀ, the L x L decay-weighted matrix
+// times x, C·h and the chunk's state contribution run on the tensor cores
+// (mma.sync) with three-term bf16 operands. Bound on the H100: bytes. At
+// Hymba-1.5B's prefill shape (B 4, S 512, H 25, dh 64, N 16; x bf16, y
+// fp32) a call moves ~21 MB (~6.2 us at 3.35 TB/s) against ~0.7 GFLOP of
+// matrix products; what holds it above is the latency of each block's
+// phases and of the cluster barriers (tools/ablate_scan.py, PERF.md).
+//
+// The sequential body (decode steps, short calls, fp32 inputs): column d
+// of h evolves alone. One block per (b, h), one thread per column d
+// holding its N fp32 state values in registers for the whole call. x, B_t
+// and C_t of SSM_TC steps are staged in shared memory (fp32), with dt_t and
+// the decay exp(A_h · dt_t), one scalar per (b, t, h), computed once per
+// step; a chunk's loads are issued eight rows at a time before its steps
+// run (a first version loaded x inside the step loop and paid one load
+// latency per step: 0.32 ms at the prefill shape). The update keeps the
+// reference's order, (dt · B_n) · x_d, then y_d = Σ_n C_n h_nd. At S 1 it
+// is bound by the launch: ~3 us in a serve.
+//
+// Both read x and write y in the model layout (B, S, H, dh), and read the
+// initial state from and write the final one to the same buffer (the
+// decode cache's layer state, in place).
 
-#include "common.cuh"
+#include "scan_chunked.cuh"
 
 namespace repro {
 namespace {
@@ -127,22 +126,64 @@ int launch_ssm(const void* x, const float* dt, const void* bm, const void* cm,
   }
 }
 
+// Which body a call takes (ops.py's takes_chunked): bf16 calls of at least
+// two full chunks run the chunked body (scan_chunked.cuh), everything else
+// (decode steps, short calls, fp32 inputs) the sequential one above.
+inline bool ssm_takes_chunked(int S, int dtype, int dh, int N) {
+  return dtype == DTYPE_BF16 && S >= SCAN_CHUNK_MIN_S && (dh == 32 || dh == 64 || dh == 128) &&
+         N >= 1 && N <= 64;
+}
+
+template <int DH>
+int launch_ssm_chunked_n(const __nv_bfloat16* x, const float* dt, const __nv_bfloat16* bm,
+                         const __nv_bfloat16* cm, const float* A, float* state, float* y,
+                         float* xch, int B, int S, int H, int N, cudaStream_t st) {
+  if (N <= 16)
+    return launch_ssm_chunked<DH, 16>(x, dt, bm, cm, A, state, y, xch, B, S, H, N, st);
+  if (N <= 32)
+    return launch_ssm_chunked<DH, 32>(x, dt, bm, cm, A, state, y, xch, B, S, H, N, st);
+  return launch_ssm_chunked<DH, 64>(x, dt, bm, cm, A, state, y, xch, B, S, H, N, st);
+}
+
+int launch_ssm_chunked_dh(const void* x, const float* dt, const void* bm, const void* cm,
+                          const float* A, float* state, float* y, float* xch, int B, int S,
+                          int H, int dh, int N, cudaStream_t st) {
+  if (xch == nullptr) return (int)cudaErrorInvalidValue;
+  for (const void* p : {x, (const void*)state, (const void*)y, (const void*)xch}) {
+    if ((uintptr_t)p % 16) return (int)cudaErrorMisalignedAddress;
+  }
+  using T = __nv_bfloat16;
+  const T *xp = (const T*)x, *bp = (const T*)bm, *cp = (const T*)cm;
+  switch (dh) {
+    case 32: return launch_ssm_chunked_n<32>(xp, dt, bp, cp, A, state, y, xch, B, S, H, N, st);
+    case 64: return launch_ssm_chunked_n<64>(xp, dt, bp, cp, A, state, y, xch, B, S, H, N, st);
+    case 128:
+      return launch_ssm_chunked_n<128>(xp, dt, bp, cp, A, state, y, xch, B, S, H, N, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 }  // namespace repro
 
 // x (B, S, H, dh) of `dtype` (bf16 or fp32); dt (B, S, H) fp32; B_in, C_in
 // (B, S, N) of `dtype`; A (H,) fp32; state (B, H, N, dh) fp32, read as the
-// initial state and overwritten with the final one; y (B, S, H, dh) fp32.
-// dh in {32, 64, 128}, 1 <= N <= 64. Returns cudaGetLastError() after the
-// launch (or a refusal code).
+// initial state and overwritten with the final one; y (B, S, H, dh) fp32;
+// scratch, for the chunked body only (null otherwise), B·H·ceil(S / 64)
+// slots of NP·dh + NP fp32 (NP = N rounded up to 16, 32 or 64): the
+// chunks' exchange buffer. dh in {32, 64, 128}, 1 <= N <= 64. Returns
+// cudaGetLastError() after the launch (or a refusal code).
 extern "C" int repro_ssm_scan(const void* x, const void* dt, const void* bm, const void* cm,
-                              const void* A, void* state, void* y, int B, int S, int H,
-                              int dh, int N, int dtype, void* stream) {
+                              const void* A, void* state, void* y, void* scratch, int B, int S,
+                              int H, int dh, int N, int dtype, void* stream) {
   using namespace repro;
   if (B < 1 || S < 1 || H < 1 || N < 1 || N > 64) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   int rc;
-  if (dtype == DTYPE_BF16) {
+  if (ssm_takes_chunked(S, dtype, dh, N)) {
+    rc = launch_ssm_chunked_dh(x, (const float*)dt, bm, cm, (const float*)A, (float*)state,
+                               (float*)y, (float*)scratch, B, S, H, dh, N, st);
+  } else if (dtype == DTYPE_BF16) {
     rc = launch_ssm<__nv_bfloat16>(x, (const float*)dt, bm, cm, (const float*)A,
                                    (float*)state, (float*)y, B, S, H, dh, N, st);
   } else if (dtype == DTYPE_F32) {

@@ -8,36 +8,42 @@
 //
 // (the decay w_t scales row i of S: it applies on the k index).
 //
-// Bound on the H100: the larger of bytes and fp32 operations, about even.
-// Each step reads r, k, v, w and writes o (dh values each) and does ~5·dh²
-// fp32 operations per (b, h). At the prefill shape of RWKV6-3B (B 4, S 512,
-// H 40, dh 64; r/k/v bf16, w and o fp32) that is ~79 MB (~24 us at 3.35
-// TB/s) and ~1.7 GFLOP (~25 us at the 67 TFLOP/s fp32 SIMT peak). But the
-// time axis is sequential: only B·H independent recurrences exist (160 at
-// that shape), so the kernel is latency-bound well above either bound.
+// Two bodies, one launch a call (wkv_takes_chunked, below; ops.py's
+// takes_chunked):
 //
-// Design:
-//  * Column j of S evolves alone: o_j = Σ_i r_i (S_ij + u_i k_i v_j) and
-//    S_ij ← w_i S_ij + k_i v_j. One block per (b, h), one thread per column
-//    j; each thread holds its dh fp32 column of S in registers for the whole
-//    sequence (the TPU kernel kept S in VMEM across its sequential grid
-//    axis; here a loop inside the block takes that axis's place).
-//  * r, k, v and w of a chunk of TC time steps are staged in shared memory
-//    with coalesced loads (thread j loads element j of each row), eight
-//    rows' loads in flight at a time; within a step every thread reads the
-//    same r_i, k_i, w_i, u_i (broadcast reads).
-//  * The model layout (B, S, H, dh) is read and o written in place: no
-//    transpose, no padding of dh or of the time axis.
-//  * The initial state is read from and the final state written to the same
-//    buffer, so the decode cache's layer state is updated in place.
-//  * o_j's dot product runs in four partial sums (i mod 4) so the fp32 adds
-//    do not form one dh-long dependency chain; the only difference from the
-//    reference is fp32 summation order.
-// Correct first: splitting rows of S over more threads, or chunked
-// (matrix-form) evaluation of the recurrence on the tensor cores, is later
-// work.
+// The chunked body (bf16 calls of S >= 128: every prefill), in
+// scan_chunked.cuh: chunks of 64 steps (32 at dh 128) are the blocks of a
+// thread block cluster per (b, h), 16-step sub-chunks inside, the products
+// on the tensor cores (mma.sync) with three-term bf16 operands. Bound on
+// the H100: bytes. At RWKV6-3B's prefill shape (B 4, S 512, H 40, dh 64;
+// r/k/v bf16, w and o fp32) a call moves ~79 MB (~23.5 us at 3.35 TB/s);
+// its matrix products are ~2 GFLOP (~2 us at the bf16 tensor-core peak),
+// where the sequential body's ~1.7 GFLOP of fp32 FMAs would take ~25 us at
+// the SIMT peak and, in order, far longer. What holds it above the bytes
+// is the latency of each block's phases (tools/ablate_scan.py: its
+// outputs' fragment loads from shared memory, the staging wait, the
+// cluster barriers; PERF.md); what the design does about the scan's
+// sequential axis is to run every chunk in parallel (1280 blocks at B 4,
+// 320 at B 1) and leave only the chunk-state recurrence, element by
+// element, in order.
+//
+// The sequential body (decode steps, short calls, fp32 inputs): column j
+// of S evolves alone, o_j = Σ_i r_i (S_ij + u_i k_i v_j) and S_ij ← w_i
+// S_ij + k_i v_j. One block per (b, h), one thread per column j holding its
+// dh fp32 column of S in registers for the whole call (the TPU kernel kept
+// S in VMEM across its sequential grid axis; a loop inside the block takes
+// that axis's place). r, k, v and w of TC steps are staged in shared
+// memory with coalesced loads, eight rows in flight; within a step every
+// thread reads the same r_i, k_i, w_i, u_i (broadcasts). o_j's dot product
+// runs in four partial sums. Its arithmetic is the reference's but for fp32
+// summation order. At S 1 it is bound by the state's bytes (2.6 MB read
+// and written at B 4) and the launch: ~4.3 us in a serve.
+//
+// Both read the model layout (B, S, H, dh) and write o in place (no
+// transpose, no padding), and read the initial state from and write the
+// final one to the same buffer (the decode cache's layer state, in place).
 
-#include "common.cuh"
+#include "scan_chunked.cuh"
 
 namespace repro {
 namespace {
@@ -121,22 +127,52 @@ int launch_wkv(const void* r, const void* k, const void* v, const float* w, cons
   return 0;
 }
 
+// Which body a call takes (ops.py's takes_chunked): bf16 calls of at least
+// two full chunks run the chunked body (scan_chunked.cuh), everything else
+// (decode steps, short calls, fp32 inputs) the sequential one above.
+inline bool wkv_takes_chunked(int S, int dtype, int dh) {
+  return dtype == DTYPE_BF16 && S >= SCAN_CHUNK_MIN_S && (dh == 32 || dh == 64 || dh == 128);
+}
+
+int launch_wkv_chunked_dh(const void* r, const void* k, const void* v, const float* w,
+                          const void* u, float* state, float* out, float* xch, int B, int S,
+                          int H, int dh, cudaStream_t st) {
+  if (xch == nullptr) return (int)cudaErrorInvalidValue;
+  for (const void* p : {r, k, v, (const void*)w, (const void*)state, (const void*)out,
+                        (const void*)xch}) {
+    if ((uintptr_t)p % 16) return (int)cudaErrorMisalignedAddress;
+  }
+  using T = __nv_bfloat16;
+  const T *rp = (const T*)r, *kp = (const T*)k, *vp = (const T*)v, *up = (const T*)u;
+  switch (dh) {
+    case 32: return launch_wkv_chunked<32>(rp, kp, vp, w, up, state, out, xch, B, S, H, st);
+    case 64: return launch_wkv_chunked<64>(rp, kp, vp, w, up, state, out, xch, B, S, H, st);
+    case 128: return launch_wkv_chunked<128>(rp, kp, vp, w, up, state, out, xch, B, S, H, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 }  // namespace repro
 
 // r, k, v (B, S, H, dh) of `dtype` (bf16 or fp32); w (B, S, H, dh) fp32;
 // u (H, dh) of `dtype`; state (B, H, dh, dh) fp32, read as the initial
-// state and overwritten with the final one; out (B, S, H, dh) fp32.
-// dh in {32, 64, 128}. Returns cudaGetLastError() after the launch (or a
-// refusal code).
+// state and overwritten with the final one; out (B, S, H, dh) fp32;
+// scratch, for the chunked body only (null otherwise), B·H·ceil(S / L)
+// slots of dh·dh + dh fp32 (L = 32 at dh 128, else 64): the chunks'
+// exchange buffer. dh in {32, 64, 128}. Returns cudaGetLastError() after
+// the launch (or a refusal code).
 extern "C" int repro_wkv_scan(const void* r, const void* k, const void* v, const void* w,
-                              const void* u, void* state, void* out, int B, int S, int H,
-                              int dh, int dtype, void* stream) {
+                              const void* u, void* state, void* out, void* scratch, int B,
+                              int S, int H, int dh, int dtype, void* stream) {
   using namespace repro;
   if (B < 1 || S < 1 || H < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   int rc;
-  if (dtype == DTYPE_BF16) {
+  if (wkv_takes_chunked(S, dtype, dh)) {
+    rc = launch_wkv_chunked_dh(r, k, v, (const float*)w, u, (float*)state, (float*)out,
+                               (float*)scratch, B, S, H, dh, st);
+  } else if (dtype == DTYPE_BF16) {
     rc = launch_wkv<__nv_bfloat16>(r, k, v, (const float*)w, u, (float*)state, (float*)out, B,
                                    S, H, dh, st);
   } else if (dtype == DTYPE_F32) {

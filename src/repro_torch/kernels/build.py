@@ -39,8 +39,8 @@ SIGNATURES = {
                                      I, I, I, P],
     "repro_mq_paged_decode_attention": [P, P, P, P, P, P, I, I, I, I, I, I,
                                         I, I, I, F, I, I, I, P],
-    "repro_wkv_scan": [P, P, P, P, P, P, P, I, I, I, I, I, P],
-    "repro_ssm_scan": [P, P, P, P, P, P, P, I, I, I, I, I, I, P],
+    "repro_wkv_scan": [P, P, P, P, P, P, P, P, I, I, I, I, I, P],
+    "repro_ssm_scan": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -467,6 +467,183 @@ def test_scan_kernels_chain_bit_for_bit(cuda_device):
     assert torch.equal(torch.cat(parts, 1), full) and torch.equal(h, h_full)
 
 
+# the chunked bodies (bf16, S >= 128): (B, S, H, dh) and (B, S, H, dh, N).
+# S 191 ends in a ragged chunk, S 1000 has more chunks than a cluster (two
+# rounds); B 4 / S 512 are phase 3c's prefill shapes at full width.
+WKV_CHUNKED_CASES = [(1, 128, 4, 64), (4, 512, 40, 64), (1, 512, 40, 64), (2, 191, 3, 32),
+                     (1, 1000, 2, 64), (2, 1000, 3, 128), (4, 512, 4, 128), (1, 191, 2, 128),
+                     (2, 512, 3, 32)]
+SSM_CHUNKED_CASES = [(1, 128, 5, 64, 16), (4, 512, 25, 64, 16), (1, 512, 25, 64, 16),
+                     (2, 191, 3, 32, 8), (1, 1000, 2, 64, 64), (2, 1000, 3, 128, 16),
+                     (1, 512, 2, 128, 64), (2, 191, 3, 64, 8)]
+
+
+def _wkv_f64(r, k, v, w, u, S):
+    """The WKV time loop in fp64."""
+    r, k, v, w, u, S = (t.double() for t in (r, k, v, w, u, S))
+    outs = []
+    for t in range(r.shape[1]):
+        a = k[:, t, :, :, None] * v[:, t, :, None, :]
+        outs.append(torch.einsum("bhk,bhkd->bhd", r[:, t], S + u[None, :, :, None] * a))
+        S = w[:, t, :, :, None] * S + a
+    return torch.stack(outs, 1), S
+
+
+def _ssm_f64(x, dt, bm, cm, A, h):
+    """The selective scan's time loop in fp64."""
+    x, dt, bm, cm, A, h = (t.double() for t in (x, dt, bm, cm, A, h))
+    dec = torch.exp(A[None, None, :, None] * dt[..., None])
+    ys = []
+    for t in range(x.shape[1]):
+        h = dec[:, t, :, :, None] * h \
+            + dt[:, t, :, None, None] * bm[:, t, None, :, None] * x[:, t, :, None, :]
+        ys.append(torch.einsum("bn,bhnd->bhd", cm[:, t], h))
+    return torch.stack(ys, 1), h
+
+
+def _scan_call(mod, args):
+    """One kernel call on a copy of the state: (out, final state), and the
+    launch counters moved by exactly one launch on the chunked body."""
+    fn = mod.wkv if mod is wkv_ops else mod.ssm_scan
+    s = args[-1].clone()
+    n0 = (mod.launches, mod.chunked_launches)
+    out = fn(*args[:-1], s)
+    torch.cuda.synchronize()
+    assert (mod.launches, mod.chunked_launches) == (n0[0] + 1, n0[1] + 1)
+    return out, s
+
+
+@pytest.mark.parametrize("case", WKV_CHUNKED_CASES,
+                         ids=lambda c: f"B{c[0]}S{c[1]}H{c[2]}d{c[3]}")
+def test_wkv_chunked_kernel_vs_plain(case, cuda_device):
+    """The chunked body against its model (wkv_chunked_plain) and against
+    the sequential plain version, output and in-place state, from a random
+    state."""
+    args = _on(cuda_device, wkv_inputs(case, seed=11), bf16=(0, 1, 2, 4))
+    out, s = _scan_call(wkv_ops, args)
+    assert torch.isfinite(out).all() and torch.isfinite(s).all()
+    for plain in (wkv_ops.wkv_chunked_plain, wkv_ops.wkv_plain):
+        ref_o, ref_s = plain(*args)
+        assert rel_err(out, ref_o) <= SCAN_REL and rel_err(s, ref_s) <= SCAN_REL
+
+
+@pytest.mark.parametrize("case", SSM_CHUNKED_CASES,
+                         ids=lambda c: f"B{c[0]}S{c[1]}H{c[2]}d{c[3]}N{c[4]}")
+def test_ssm_chunked_kernel_vs_plain(case, cuda_device):
+    args = _on(cuda_device, ssm_inputs(case, seed=11), bf16=(0, 2, 3))
+    y, s = _scan_call(ssm_ops, args)
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
+    for plain in (ssm_ops.ssm_scan_chunked_plain, ssm_ops.ssm_scan_plain):
+        ref_y, ref_s = plain(*args)
+        assert rel_err(y, ref_y) <= SCAN_REL and rel_err(s, ref_s) <= SCAN_REL
+
+
+# extreme decays (tests/test_torch_scan_chunked.py): the kernel held to an
+# fp64 evaluation, where the fp32 sequential scan itself is off by up to
+# 5e-4 (an output that is one fresh, nearly cancelling term)
+EXTREME_STEPS = [0, 5, 63, 64, 65, 130, 255, 300, 511]
+
+
+@pytest.mark.parametrize("kind", ["w 0 at chosen steps", "w 1e-30 at chosen steps",
+                                  "w 1e-30 everywhere", "w 1 - 1e-6 everywhere",
+                                  "w 1e-30 or 1 - 1e-6"])
+def test_wkv_chunked_kernel_extreme_decays(kind, cuda_device):
+    r, k, v, w, u, s0 = _on(cuda_device, wkv_inputs((2, 512, 4, 64), seed=3),
+                            bf16=(0, 1, 2, 4))
+    if kind == "w 0 at chosen steps":
+        w[:, EXTREME_STEPS] = 0.0
+    elif kind == "w 1e-30 at chosen steps":
+        w[:, EXTREME_STEPS] = 1e-30
+    elif kind == "w 1e-30 everywhere":
+        w.fill_(1e-30)
+    elif kind == "w 1 - 1e-6 everywhere":
+        w.fill_(1 - 1e-6)
+    else:
+        g = torch.Generator(cuda_device).manual_seed(3)
+        w = torch.where(torch.rand(w.shape, generator=g, device=cuda_device) < 0.3,
+                        1e-30, 1 - 1e-6).float()
+    out, s = _scan_call(wkv_ops, (r, k, v, w, u, s0))
+    assert torch.isfinite(out).all() and torch.isfinite(s).all()
+    ref_o, ref_s = _wkv_f64(r, k, v, w, u, s0)
+    assert rel_err(out, ref_o) <= SCAN_REL and rel_err(s, ref_s) <= SCAN_REL
+
+
+@pytest.mark.parametrize("kind", ["dt 20 at chosen steps", "dt 20 or 1e-3",
+                                  "dt 20 everywhere"])
+def test_ssm_chunked_kernel_extreme_decays(kind, cuda_device):
+    x, dt, bm, cm, A, s0 = _on(cuda_device, ssm_inputs((2, 512, 5, 64, 16), seed=3),
+                               bf16=(0, 2, 3))
+    if kind == "dt 20 at chosen steps":
+        dt[:, EXTREME_STEPS] = 20.0
+    elif kind == "dt 20 or 1e-3":
+        g = torch.Generator(cuda_device).manual_seed(3)
+        dt = torch.where(torch.rand(dt.shape, generator=g, device=cuda_device) < 0.3,
+                         20.0, 1e-3).float()
+    else:
+        dt.fill_(20.0)
+    y, s = _scan_call(ssm_ops, (x, dt, bm, cm, A, s0))
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
+    ref_y, ref_s = _ssm_f64(x, dt, bm, cm, A, s0)
+    assert rel_err(y, ref_y) <= SCAN_REL and rel_err(s, ref_s) <= SCAN_REL
+
+
+def _chained(fn, args, at):
+    s = args[-1].clone()
+    parts = [fn(*(t[:, lo:hi].contiguous() for t in args[:4]), *args[4:-1], s)
+             for lo, hi in ((0, at), (at, args[0].shape[1]))]
+    torch.cuda.synchronize()
+    return torch.cat(parts, 1), s
+
+
+@pytest.mark.parametrize("dh,at,aligned", [(64, 256, True), (64, 128, True), (32, 320, True),
+                                           (128, 224, True), (64, 200, False),
+                                           (128, 300, False)])
+def test_wkv_chunked_kernel_splits(dh, at, aligned, cuda_device):
+    """Two chunked calls split at a multiple of the chunk length equal one
+    call bit for bit; split elsewhere, within SCAN_REL."""
+    assert (at % wkv_ops.chunk_len(dh) == 0) is aligned
+    args = _on(cuda_device, wkv_inputs((2, 512, 3, dh), seed=12), bf16=(0, 1, 2, 4))
+    full, s = _scan_call(wkv_ops, args)
+    got, s2 = _chained(wkv_ops.wkv, args, at)
+    if aligned:
+        assert torch.equal(got, full) and torch.equal(s2, s)
+    else:
+        assert rel_err(got, full) <= SCAN_REL and rel_err(s2, s) <= SCAN_REL
+
+
+@pytest.mark.parametrize("at,aligned", [(256, True), (128, True), (384, True), (200, False),
+                                        (300, False)])
+def test_ssm_chunked_kernel_splits(at, aligned, cuda_device):
+    args = _on(cuda_device, ssm_inputs((2, 512, 5, 64, 16), seed=12), bf16=(0, 2, 3))
+    full, s = _scan_call(ssm_ops, args)
+    got, s2 = _chained(ssm_ops.ssm_scan, args, at)
+    if aligned:
+        assert torch.equal(got, full) and torch.equal(s2, s)
+    else:
+        assert rel_err(got, full) <= SCAN_REL and rel_err(s2, s) <= SCAN_REL
+
+
+@pytest.mark.parametrize("S,dt,chunked", [(127, "bf16", False), (128, "bf16", True),
+                                          (1, "bf16", False), (512, "f32", False),
+                                          (512, "bf16", True)])
+def test_scan_counters_follow_the_chunked_rule(S, dt, chunked, cuda_device):
+    """@chunked advances only for bf16 calls of S >= 128; fp32 and short
+    calls run the sequential body (and agree with its plain version)."""
+    bf = dt == "bf16"
+    a = _on(cuda_device, wkv_inputs((2, S, 3, 64), seed=13), bf16=(0, 1, 2, 4) if bf else ())
+    x = _on(cuda_device, ssm_inputs((2, S, 3, 64, 16), seed=13), bf16=(0, 2, 3) if bf else ())
+    for mod, args in ((wkv_ops, a), (ssm_ops, x)):
+        fn = mod.wkv if mod is wkv_ops else mod.ssm_scan
+        s = args[-1].clone()
+        n0 = (mod.launches, mod.chunked_launches)
+        out = fn(*args[:-1], s)
+        torch.cuda.synchronize()
+        assert (mod.launches, mod.chunked_launches) == (n0[0] + 1, n0[1] + chunked)
+        plain = mod.wkv_plain if mod is wkv_ops else mod.ssm_scan_plain
+        ref_o, ref_s = plain(*args)
+        assert rel_err(out, ref_o) <= SCAN_REL and rel_err(s, ref_s) <= SCAN_REL
+
+
 def test_scan_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     r, k, v, w, u, s = _on(cuda_device, wkv_inputs((1, 4, 2, 64)))
     with pytest.raises(TypeError):          # fp16 is not a kernel type
