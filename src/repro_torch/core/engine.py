@@ -16,7 +16,11 @@ Of the JAX package's two streaming designs this is fetch_mode="slot"
 multi-stage ring (n_stage > 1) and fetch_mode="step" are not ported.
 
 Placement: ``plan_layout`` / ``split_layer_stack`` give the JAX package's
-index maps (same results for the same plan). Resident layers live in HBM,
+index maps for every plan whose resident count divides its segments. Where
+it does not (Alg. 1's 39 resident layers over 41 segments), the JAX grid
+rounds every chunk up to ceil(resident / n_seg) residents; the port lays
+out exactly the plan's resident count, one more in the first chunks, so
+the engine runs the plan the cost model priced. Resident layers live in HBM,
 one flat bf16 tensor each; streamed layers in a pinned host store of
 n_seg x (retier_headroom + k_off) one-layer slots. Pinned memory is plain
 host memory registered with cudaHostRegister: PyTorch's pinned allocator
@@ -96,11 +100,13 @@ def plan_layout(plan: ExecutionPlan, headroom: int = 0, k_res_live=None):
     """Index maps from the flat layer stack into the padded per-stage grid:
     (res_ids (n_seg, n_stage, k_res_cap), off_ids (n_seg, n_stage,
     headroom + k_off_cap)) of flat layer ids, or plan.n_layers for a dead
-    slot. Chunk c = s·n_stage + d holds its k_res_d resident layers, then
-    its streamed tail. With k_res_live (per stage, <= k_res_d) the demoted
-    resident slot j moves its layer into headroom slot
-    headroom - (k_res_d - j): demotions fill the headroom right to left,
-    so the streamed tier keeps layer order."""
+    slot. Chunk c = s·n_stage + d holds its resident layers (k_res_d, or
+    k_res_d - 1 in the last segments when stage d's resident_total does
+    not divide n_seg: exactly resident_total in all), then its streamed
+    tail. With k_res_live (per stage, <= k_res_d) the demoted resident
+    slot j moves its layer into headroom slot headroom - (k_res_d - j):
+    demotions fill the headroom right to left, so the streamed tier keeps
+    layer order."""
     kr, ko = plan.k_res_list, plan.k_off_list
     n_seg, S = plan.n_seg, plan.n_stage
     kr_cap = max(kr) if kr else 0
@@ -111,17 +117,21 @@ def plan_layout(plan: ExecutionPlan, headroom: int = 0, k_res_live=None):
     dead = plan.n_layers
     res_ids = np.full((n_seg, S, max(kr_cap, 1)), dead, np.int32)
     off_ids = np.full((n_seg, S, max(ko_cap, 1)), dead, np.int32)
+    # segments that hold k_res_d residents; the rest hold one fewer
+    full = [st.resident_total - n_seg * (k - 1) if k else n_seg
+            for st, k in zip(plan.stages, kr)]
     flat = 0
     for c in range(n_seg * S):
         s, d = c // S, c % S
-        for j in range(kr[d]):
+        n_res = kr[d] if s < full[d] else kr[d] - 1
+        for j in range(n_res):
             if j < live[d]:
                 res_ids[s, d, j] = flat + j
             else:
                 off_ids[s, d, headroom - (kr[d] - j)] = flat + j
         for j in range(ko[d]):
-            off_ids[s, d, headroom + j] = flat + kr[d] + j
-        flat += kr[d] + ko[d]
+            off_ids[s, d, headroom + j] = flat + n_res + j
+        flat += n_res + ko[d]
     return res_ids[:, :, :kr_cap], off_ids[:, :, :ko_cap]
 
 
@@ -273,6 +283,7 @@ class InterleavedEngine:
         self._buf_views: List[dict] = []
         self._shared: dict = {}
         self._refresh_tier_inputs()
+        self._build_res = self._res_ids      # the layout before any retier
 
     # -- tiers -----------------------------------------------------------------
     def _refresh_tier_inputs(self) -> None:
@@ -476,8 +487,11 @@ class InterleavedEngine:
         return state
 
     def note_committed(self, pos: int, active) -> None:
-        """Paged bookkeeping after a spec round; the port's engine keeps a
-        dense per-slot cache (paged KV is a later slice)."""
+        """Paged bookkeeping after a spec round (the JAX engine's hook):
+        the port's engine keeps a dense per-slot cache, and its page
+        accounting waits for the first path that hands it a cache made
+        outside it (seed_cache). Admission's pages live in the
+        scheduler's pool."""
 
     # -- online memory adaptation ----------------------------------------------
     def demoted(self, stage: int) -> int:
@@ -486,11 +500,14 @@ class InterleavedEngine:
     def demote_capacity(self, stage: int) -> int:
         return min(self.k_res_b[stage], self.H) - self.demoted(stage)
 
-    def slot_hbm_bytes(self) -> float:
-        """HBM one demoted resident slot returns (Eq. 7's (#Seg - 1)
-        factor: the slot holds one layer per segment, and the streamed
-        tier keeps a one-layer load buffer)."""
-        return max(self.plan.n_seg - 1, 1) * self.cfg.layer_params() * 2.0
+    def slot_hbm_bytes(self, stage: int = 0, j: int = 0) -> float:
+        """HBM resident slot j of `stage` returns when demoted (Eq. 7's
+        (#Seg - 1) factor: the slot holds one layer per segment, and the
+        streamed tier keeps a one-layer load buffer). A slot that some
+        segments leave empty (a resident count that does not divide the
+        segments) holds fewer layers."""
+        n = int((self._build_res[:, stage, j] < self.cfg.n_layers).sum())
+        return max(n - 1, 1) * self.cfg.layer_params() * 2.0
 
     def resident_layer_ids(self) -> List[int]:
         ids = np.unique(self._res_ids[self._res_ids < self.cfg.n_layers])
@@ -536,7 +553,7 @@ class InterleavedEngine:
                         self._store.data[s, h].copy_(self._res.pop(l))
                         del self._res_views[l]
                 self.k_res_live[stage] = j
-                freed += self.slot_hbm_bytes()
+                freed += self.slot_hbm_bytes(stage, j)
             else:
                 if self.k_res_live[stage] >= kr_b:
                     break
@@ -549,7 +566,7 @@ class InterleavedEngine:
                         self._res[l] = flat
                         self._res_views[l] = self._views(flat)
                 self.k_res_live[stage] = j + 1
-                freed -= self.slot_hbm_bytes()
+                freed -= self.slot_hbm_bytes(stage, j)
             moves += 1
             self._refresh_tier_inputs()
         if loaded and self.device.type == "cuda":

@@ -1,11 +1,14 @@
 """Serving launcher of the port: LIME-Serve on one device (counterpart of
 ``repro.launch.serve``).
 
-When the layer weights exceed the HBM budget (plan_for with n_stage 1),
-the model runs through the InterleavedEngine: resident layers in HBM, the
-rest streamed from pinned host memory, the layers drawn one at a time
-from a seeded layer source so the whole model never sits on the card.
-Otherwise the single-device path serves it.
+When the layer weights exceed the HBM budget, the model runs through the
+InterleavedEngine: resident layers in HBM, the rest streamed from pinned
+host memory, the layers drawn one at a time from a seeded layer source so
+the whole model never sits on the card. Otherwise the single-device path
+serves it. The plan comes from plan_for's budget rule (--plan uniform) or
+from the paper's Alg. 1 over the H100's CostEnv (--plan hetero);
+--adapt adds the online memory adaptation: page-granular admission and
+an OnlinePlanner that retiers the live engine as KV pages grow.
 
   # on the card, the smoke-sized model, bursty traffic:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.3-70b \\
@@ -21,6 +24,15 @@ Otherwise the single-device path serves it.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.3-70b \\
       --smoke --layers 4 --device cpu --hbm-bytes 3e6 --spec \\
       --spec-draft resident --spec-k 3 --pattern bursty
+
+  # the paper's planning on the CPU: Alg. 1's plan, and the OnlinePlanner
+  # retiering the live engine under paged admission:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.3-70b \\
+      --smoke --layers 4 --device cpu --hbm-bytes 3e6 --plan hetero \\
+      --pattern bursty --requests 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.3-70b \\
+      --smoke --layers 4 --device cpu --hbm-bytes 3.2e6 --adapt \\
+      --retier-headroom 1 --page-size 8 --pattern sporadic --requests 4
 
   # paged KV with the radix prefix cache (single-device path) on
   # template-sharing traffic:
@@ -41,6 +53,59 @@ import json
 # activations (a 512-position prefill round's logits alone are 0.5 GB at
 # LLaMA-3.3-70B's vocabulary)
 HBM_FRAC = 0.92
+
+
+def cost_env(cfg, hbm_bytes: float, *, width: int, prompt_len: int,
+             load_bw: float = 0.0):
+    """The one-card CostEnv the launcher plans with: the H100 profile
+    with the weight budget's resident share (hbm_bytes · HBM_FRAC, the
+    bytes plan_for plans into; activations live in the rest) and, where
+    given, a measured H2D rate. One card has no network hop: activations
+    pass between segments in HBM, so bw_net is the HBM rate and the
+    per-message latency 0 (a segment's handoff costs nothing; load time
+    an idle compute stream cannot cover shows up as T_uncover)."""
+    from repro_torch.core.cost_model import CostEnv, Workload
+    from repro_torch.core.profiles import H100_SXM
+    dev = dataclasses.replace(H100_SXM, mem_bytes=hbm_bytes * HBM_FRAC,
+                              load_bw=load_bw or H100_SXM.load_bw)
+    return CostEnv([dev], dev.mem_bw,
+                   Workload(cfg, mb=width, ctx=prompt_len, n_micro=1),
+                   net_latency=0.0)
+
+
+def hetero_plan(cfg, hbm_bytes: float, *, width: int, prompt_len: int,
+                n_emp: int, load_bw: float = 0.0):
+    """Alg. 1 (allocate_with_retry) over cost_env: returns (result, env,
+    scale). A scale above 1 means the plan assumes more memory than the
+    budget holds (the JAX launcher's relaxation ladder); the caller logs
+    or refuses it."""
+    from repro_torch.core.offline_scheduler import allocate_with_retry
+
+    def mk_env(scale):
+        return cost_env(cfg, hbm_bytes * scale, width=width,
+                        prompt_len=prompt_len, load_bw=load_bw)
+    r, env, scale = allocate_with_retry(mk_env, cfg.n_layers, n_emp=n_emp)
+    if not r.feasible:
+        raise SystemExit(f"hetero allocation infeasible: {r.reason}")
+    return r, env, scale
+
+
+def measure_h2d(src, reps: int = 6) -> float:
+    """Bytes/s of one-row copies from the pinned host tensor `src` (rows
+    of one streamed layer, or any pinned rows) into HBM on a side stream,
+    the copies the engine's streamer issues."""
+    import torch
+    buf = torch.empty_like(src[0], device="cuda")
+    side = torch.cuda.Stream()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with torch.cuda.stream(side):
+        buf.copy_(src[0], non_blocking=True)
+        a.record(side)
+        for i in range(reps):
+            buf.copy_(src[i % src.shape[0]], non_blocking=True)
+        b.record(side)
+    b.synchronize()
+    return reps * buf.numel() * buf.element_size() / (a.elapsed_time(b) * 1e-3)
 
 
 def main(argv=None):
@@ -85,6 +150,19 @@ def main(argv=None):
                          "them in one pass")
     ap.add_argument("--spec-k", type=int, default=4)
     ap.add_argument("--spec-draft", choices=("resident",), default="resident")
+    ap.add_argument("--plan", choices=("uniform", "hetero"),
+                    default="uniform",
+                    help="uniform: plan_for's budget rule; hetero: the "
+                         "paper's offline allocation scheduler (Alg. 1) "
+                         "over the H100's cost model")
+    ap.add_argument("--adapt", action="store_true",
+                    help="online memory adaptation: paged admission, and "
+                         "an OnlinePlanner walking KV page occupancy "
+                         "retiers the live engine (resident layers demote "
+                         "to the streamed tier, their HBM becomes pages)")
+    ap.add_argument("--retier-headroom", type=int, default=1,
+                    help="streamed-store slots reserved for runtime "
+                         "demotions (--adapt)")
     args = ap.parse_args(argv)
 
     import torch
@@ -109,15 +187,51 @@ def main(argv=None):
     if hbm is None and dev.type == "cuda":
         hbm = weight_budget(cfg, batch=width, max_len=args.max_len,
                             free_bytes=torch.cuda.mem_get_info(dev)[0])
-    plan = None if hbm is None else \
-        plan_for(cfg, 1, hbm_frac_for_weights=HBM_FRAC, hbm_bytes=hbm)
-    engine = None
+    plan = env = None
+    if hbm is not None and (args.plan == "hetero" or args.adapt):
+        rate = measure_h2d(torch.empty((2, 128 << 20), dtype=torch.uint8,
+                                       pin_memory=True)) \
+            if dev.type == "cuda" else 0.0
+        env = cost_env(cfg, hbm, width=width, prompt_len=args.prompt_len,
+                       load_bw=rate)
+    if hbm is not None and args.plan == "hetero":
+        r, env, scale = hetero_plan(
+            cfg, hbm, width=width, prompt_len=args.prompt_len,
+            n_emp=args.max_len, load_bw=env.devices[0].load_bw)
+        plan = r.plan
+        if scale > 1.0:
+            print(f"hetero allocation relaxed memory x{scale:.2f} for "
+                  f"feasibility")
+        print(f"Alg. 1: {r.reason or 'offloading'}; candidates (n_seg, "
+              f"T_total s) {[(n, round(t, 4)) for n, t in r.candidates]}")
+    elif hbm is not None:
+        plan = plan_for(cfg, 1, hbm_frac_for_weights=HBM_FRAC, hbm_bytes=hbm)
+    engine = planner = None
     if plan is not None and plan.k_off > 0:
-        engine = InterleavedEngine(cfg, plan, mb=width, max_len=args.max_len,
-                                   device=dev)
+        engine = InterleavedEngine(
+            cfg, plan, mb=width, max_len=args.max_len,
+            retier_headroom=args.retier_headroom if args.adapt else 0,
+            device=dev)
+        n_res = len(engine.resident_layer_ids())
+        if args.plan == "hetero" and n_res * cfg.layer_params() * 2 \
+                > hbm * HBM_FRAC:
+            raise SystemExit(f"Alg. 1's plan holds {n_res} resident layers, "
+                             f"more than the budget's {hbm * HBM_FRAC:.4g} B "
+                             f"share holds")
         params = M.init_params_by_layer(cfg, seed=args.seed, device=dev)
+        if env is not None:
+            env.evaluate(plan)
         print(f"engine: n_seg {plan.n_seg}, k_res {plan.k_res}, k_off "
-              f"{plan.k_off}")
+              f"{plan.k_off}, resident layers {n_res}"
+              + (f", predicted T_total {plan.t_total:.4f} s (T_comp "
+                 f"{plan.t_comp:.4f}, T_comm {plan.t_comm:.2e}, T_uncover "
+                 f"{plan.t_uncover:.4f})" if env is not None else ""))
+        if args.adapt:
+            from repro_torch.core.online_planner import OnlinePlanner
+            planner = OnlinePlanner(env, plan,
+                                    horizon_tokens=4 * width * args.max_len)
+            print("planner ladder (tokens, alpha, beta): "
+                  f"{[(s.threshold_tokens, s.alpha, s.beta) for s in planner.ladders[0]]}")
     else:
         params = M.init_params(cfg, torch.Generator(device=dev)
                                .manual_seed(args.seed), device=dev)
@@ -127,6 +241,9 @@ def main(argv=None):
         raise SystemExit("--spec drafts on the engine's resident tier: the "
                          "weights fit the budget, so no engine runs (lower "
                          "--hbm-bytes)")
+    if args.adapt and engine is None:
+        raise SystemExit("--adapt retiers the engine's tiers: the weights fit "
+                         "the budget, so no engine runs (lower --hbm-bytes)")
     if args.prefix_cache and engine is not None:
         raise SystemExit("--prefix-cache shares pages of the single-device "
                          "paged pool; this model runs through the engine")
@@ -137,14 +254,18 @@ def main(argv=None):
                                            seed=args.seed),
                      spec=spec, prefix_cache=args.prefix_cache,
                      prefill_chunk_tokens=args.prefill_chunk,
-                     page_size=args.page_size, device=dev)
+                     page_size=args.page_size, planner=planner, device=dev)
     arrivals = cli_arrivals(args.pattern, args.requests, seed=args.seed,
                             prompt_len=args.prompt_len,
                             max_new_tokens=args.max_new, gap_s=2.0,
                             burst_size=srv.slots, rate_rps=1.0,
                             n_templates=args.n_templates,
                             prefix_len=args.prefix_len)
-    sched = ContinuousBatchingScheduler(srv.make_backend(), SchedulerConfig())
+    # adaptation rides page-granular admission: note_kv_pages feeds the
+    # planner, and the scheduler reclaims retier headroom before it preempts
+    scfg = SchedulerConfig(kv_policy="paged", page_size=args.page_size) \
+        if args.adapt else SchedulerConfig()
+    sched = ContinuousBatchingScheduler(srv.make_backend(), scfg)
     done = sched.serve(requests_from_arrivals(arrivals,
                                               vocab_size=cfg.vocab_size))
     for r in sorted(done, key=lambda r: r.rid):

@@ -13,14 +13,25 @@ The protocol the scheduler drives (duck-typed, as in the JAX package):
   decode_active(slots) one decode step; {slot: token} per live slot
   join(slot, req)    mid-flight admission (only if can_join_running)
   release(slot)      slot freed by the scheduler
+  resumes_preempted  may the scheduler preempt a request and resume it
+                     later? (absent: yes)
 
 Without an engine the backend runs the model's own prefill and
 decode_step on one device. With an InterleavedEngine (weights larger than
 HBM) it prefills through the engine's chunked multi-query rounds
 (prefill_partial) and decodes through its interleaved passes; with a
 SpecConfig (draft="resident") each decode round drafts k greedy tokens on
-the engine's live resident tier and verifies them in one pass. retier()
-moves the engine's tier boundary between steps.
+the engine's live resident tier and verifies them in one pass.
+
+Online memory adaptation (engine only): the scheduler's paged admission
+attaches its PagePool (attach_page_pool) and reports page occupancy
+after every change (note_kv_pages). An OnlinePlanner (planner=) walks its
+TS ladder on that occupancy; a fired plan demotes resident layers into
+the engine's retier headroom between steps, and their HBM grows the pool.
+Before preempting a request the scheduler asks for headroom
+(reclaim_kv_pages); such grants are promoted back once the pool has room
+again. Past that the scheduler would preempt, which this backend refuses
+(resumes_preempted). retier() moves the boundary by hand (scripted serves).
 
 Without an engine, `paged` routes the single-device path through a paged
 KV cache (kvcache/paged_decode: one pool, block tables, the paged decode
@@ -67,16 +78,28 @@ class EngineBackend:
     """
 
     can_join_running = False
+    # start_batch prefills each request's prompt, never what it generated
+    # before a preemption (as the JAX package's backend does): a resumed
+    # request would continue from its prompt, so the scheduler refuses to
+    # preempt here (reclaiming retier headroom first still works)
+    resumes_preempted = False
 
     def __init__(self, cfg, params, *, engine=None, n_slots: int = 0,
                  max_len: int = 512, sampler: Optional[SamplerConfig] = None,
                  prompt_seed: int = 0, impl: str = "kernel", spec=None,
                  prefill_chunk_tokens: int = 0, paged: bool = False,
                  prefix_cache: bool = False, page_size: int = 64,
-                 cache_pages: int = 0, device=None):
+                 cache_pages: int = 0, planner=None, device=None):
         self.cfg = cfg
         self.params = params
         self.engine = engine
+        # online memory adaptation: the OnlinePlanner's fired plans and the
+        # scheduler's reclaims retier the live engine; demoted layers'
+        # HBM is credited to the admission pool
+        self.planner = planner
+        self._pool = None                 # admission PagePool (scheduler's)
+        self._grants = []                 # reclaim-driven (stage, pages)
+        self._reclaim_dry = False         # retier slots too small to grant
         self.max_len = max_len
         self.impl = impl
         self.device = engine.device if engine is not None \
@@ -160,6 +183,10 @@ class EngineBackend:
         # the cache is statically shaped: max_len per slot
         return self.n_slots * self.max_len
 
+    def kv_bytes_per_token(self) -> float:
+        return 2.0 * self.cfg.n_layers * self.cfg.n_kv_heads \
+            * self.cfg.head_dim * 2.0         # k+v, bf16
+
     def max_request_tokens(self) -> Optional[int]:
         """Per-slot ceiling: a single request's prompt + max_new must fit
         the statically-shaped cache."""
@@ -195,11 +222,19 @@ class EngineBackend:
         return sample(logits, self.sampler, self._gen, self.cfg.vocab_size)
 
     # -- online memory adaptation --------------------------------------------------
-    def retier(self, stage: int, delta: int) -> float:
+    def attach_page_pool(self, pool) -> None:
+        """Scheduler hook: the admission PagePool that retiered weight HBM
+        is credited to (grow on demote, shrink on promote)."""
+        self._pool = pool
+
+    def _page_bytes(self) -> float:
+        pb = self._pool.cfg.page_bytes if self._pool is not None else 0.0
+        return pb or self.kv_bytes_per_token() * self.page_size
+
+    def _apply_retier(self, stage: int, delta: int) -> float:
         """Move `delta` resident slots of `stage` across the engine's tier
-        boundary between steps of the live serve (positive: demote).
-        Returns HBM bytes freed (< 0 on promote). The OnlinePlanner and
-        page-pool drive of it come with the paged-KV slice."""
+        boundary on the live state (counters only before weights load).
+        Returns HBM bytes freed (< 0 on promote)."""
         eng = self.engine
         before = eng.demoted(stage)
         self._state, freed = eng.retier(self._state, stage, delta)
@@ -212,6 +247,13 @@ class EngineBackend:
             self._sync_depth_rung()
         return freed
 
+    def retier(self, stage: int, delta: int) -> float:
+        """Move `delta` resident slots of `stage` across the tier boundary
+        between steps of the live serve, by hand (positive: demote).
+        Returns HBM bytes freed (< 0 on promote); the pool is not
+        credited (planner- and reclaim-driven retiers are)."""
+        return self._apply_retier(stage, delta)
+
     def _sync_depth_rung(self) -> None:
         """Tell the DepthController the tier boundary moved: the new rung
         (demoted slots) starts from the acceptance prior scaled by the
@@ -222,6 +264,88 @@ class EngineBackend:
         rung = sum(eng.demoted(d) for d in range(eng.plan.n_stage))
         self._depth.note_rung(
             rung, prior=self.spec.acceptance * eng.resident_fraction())
+
+    def _retier_to(self, stage: int, target_demoted: int) -> None:
+        """Planner-driven: demote until `stage` has target_demoted slots
+        streamed (whole-layer mapping of the planner's (α, β) blocks),
+        capped by the engine's retier headroom."""
+        eng = self.engine
+        cap = min(eng.k_res_b[stage], eng.H)
+        delta = min(target_demoted, cap) - eng.demoted(stage)
+        if delta <= 0:
+            return
+        freed = self._apply_retier(stage, delta)
+        if self._pool is not None and freed > 0:
+            self._pool.grow(int(freed // self._page_bytes()))
+
+    def note_kv_pages(self, pages_in_use: int, page_size: int) -> None:
+        """Scheduler callback with page-granular KV occupancy: walk the
+        planner's TS ladder (paper Eq. 5) on what admission holds, retier
+        the live engine on fired plans, and promote reclaim-driven
+        demotions back when occupancy leaves headroom."""
+        if self.engine is None:
+            return
+        if self.planner is not None:
+            for dev, step in self.planner.on_pages(pages_in_use, page_size):
+                if dev < self.engine.plan.n_stage:
+                    self._retier_to(dev, max(step.alpha, step.beta))
+        self._maybe_promote()
+
+    def reclaim_kv_pages(self, n_pages: int) -> int:
+        """Scheduler pressure hook: before preempting a request, demote
+        resident layers and return their HBM as device KV pages. Returns
+        pages made available (0 = no retier headroom left)."""
+        if self.engine is None or self._pool is None:
+            return 0
+        pb = self._page_bytes()
+        if pb <= 0:
+            return 0
+        if self._reclaim_dry:
+            return 0          # a slot frees < 1 page on this engine: the
+        eng = self.engine     # geometry is constant, retrying just churns
+        got = 0
+        while got < n_pages:
+            stage = max(range(eng.plan.n_stage), key=eng.demote_capacity)
+            if eng.demote_capacity(stage) <= 0:
+                break
+            snap = dict(self._adapt)
+            pages = int(self._apply_retier(stage, +1) // pb)
+            if pages <= 0:
+                # one slot frees less than a page: undo the demotion (a
+                # grant of nothing would permanently slow the stage) and
+                # its telemetry — no HBM was returned
+                self._apply_retier(stage, -1)
+                self._adapt = snap
+                self._reclaim_dry = True
+                break
+            self._pool.grow(pages)
+            self._grants.append((stage, pages))
+            got += pages
+        return got
+
+    def _planner_demote_target(self, stage: int) -> int:
+        """Slots the TS ladder currently demands demoted on `stage`."""
+        if self.planner is None or stage >= len(self.planner.states):
+            return 0
+        st = self.planner.states[stage]
+        return max(st.alpha, st.beta)
+
+    def _maybe_promote(self) -> None:
+        """Undo reclaim-driven demotions when pressure drops: withdraw the
+        granted pages (only free capacity can leave the pool) and promote
+        the layers back. Planner-driven demotions stay (the TS ladder is
+        monotone in KV growth, paper §IV-D): promotion stops at the
+        ladder's current demote target."""
+        while self._grants and self._pool is not None:
+            stage, pages = self._grants[-1]
+            if self.engine.demoted(stage) - 1 \
+                    < self._planner_demote_target(stage):
+                break                    # would undo a ladder demotion
+            if self._pool.free_pages() < pages + 2 * self.n_slots:
+                break                    # still too close to the watermark
+            self._pool.shrink(pages)
+            self._apply_retier(stage, -1)
+            self._grants.pop()
 
     @property
     def adapt_stats(self):

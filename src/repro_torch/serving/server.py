@@ -11,7 +11,9 @@ continuous-batching scheduler behind one call:
 The paper's request patterns map to slot counts: sporadic serves one
 request at a time, bursty fills the batch (4 slots, or the engine's batch
 width). With an InterleavedEngine the backend prefills and decodes through
-it, and a SpecConfig turns on resident self-speculation. Without one,
+it, a SpecConfig turns on resident self-speculation, and an OnlinePlanner
+(planner=) retiers it as the KV pages of a paged admission grow (serve
+through a scheduler with SchedulerConfig(kv_policy="paged")). Without one,
 prefix_cache=True serves through a paged KV pool with a radix prefix cache
 over it (page_size tokens per page, the uncached suffix prefilled in
 rounds of prefill_chunk_tokens).
@@ -65,7 +67,7 @@ class LimeServer:
                  max_len: int = 512, sampler: SamplerConfig = SamplerConfig(),
                  pattern: str = "sporadic", impl: str = "kernel", spec=None,
                  prefix_cache: bool = False, prefill_chunk_tokens: int = 0,
-                 page_size: int = 64, device=None):
+                 page_size: int = 64, planner=None, device=None):
         self.cfg = cfg
         self.params = params
         self.engine = engine
@@ -77,6 +79,7 @@ class LimeServer:
         self.prefix_cache = prefix_cache      # radix KV reuse, paged pool
         self.prefill_chunk_tokens = prefill_chunk_tokens
         self.page_size = page_size
+        self.planner = planner                # OnlinePlanner (engine only)
         self.device = engine.device if engine is not None \
             else resolve_device(device)
         self.queue = RequestQueue()
@@ -97,7 +100,8 @@ class LimeServer:
                 sampler=self.sampler, impl=self.impl, spec=self.spec,
                 prefix_cache=self.prefix_cache and self.engine is None,
                 prefill_chunk_tokens=self.prefill_chunk_tokens,
-                page_size=self.page_size, device=self.device)
+                page_size=self.page_size, planner=self.planner,
+                device=self.device)
         return self._backend
 
     def serve_all(self) -> List[Request]:

@@ -32,7 +32,8 @@ from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
 from repro_torch.kernels.ssm_scan import ops as ssm_ops
 from repro_torch.models import model as M
-from repro_torch.serving import LimeServer
+from repro_torch.serving import (ContinuousBatchingScheduler, LimeServer,
+                                 SchedulerConfig)
 
 pytestmark = pytest.mark.gpu
 
@@ -210,6 +211,61 @@ def test_engine_streams_and_matches_model(cuda_device):
         assert torch.equal(el, ml[:, 0])
         tok = el[:, :cfg.vocab_size].argmax(-1, keepdim=True)
     eng.close()
+
+
+def test_adaptive_engine_serve_on_the_card(cuda_device):
+    """llama smoke, 4 layers (2 resident, plan_for at a 4.6 MB budget), a
+    bursty batch of 4 under paged admission (page 8) with an OnlinePlanner
+    (rungs of 128 tokens: a smoke layer frees 144 tokens of the batch's
+    KV, under the default 256): its rung fires while the batch is live,
+    demoting the resident slot; every step runs kernel 1 (decode) and the
+    prefill rounds kernel 4; the tokens are those of the same serve
+    without the planner."""
+    from repro_torch.core.engine import plan_for
+    from repro_torch.core.online_planner import OnlinePlanner
+    from repro_torch.launch.serve import HBM_FRAC, cost_env
+    cfg = dataclasses.replace(get_smoke_config("llama3.3-70b"), n_layers=4)
+    params = M.init_params(cfg, torch.Generator(cuda_device).manual_seed(0))
+    plan = plan_for(cfg, 1, hbm_frac_for_weights=HBM_FRAC, hbm_bytes=4.6e6)
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(1, cfg.vocab_size, 8).astype(np.int32)
+               for _ in range(4)]
+    outs, fired = [], []
+    for adapt in (False, True):
+        eng = InterleavedEngine(cfg, plan, mb=4, max_len=32,
+                                retier_headroom=int(adapt))
+        env = cost_env(cfg, 4.6e6, width=4, prompt_len=8)
+        planner = OnlinePlanner(env, plan, horizon_tokens=512,
+                                ladder_chunk_tokens=128) if adapt else None
+        srv = LimeServer(cfg, params, engine=eng, max_len=32, pattern="bursty",
+                         prefill_chunk_tokens=4, planner=planner)
+        for p in prompts:
+            srv.queue.submit(p, 12)
+        be = srv.make_backend()
+        sched = ContinuousBatchingScheduler(be, SchedulerConfig(
+            kv_policy="paged", page_size=8))
+        reqs = srv.queue.drain()
+        sched.begin(reqs)
+        m0, d0 = mq.launches, da.launches
+        while True:
+            d1 = da.launches
+            if not sched.step():
+                break
+            if be.rounds and da.launches > d1:
+                assert da.launches - d1 == cfg.n_layers
+            if be.adapt_stats["retier_events"] and not fired and adapt:
+                fired.append((len(be.rounds), sum(not r.done for r in reqs)))
+        torch.cuda.synchronize()
+        assert mq.launches - m0 == 2 * cfg.n_layers      # 2 prefill rounds
+        assert da.launches - d0 == 11 * cfg.n_layers     # 11 decode steps
+        outs.append([r.output for r in sorted(sched.finish_run(),
+                                              key=lambda r: r.rid)])
+        if adapt:
+            assert be.adapt_stats["layers_streamed_now"] == 1
+            assert eng.resident_layer_ids() == []
+        eng.close()
+    assert fired and 1 <= fired[0][0] < 11 and fired[0][1] == 4
+    assert outs[0] == outs[1]
 
 
 # ----------------------------------------------------------------------------
