@@ -20,17 +20,21 @@ Phases; any failure exits non-zero without the final ``ok`` line:
    (decode_combine_kernel, mq_combine_kernel) is built; their registers
    and spills from ptxas.
 1. kernels against their plain PyTorch versions on the card, at the main
-   path's shapes (Hymba's G 5 / dh 64 / window 1024 attention included)
+   path's shapes (Hymba's G 5 / dh 64 / window 1024 attention included;
+   phase 3e's: kernels 1 and 4 at LLaMA-2-13B's G 1 / 40 KV heads, the
+   verify pass and the prefill round; kernels 1, 2 and 4 at StableLM-2-
+   12B's head_dim 160, on the bodies that are not the Hopper ones)
    and at ring-buffer / window / unaligned / offset cases,
    within a tolerance relative to the reference's size that is shown to
    reject planted off-by-one faults;
    at the main path's shapes the kernel's median device time (CUDA
    events, L2 flushed and host enqueue hidden before each call), its
    bound, the plain version's time and one PyTorch library call's time as
-   a yardstick (flash at LLaMA's and at Hymba's shape; kernels 4 and 5 at
-   their verify and prefill-round shapes, kernel 4 also at phase 3b's
-   sporadic verify shape, B 1 at pos 516; kernel 1 at its main, B 1 and
-   Hymba shapes, SDPA on the visible prefix), and for kernels 1, 3, 4 and
+   a yardstick (flash at LLaMA's, Hymba's and StableLM's shape; kernels 4
+   and 5 at their verify and prefill-round shapes, kernel 4 also at phase
+   3b's sporadic verify shape, B 1 at pos 516, and at LLaMA-2's and
+   StableLM's verify shapes; kernel 1 at its main, B 1, Hymba, LLaMA-2 and
+   StableLM shapes, SDPA on the visible prefix), and for kernels 1, 3, 4 and
    5 the time's split over the CUDA kernels one call launches
    (torch.profiler). Each multi-query call must take the body its shapes
    imply (the verify body at q_len·G <= 128 rows: two calls bit-equal;
@@ -81,7 +85,7 @@ Phases; any failure exits non-zero without the final ``ok`` line:
    prefill.
 3c. the recurrent families on the single-device path, after phase 2's
    weights are freed: RWKV6-3B, then Hymba-1.5B, each at full width, depth
-   cut to RECURRENT_LAYERS (16) of their 32 layers so the script keeps its
+   cut to RECURRENT_LAYERS (8) of their 32 layers so the script keeps its
    time limit, random weights from seed 0, served bursty and sporadic
    through LimeServer; every scheduler step launches exactly what it
    implies (RWKV6: a WKV kernel per layer per prefill and decode step; Hymba:
@@ -135,6 +139,23 @@ Phases; any failure exits non-zero without the final ``ok`` line:
    every token equal to this engine's verify-pass greedy. Printed: the
    plan, its layout, pinned bytes and predicted
    T_total beside the measured decode and verify pass times.
+3e. the paper's other Tab. III models and the rest of the dense configs,
+   after 3d's store is closed, random weights from seed 0: LLaMA-2-13B
+   (MHA: G 1, 40 KV heads) at full width and all 40 layers on the
+   single-device path, as phase 2 (exact launch counts, every call on the
+   Hopper bodies, a profiled serve, the reference re-serve within
+   TAB3_LOGIT_REL_TOL; the reference's own noise floor read, planted
+   prefill faults rejected); LLaMA-2-13B and Qwen3-32B (all 64 layers)
+   through Alg. 1's engine as phase 3d, at TAB3_BUDGETS (about a third and
+   a half of their layers streamed; every verify on the verify body at G 1
+   and G 8, every prefill round on the Hopper mainloop); StableLM-2-12B
+   (parallel blocks, head_dim 160) at 8 of 40 layers on the single-device
+   path, as phase 2, every flash and decode launch on the bodies head_dim
+   160 takes (flash_mma_kernel, decode_tile_kernel) with their µs per call
+   in a profiled serve; Pixtral-12B's backbone at 8 of 40 layers: a
+   prefill of 256 patch embeddings and 256 text tokens, then 16 decode
+   steps, the kernel path against impl="ref" (argmax equal or a near
+   tie).
 Every flash launch of phases 2, 2b and 3c, every prefill round of kernel 5
 (2b) and of kernel 4 (3a, 3b) must run the Hopper mainloop, every verify
 pass of kernel 4 (3a, 3b) the verify body (none of kernel 5 is served),
@@ -375,14 +396,23 @@ def kernel_phase():
         ("hymba B4 S512 H25 KV5 dh64 causal w1024", 4, 512, 512, 25, 5, 64, True, 1024,
          0, bf16, [("diagonal dropped: q_offset - 1", dict(q_offset=-1)),
                    ("row // G off by one", dict(head_shift=1))]),
+        # phase 3e's StableLM-2-12B prefill: head_dim 160, past the Hopper
+        # mainloop's 128, on the mma.sync body
+        ("stablelm B4 S512 H32 KV8 dh160 causal", 4, 512, 512, 32, 8, 160, True, None, 0,
+         bf16, [("diagonal dropped: q_offset - 1", dict(q_offset=-1)),
+                ("last 64-row kv tile dropped", dict(kv_keep=448)),
+                ("row // G off by one", dict(head_shift=1))]),
     ]
     for name, B, Sq, Skv, H, KV, dh, causal, window, q_off, dt, planted in fl_cases:
         q = randn((B, Sq, H, dh), dt, gen)
         k = randn((B, Skv, KV, dh), dt, gen)
         v = randn((B, Skv, KV, dh), dt, gen)
         kw = dict(causal=causal, window=window, q_offset=q_off)
+        h0 = fa.hopper_launches
         out = fa.flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
+        if name.startswith("stablelm") and fa.hopper_launches != h0:
+            raise AssertionError(f"{name}: head_dim 160 took the Hopper mainloop")
         ref = fa.flash_attention_plain(q, k, v, **kw)
         faults = []
         for label, bad in planted:
@@ -392,7 +422,7 @@ def kernel_phase():
                 fa.flash_attention_plain, bad.pop("head_shift", 0), q,
                 k[:, :n_kv], v[:, :n_kv], **bad)))
         err = check(name, out, ref, BF16_REL if dt == bf16 else F32_REL, faults)
-        if name.startswith(("main", "hymba")):
+        if name.startswith(("main", "hymba", "stablelm")):
             # window 1024 >= S: causal alone decides, as for SDPA's is_causal
             ms = time_ms(lambda: fa.flash_attention(q, k, v, **kw))
             plain = time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), reps=10)
@@ -402,8 +432,9 @@ def kernel_phase():
             pairs = Sq * (Sq + 1) // 2                  # visible (i, j) pairs
             flops = 2 * 2 * B * H * pairs * dh
             byts = nbytes(q, k, v) + nbytes(q)
-            rows["flash_attention" if name.startswith("main")
-                 else "flash_attention@hymba"] = dict(
+            rows["flash_attention" if name.startswith("main") else
+                 "flash_attention@hymba" if name.startswith("hymba")
+                 else "flash_attention@dh160"] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
                 bytes=byts, flops=flops, bytes_bound_ms=byts / HBM_BYTES_PER_S * 1e3,
                 ops_bound_ms=flops / BF16_TENSOR_FLOPS * 1e3)
@@ -421,13 +452,20 @@ def kernel_phase():
     return rows
 
 
-# kernel 1's timed shapes: (row key, B, S_c, H, KV, dh, pos, window) of a
-# bursty decode step at the end of the cache (the main shape), a sporadic
-# one (B 1) and phase 3c's Hymba decode; linear caches, window >= pos + 1
+# kernel 1's timed shapes: (row key, B, S_c, H, KV, dh, pos, window,
+# planted faults as in kernel_phase's decode cases) of a bursty decode step
+# at the end of the cache (the main shape), a sporadic one (B 1), phase
+# 3c's Hymba decode, and phase 3e's LLaMA-2-13B (MHA: G 1, 40 KV heads) and
+# StableLM-2-12B (head_dim 160: the fp32-FMA body) decodes; linear caches,
+# window >= pos + 1
+DECODE_FAULTS = [("current slot dropped: pos - 1", dict(pos=1022)),
+                 ("row // G off by one", dict(head_shift=1))]
 DECODE_TIMED = (
-    ("decode_attention", 4, 1024, 64, 8, 128, 1023, None),
-    ("decode_attention@B1", 1, 1024, 64, 8, 128, 543, None),
-    ("decode_attention@hymba", 4, 1024, 25, 5, 64, 543, 1024),
+    ("decode_attention", 4, 1024, 64, 8, 128, 1023, None, []),
+    ("decode_attention@B1", 1, 1024, 64, 8, 128, 543, None, []),
+    ("decode_attention@hymba", 4, 1024, 25, 5, 64, 543, 1024, []),
+    ("decode_attention@llama2", 4, 1024, 40, 40, 128, 1023, None, DECODE_FAULTS),
+    ("decode_attention@dh160", 4, 1024, 32, 8, 160, 1023, None, DECODE_FAULTS),
 )
 
 
@@ -467,7 +505,7 @@ def decode_timed(gen, rows):
 
     from repro_torch.kernels.decode_attention import ops as da
     bf16 = torch.bfloat16
-    for key, B, S_c, H, KV, dh, pos, window in DECODE_TIMED:
+    for key, B, S_c, H, KV, dh, pos, window, planted in DECODE_TIMED:
         q = randn((B, 1, H, dh), bf16, gen)
         k = randn((B, S_c, KV, dh), bf16, gen)
         v = randn((B, S_c, KV, dh), bf16, gen)
@@ -475,11 +513,20 @@ def decode_timed(gen, rows):
 
         def fn():
             return da.decode_attention(q, k, v, ids, pos, window=window)
+        h0 = da.hopper_launches
         out = fn()
         torch.cuda.synchronize()
+        hop = da.hopper_launches - h0
+        if hop != (dh <= 128):
+            raise AssertionError(f"{key}: {hop} Hopper decode launches at head_dim {dh}")
         ref = da.decode_attention_plain(q, k, v, ids, pos, window=window)
-        err = check(f"timed {key} B{B} S{S_c} H{H} KV{KV} dh{dh} pos{pos} w{window}",
-                    out, ref, BF16_REL)
+        faults = []
+        for label, bad in planted:
+            bad = {"pos": pos, "window": window, **bad}
+            faults.append((label, head_shifted(
+                da.decode_attention_plain, bad.pop("head_shift", 0), q, k, v, ids, **bad)))
+        err = check(f"timed {key} B{B} S{S_c} H{H} KV{KV} dh{dh} pos{pos} w{window} "
+                    f"({'Hopper' if hop else 'fp32-FMA'} body)", out, ref, BF16_REL, faults)
         n_vis = pos + 1                                  # linear ids, window >= pos + 1
         kv, vv = k[:, :n_vis].contiguous(), v[:, :n_vis].contiguous()
         ms = time_ms(fn)
@@ -557,6 +604,18 @@ def mq_phase(gen, rows):
                     ("row // G off by one", dict(pos=517))]),
         ("G1 q5 S300 dh64 stale", 2, 5, 300, 8, 8, 64, 290, None, "stale",
          [("diagonal dropped: <= -> <", dict(pos=289))]),
+        # phase 3e: LLaMA-2-13B's verify pass and chunked-prefill round (MHA:
+        # G 1, 40 KV heads) and StableLM-2-12B's verify (head_dim 160: the
+        # mma.sync body)
+        ("llama2 verify B4 q5 S1024 H40 KV40 dh128", 4, 5, 1024, 40, 40, 128, 1019, None,
+         "linear", [("diagonal dropped: <= -> <", dict(pos=1018)),
+                    ("row // G off by one", dict(pos=1020))]),
+        ("llama2 prefill B4 q512 S1024 H40 KV40 dh128", 4, 512, 1024, 40, 40, 128, 0,
+         None, "linear", [("diagonal dropped: <= -> <", dict(pos=-1)),
+                          ("row // G off by one", dict(pos=1))]),
+        ("stablelm verify B4 q5 S1024 H32 KV8 dh160", 4, 5, 1024, 32, 8, 160, 1019, None,
+         "linear", [("diagonal dropped: <= -> <", dict(pos=1018)),
+                    ("row // G off by one", dict(pos=1020))]),
     ]
     for name, B, Q, S_c, H, KV, dh, pos, window, kind, planted in cases:
         q = randn((B, Q, H, dh), bf16, gen)
@@ -579,7 +638,12 @@ def mq_phase(gen, rows):
             again = mq.mq_decode_attention(q, k, v, ids, pos, window=window)
             if not torch.equal(out, again):
                 raise AssertionError(f"{name}: two calls differ")
-        if not name.startswith(("verify", "prefill", "sporadic")):
+        key = {"verify": "mq_decode_attention", "sporadic": "mq_decode_attention@B1",
+               "prefill": "mq_decode_attention@prefill",
+               "llama2 verify": "mq_decode_attention@llama2",
+               "stablelm verify": "mq_decode_attention@dh160"}.get(
+            name.split(" B")[0])
+        if key is None:
             continue
         vis = mq_visible(ids, pos, Q, window)
         mask = vis.clone()
@@ -604,11 +668,7 @@ def mq_phase(gen, rows):
                  ops_bound_ms=flops / BF16_TENSOR_FLOPS * 1e3)
         log(f"    {ms:.4f} ms; sdpa {lib} ms; split over kernels (µs per call, launches "
             f"per call) {split}")
-        # the verify shape is the per-round call of the served path: its
-        # numbers go into the kernels line; the others' into the log
-        rows["mq_decode_attention" if name.startswith("verify") else
-             "mq_decode_attention@B1" if name.startswith("sporadic")
-             else "mq_decode_attention@prefill"] = r
+        rows[key] = r
 
     # q_len 1: the multi-query kernel is the one-token decode
     B, S_c, H, KV, dh, pos = 4, 1024, 64, 8, 128, 1023
@@ -1135,7 +1195,8 @@ def compare_greedy(cfg, params, pattern, prompts, got, ref, width,
     the serve); the kernel path's logits lie within tol of the largest
     |logit|; the kernel path's argmax is the reference's or a near
     tie (the reference logit of its pick within the measured logit error of
-    the reference's top). The kernel serve's tokens up to its first
+    the reference's top, or the kernel path's own logits of the two picks
+    equal: its argmax broke an exact tie by index). The kernel serve's tokens up to its first
     divergence from the reference serve are the kernel path's argmaxes.
     Each batch's reference logits (T, n, V) are appended to `keep` where
     given. Returns (positions compared, near-tie positions, worst error /
@@ -1160,8 +1221,9 @@ def compare_greedy(cfg, params, pattern, prompts, got, ref, width,
         err = (lk - lr).abs().amax(-1)                        # (T, n)
         scale = lr.abs().amax(-1)
         gap = (lr.gather(-1, ar[..., None]) - lr.gather(-1, ak[..., None]))[..., 0]
+        kgap = (lk.gather(-1, ak[..., None]) - lk.gather(-1, ar[..., None]))[..., 0]
         far = err > tol * scale
-        not_tie = (ak != ar) & (gap > err)
+        not_tie = (ak != ar) & (gap > err) & (kgap > 0)
         worst = max(worst, (err / scale).max().item())
         for j, i in enumerate(idx):
             a, b = got[i].output, ref[i].output
@@ -1169,7 +1231,8 @@ def compare_greedy(cfg, params, pattern, prompts, got, ref, width,
             ties = [t for t in range(MAX_NEW) if ak[t, j] != ar[t, j]]
             log(f"  {pattern} req {ref[i].rid}: {MAX_NEW} positions, kernel argmax "
                 f"differs at {ties or 'none'} (ref gap there "
-                f"{[round(gap[t, j].item(), 4) for t in ties]}, logit err "
+                f"{[round(gap[t, j].item(), 4) for t in ties]}, kernel gap "
+                f"{[round(kgap[t, j].item(), 4) for t in ties]}, logit err "
                 f"{[round(err[t, j].item(), 4) for t in ties]}); max logit err "
                 f"{err[:, j].max().item():.4f} at |logit| max {scale[:, j].max().item():.2f}; "
                 f"served tokens agree up to {t_div}")
@@ -1189,10 +1252,7 @@ def main_path_phase(card):
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels.decode_attention import ops as da
-    from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.models import model as M
-    from repro_torch.serving import LimeServer, summarize
 
     cfg = dataclasses.replace(get_config("llama3.3-70b"), n_layers=N_LAYERS)
     log(f"phase 2: single-device path, {cfg.name} at full width (d_model {cfg.d_model}, "
@@ -1203,7 +1263,29 @@ def main_path_phase(card):
     torch.cuda.synchronize()
     n_par = sum(t.numel() for t in _leaves(params))
     log(f"  params: {n_par / 1e9:.2f} B in {time.monotonic() - t0:.1f} s")
+    launches = single_device_checks(cfg, params, card, "2")
+    return launches, cfg, params
 
+
+def single_device_checks(cfg, params, card, phase, hopper=True, tol=LOGIT_REL_TOL,
+                         faults=False):
+    """A dense config's single-device path on the card: warm-up serves,
+    then bursty and sporadic serves through LimeServer with exact launch
+    counts of kernels 1 and 2 (each call on the Hopper bodies, or with
+    hopper=False on none of them: head_dim 160), peak memory, a profiled
+    bursty serve (breakdown), and the reference re-serve held to the
+    kernel path by compare_greedy within `tol` of |logit| max. With
+    faults, the reference's own noise floor at this depth, and planted
+    prefill faults (planted_faults) that the limit must reject. Returns
+    the serves' launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.serving import LimeServer, summarize
+
+    depth = f"{cfg.n_layers} of {get_full_layers(cfg)} layers"
     # warm-up at both batch widths (cuBLAS handles and heuristics, the
     # allocator): not part of the measured runs
     serve(cfg, params, "bursty", make_prompts(4, cfg.vocab_size, 99), "kernel",
@@ -1228,8 +1310,8 @@ def main_path_phase(card):
                "decode_attention@hopper": da.hopper_launches}
         want = {"flash_attention": cfg.n_layers * n_batches,
                 "decode_attention": cfg.n_layers * (MAX_NEW - 1) * n_batches,
-                "flash_attention@hopper": cfg.n_layers * n_batches,
-                "decode_attention@hopper": cfg.n_layers * (MAX_NEW - 1) * n_batches}
+                "flash_attention@hopper": cfg.n_layers * n_batches * hopper,
+                "decode_attention@hopper": cfg.n_layers * (MAX_NEW - 1) * n_batches * hopper}
         log(f"  {pattern}: launches {got} (expected {want})")
         if got != want:
             raise AssertionError(f"{pattern}: kernel launch counts {got} != {want}")
@@ -1240,24 +1322,46 @@ def main_path_phase(card):
             f"{PROMPT_LEN}: TTFT p50 {rep.ttft_p50_s * 1e3:.2f} ms, p99 "
             f"{rep.ttft_p99_s * 1e3:.2f} ms, decode {rep.decode_tok_s_p50:.2f} tok/s "
             f"per request (p50) = {1e3 / rep.decode_tok_s_p50:.3f} ms/token, "
-            f"span ms/token {rep.ms_per_token:.3f} [{card}; {cfg.n_layers} of 80 layers]")
+            f"span ms/token {rep.ms_per_token:.3f} [{card}; {cfg.name}, {depth}]")
         outs[pattern] = (prompts, done)
     peak = torch.cuda.max_memory_allocated()
     log(f"  peak device memory {peak / 2**30:.2f} GiB [{card}]")
-    breakdown(cfg, params, card)
+    breakdown(cfg, params, card, hopper)
 
-    log("phase 2: re-serve on the reference math (impl='ref'), then both impls "
+    log(f"phase {phase}: re-serve on the reference math (impl='ref'), then both impls "
         "fed the reference's tokens at the served batch shape")
+    ref_logits, refs = [], {}
     for pattern, (prompts, done) in outs.items():
-        ref = serve(cfg, params, pattern, prompts, "ref")
+        refs[pattern] = ref = serve(cfg, params, pattern, prompts, "ref")
         width = LimeServer(cfg, params, pattern=pattern).slots
         n_pos, n_tie, worst = compare_greedy(cfg, params, pattern, prompts, done,
-                                             ref, width)
+                                             ref, width, tol, ref_logits)
         n_same = sum(a.output == b.output for a, b in zip(done, ref))
         log(f"  {pattern}: {n_same}/{len(done)} requests token-identical; "
             f"{n_pos} positions compared, {n_tie} near ties, worst logit err "
-            f"{worst:.4f} of |logit| max (tol {LOGIT_REL_TOL})")
-    return launches, cfg, params
+            f"{worst:.4f} of |logit| max (tol {tol}) [{card}; {cfg.name}, {depth}]")
+    if faults:
+        prompts = outs["bursty"][0]
+        feed = np.array([r.output for r in refs["bursty"]], np.int64)
+        floor = noise_floor(cfg, params, prompts, feed, ref_logits[0])
+        log(f"  the reference's own noise floor: each bursty request fed alone against "
+            f"the 4-wide batch, logit err up to {floor:.4f} of |logit| max [{card}; "
+            f"{cfg.name}, {depth}]")
+        errs = fault_errors(cfg, params, prompts, feed, ref_logits[0])
+        log(f"  planted prefill faults, the kernel path's logit err / |logit| max against "
+            f"the reference: {', '.join(f'{k} {v:.4f}' for k, v, _ in errs)} (limit {tol}) "
+            f"[{card}]")
+        missed = [k for k, v, must in errs if must and v <= tol]
+        if missed:
+            raise AssertionError(f"{cfg.name}: the logit limit {tol} passes planted "
+                                 f"faults {missed}")
+    return launches
+
+
+def get_full_layers(cfg):
+    """The depth of cfg's published config (cfg may be a depth cut)."""
+    from repro_torch.configs import get_config
+    return get_config(cfg.name).n_layers
 
 
 def csrc_kernel(name):
@@ -1315,16 +1419,19 @@ def profiled(fn, kernel):
             "profiling the serve once more")
 
 
-def breakdown(cfg, params, card):
+def breakdown(cfg, params, card, hopper=True):
     """Device time by kernel class over one bursty serve (torch.profiler,
     kernels' own time), and the device's idle share of the serve's wall
-    time under the profiler."""
+    time under the profiler. The serve's csrc/ kernels must be the Hopper
+    bodies (decode_sm90_kernel, the mainloop), or with hopper=False the
+    bodies head_dim 160 takes (decode_tile_kernel, flash_mma_kernel)."""
     import torch
 
-    from repro_torch.configs.base import Family
     prompts = make_prompts(4, cfg.vocab_size, 7)
+    want = ({"decode_sm90_kernel", "sm90_attention_kernel"} if hopper
+            else {"decode_tile_kernel", "flash_mma_kernel"})
     prof, wall_us = profiled(lambda: serve(cfg, params, "bursty", prompts, "kernel"),
-                             "decode_sm90_kernel")
+                             "decode_sm90_kernel" if hopper else "decode_tile_kernel")
     by = {"decode_attention": 0.0, "flash_attention": 0.0, "gemm": 0.0,
           "other": 0.0}
     seen = {"decode_attention": {}, "flash_attention": {}}
@@ -1352,13 +1459,15 @@ def breakdown(cfg, params, card):
         if by[cls] <= 0:
             raise AssertionError(f"breakdown: the profiler shows no device time "
                                  f"for {cls}, whose kernels ran")
+    if {k for d in seen.values() for k in d} != want:
+        raise AssertionError(f"breakdown: the serve ran {seen}, not the bodies {want}")
     log(f"  in the serve: decode_attention {by['decode_attention'] / n_dec:.2f} us "
         f"per call ({n_dec} calls), flash_attention "
         f"{by['flash_attention'] / n_fl:.2f} us per call ({n_fl} calls)")
     parts = ", ".join(f"{k} {v / 1e3:.2f} ms ({v / busy:.1%})" for k, v in by.items())
     log(f"  bursty serve device time by class: {parts}; busy {busy / 1e3:.2f} ms of "
         f"{wall_us / 1e3:.2f} ms wall, idle share {1 - busy / wall_us:.1%} "
-        f"[{card}; {cfg.n_layers} of 80 layers]")
+        f"[{card}; {cfg.name}, {cfg.n_layers} of {get_full_layers(cfg)} layers]")
 
 
 # ----------------------------------------------------------------------------
@@ -1712,10 +1821,12 @@ def argmax_or_tie(name, got, ref, err):
     """got, ref: (n, V) fp32 logits of the same positions by two paths.
     Each row's pick under `got` must be the pick under `ref` or a near tie
     of it (ref's gap between the two picks within the rows' logit error
-    err). Returns the number of near ties."""
+    err, or got's own logits of the two picks equal: its argmax broke an
+    exact tie by index). Returns the number of near ties."""
     ag, ar = got.argmax(-1), ref.argmax(-1)
     gap = (ref.gather(-1, ar[:, None]) - ref.gather(-1, ag[:, None]))[:, 0]
-    bad = (ag != ar) & (gap > err)
+    kgap = (got.gather(-1, ag[:, None]) - got.gather(-1, ar[:, None]))[:, 0]
+    bad = (ag != ar) & (gap > err) & (kgap > 0)
     if bad.any():
         raise AssertionError(f"{name}: greedy picks differ outside a near "
                              f"tie (gaps {gap[bad].tolist()}, err {err})")
@@ -1819,25 +1930,26 @@ def engine_check_phase(cfg, params, card):
 
 
 # ----------------------------------------------------------------------------
-# phase 3c: the recurrent families, full width, 16 of 32 layers
+# phase 3c: the recurrent families, full width, 8 of 32 layers
 # ----------------------------------------------------------------------------
 RECURRENT_ARCHS = ("rwkv6-3b", "hymba-1.5b")
 # depth cut: at all 32 layers this phase took 250-443 s of the
-# script's time, host-bound; 16 layers keep the whole script inside 900 s
-# beside the 80-layer engine's three serves and phase 3d
-RECURRENT_LAYERS = 16
+# script's time, host-bound, at 16 layers 167-178 s; with phase 3e the
+# script took 924 s at 16, so 8 layers keep it inside 900 s beside the
+# 80-layer engine's serves, phase 3d and phase 3e
+RECURRENT_LAYERS = 8
 # Depth amplifies rounding on random weights: one bf16 ulp that flips in
 # layer 0 (0.6% of the hidden state's largest |value|) grows to 4-6% by
 # layer 16 on the H100, whatever flipped it (the kernel path against the
 # reference, or the reference against itself at another batch shape of its
 # GEMMs; PERF.md). So the recurrent serves hold the kernel path's logits to
-# a fixed RECURRENT_LOGIT_REL_TOL of the largest |logit|: the kernel path
-# read 5.9% (RWKV6) and 4.0% (Hymba) at 16 layers, a prefill that loses
-# layer 0's scan state or every layer's reads 132-137% (planted_faults,
-# checked in every run). The reference's own noise floor (noise_floor) is
-# read in the same run and must stay under NOISE_FLOOR_MAX (it read 5.9%
-# and 3.8% at 16 layers): a floor above it means the shared model code
-# itself moved. A
+# a fixed RECURRENT_LOGIT_REL_TOL of the largest |logit|, set from 16-layer
+# readings (the noise shrinks with depth): the kernel path read 5.9%
+# (RWKV6) and 4.0% (Hymba) at 16 layers, a prefill that loses layer 0's
+# scan state or every layer's reads 132-137% (planted_faults, checked in
+# every run). The reference's own noise floor (noise_floor) is read in the
+# same run and must stay under NOISE_FLOOR_MAX (it read 5.9% and 3.8% at
+# 16 layers): a floor above it means the shared model code itself moved. A
 # prefill's states are held to STATE_REL_TOL of each layer entry's largest
 # |value|: the one-pass prefill and the token-by-token decode round their
 # bf16 GEMMs differently (B·512 rows against B), while a capture fault (an
@@ -1925,15 +2037,14 @@ def noise_floor(cfg, params, prompts, feed, batch_logits):
 
 
 def planted_faults(cfg):
-    """Capture faults of a recurrent prefill, each planted in the kernel
-    path's prefilled cache: (label, edit of the cache, whether the logit
-    limit must reject it). A state lost early in the stack reaches the
-    logits through every later layer; one lost in the last layer reads
-    within the depth noise (the per-layer state check of
-    prefill_vs_stepwise is what sees it: a lost entry is off by 1)."""
+    """Capture faults of a prefill, each planted in the kernel path's
+    prefilled cache: (label, edit of the cache, whether the logit limit
+    must reject it). A state lost early in the stack reaches the logits
+    through every later layer; one lost in the last layer reads within the
+    depth noise (the per-layer state check of prefill_vs_stepwise is what
+    sees it: a lost entry is off by 1). Dense: layer 0's prompt K/V, or
+    every layer's prompt V, lost."""
     from repro_torch.configs.base import Family
-    scan = "rwkv_state" if cfg.family == Family.SSM else "ssm_state"
-    rows = ("last_tm", "last_cm") if cfg.family == Family.SSM else ("conv_state",)
     L = cfg.n_layers
 
     def zero(keys, layers):
@@ -1941,6 +2052,11 @@ def planted_faults(cfg):
             for k in keys:
                 cache[k][layers].zero_()
         return edit
+    if cfg.family == Family.DENSE:
+        return [("layer 0's prompt K/V lost", zero(("k", "v"), 0), True),
+                ("every layer's prompt V lost", zero(("v",), slice(None)), True)]
+    scan = "rwkv_state" if cfg.family == Family.SSM else "ssm_state"
+    rows = ("last_tm", "last_cm") if cfg.family == Family.SSM else ("conv_state",)
     return [(f"{scan} of every layer lost", zero((scan,), slice(None)), True),
             (f"{scan} of layer 0 lost", zero((scan,), 0), True),
             (f"{scan} of layer {L - 1} lost", zero((scan,), L - 1), False),
@@ -2722,25 +2838,30 @@ def full_model_phase(card):
 # ----------------------------------------------------------------------------
 # phase 3d: Alg. 1's plan on the 80-layer engine
 # ----------------------------------------------------------------------------
-def alg1_phase(card, cfg, params, budget, rate, prompts):
-    """The launcher's hetero path on phase 3b's budget and H2D rate: Alg. 1
-    (n_emp = the prompt length) at the weight budget's resident share, no
-    retier headroom (its pinned store is n_seg one-layer slots). Serves
-    phase 3b's bursty batch once and holds every token to this engine's
-    verify-pass greedy. Returns the main path's launches."""
+def alg1_phase(card, cfg, params, budget, rate, prompts, phase="3d"):
+    """The launcher's hetero path at a weight budget and an H2D rate (phase
+    3d: phase 3b's): Alg. 1 (n_emp = the prompt length) at the budget's
+    resident share, no retier headroom (its pinned store is n_seg
+    one-layer slots). Serves the bursty batch `prompts` once (spec k = 4,
+    exact launch counts: prefill rounds on the Hopper mainloop, verify
+    passes on the verify body) and holds every token to this engine's
+    verify-pass greedy; prints the plan, pinned bytes, the H2D rate
+    measured on its store and the predicted T_total (at that rate) beside
+    the measured decode and verify passes. Returns the main path's
+    launches."""
     import numpy as np
     import torch
 
     from repro_torch.core.engine import InterleavedEngine
     from repro_torch.kernels.decode_attention import multiquery as mq
     from repro_torch.kernels.decode_attention import ops as da
-    from repro_torch.launch.serve import HBM_FRAC, hetero_plan
+    from repro_torch.launch.serve import HBM_FRAC, cost_env, hetero_plan, measure_h2d
     from repro_torch.serving import LimeServer, summarize
     from repro_torch.specdec import SpecConfig
 
     gc.collect()
     torch.cuda.empty_cache()
-    host_mem("at phase 3d")
+    host_mem(f"at phase {phase}")
     L, l_bytes = cfg.n_layers, cfg.layer_params() * 2
     r, env, scale = hetero_plan(cfg, budget, width=4, prompt_len=PROMPT_LEN,
                                 n_emp=PROMPT_LEN, load_bw=rate * 1e9)
@@ -2750,7 +2871,8 @@ def alg1_phase(card, cfg, params, budget, rate, prompts):
     eng = InterleavedEngine(cfg, plan, mb=4, max_len=MAX_LEN, retier_headroom=0)
     n_res = len(eng.resident_layer_ids())
     mem = meminfo()
-    log(f"phase 3d: Alg. 1's plan, {L} layers: n_seg {plan.n_seg}, "
+    log(f"phase {phase}: {cfg.name}, Alg. 1's plan at a {budget / 1e9:.2f} GB weight "
+        f"budget, {L} layers: n_seg {plan.n_seg}, "
         f"{dataclasses.astuple(plan.stages[0])} (resident, streamed full / attention / "
         f"MLP a segment), off_trim {plan.off_trim}; laid out on the engine's grid "
         f"(k_res {plan.k_res}, k_off {plan.k_off}, {plan.n_layers} slots, the last "
@@ -2773,6 +2895,14 @@ def alg1_phase(card, cfg, params, budget, rate, prompts):
     log(f"  tiers built in {time.monotonic() - t0:.1f} s: pinned "
         f"{eng.store.nbytes / 1e9:.2f} GB, HBM allocated "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB [{card}]")
+    rate_here = measure_h2d(eng.store.data.flatten(0, 1)) / 1e9
+    cost_env(cfg, budget, width=4, prompt_len=PROMPT_LEN,
+             load_bw=rate_here * 1e9).evaluate(plan)
+    log(f"  pinned H2D on a side stream from this store: {rate_here:.2f} GB/s (one-layer "
+        f"copies of {l_bytes / 1e9:.3f} GB); the plan priced at it: T_total "
+        f"{plan.t_total:.4f} s = T_comp {plan.t_comp:.4f} + T_uncover "
+        f"{plan.t_uncover:.4f} [{card}]")
+    rate = rate_here
     srv = LimeServer(cfg, params, engine=eng, max_len=MAX_LEN, pattern="bursty",
                      spec=SpecConfig(k=SPEC_K, adapt_k=False),
                      prefill_chunk_tokens=PREFILL_CHUNK)
@@ -2784,7 +2914,7 @@ def alg1_phase(card, cfg, params, budget, rate, prompts):
     log(f"  bursty: 4 requests x {MAX_NEW_80} tokens: TTFT p50 {rep.ttft_p50_s * 1e3:.1f} "
         f"ms; decode {1e3 / rep.decode_tok_s_p50:.1f} ms/token per request (p50); "
         f"{len(be.rounds)} rounds; launches mq {m} ({vf} verify body), decode {d}; "
-        f"{wall:.1f} s wall [{card}; {L} layers]")
+        f"{wall:.1f} s wall [{card}; {cfg.name}, {L} layers]")
     st = eng.init_state(params)
     toks = torch.from_numpy(np.stack(prompts[:4])).long().cuda()
     lg, st = eng.prefill_partial(st, toks, chunk=PREFILL_CHUNK)
@@ -2799,14 +2929,20 @@ def alg1_phase(card, cfg, params, budget, rate, prompts):
             times[label].append(timed_s(fn))
             eng.rollback(st, P)
         log(f"  one {label} pass: {', '.join(f'{t * 1e3:.1f}' for t in times[label])} "
-            f"ms [{card}; {L} layers, B 4]")
+            f"ms [{card}; {cfg.name}, {L} layers, B 4]")
     log(f"  predicted T_total {plan.t_total * 1e3:.1f} ms against measured decode "
         f"{min(times['decode']) * 1e3:.1f} ms, verify {min(times['verify q_len 5']) * 1e3:.1f} "
         f"ms; streamed {(L - n_res) * l_bytes / 1e9:.1f} GB / {rate:.1f} GB/s = "
-        f"{(L - n_res) * l_bytes / (rate * 1e6):.0f} ms of copy [{card}; {L} layers, B 4]")
+        f"{(L - n_res) * l_bytes / (rate * 1e6):.0f} ms of copy [{card}; {cfg.name}, {L} layers, B 4]")
+    # kernel 4's µs per call in serve: a verify pass, a chunked-prefill round
+    pass_profile(eng, st, P, lambda: eng.verify_step(st, mat), card,
+                 f"{cfg.name} verify q_len 5")
+    st0 = eng.init_state(params)
+    pass_profile(eng, st0, 0, lambda: eng.verify_step(st0, toks[:, :PREFILL_CHUNK]),
+                 card, f"{cfg.name} chunked-prefill round (q_len {PREFILL_CHUNK})")
     n_pos, n_tie, worst = reference_check(eng, params, cfg, prompts[:4], done, "bursty")
     log(f"  bursty: {n_pos} positions compared, {n_tie} near ties, worst "
-        f"verify-vs-decode logit err {worst:.4f} of |logit| max")
+        f"verify-vs-decode logit err {worst:.4f} of |logit| max [{cfg.name}]")
     eng.close()
     return {"mq_decode_attention": m, "decode_attention": d,
             "mq_decode_attention@prefill": h, "decode_attention@hopper": hd,
@@ -2816,6 +2952,157 @@ def alg1_phase(card, cfg, params, budget, rate, prompts):
 def _leaves(t):
     for v in t.values():
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
+
+
+# ----------------------------------------------------------------------------
+# phase 3e: the paper's other Tab. III models, StableLM-2-12B, Pixtral-12B
+# ----------------------------------------------------------------------------
+# Alg. 1's weight budgets on one H100 (the launcher's --hbm-bytes): LLaMA-
+# 2-13B's offloading plans are feasible at few budgets (one streamed layer
+# a segment fits its memory formula): 22e9 keeps 28 of 40 layers resident
+# and streams 12 (n_seg 12); Qwen3-32B at 40e9 keeps 36 of 64 and streams
+# 28 (27.3 GB pinned)
+TAB3_BUDGETS = (("llama2-13b", 22e9), ("qwen3-32b", 40e9))
+TAB3_CUT = 8               # StableLM-2-12B and Pixtral-12B: 8 of 40 layers
+# LLaMA-2-13B's 40 layers on the single-device path: depth carries one
+# flipped bf16 ulp on to a large share of |logit| max on random weights.
+# On the H100 the kernel path read 0.167 of |logit| max against the
+# reference at 40 layers, the reference against itself at another batch
+# shape 0.081, the engine's decode path against its verify path 0.128
+# (LLaMA-2) and 0.147 (Qwen3, 64 layers); a prefill that loses layer 0's
+# K/V or every layer's V reads 1.83-1.92, and must read above the limit
+TAB3_LOGIT_REL_TOL = 0.25
+PIXTRAL_PATCHES, PIXTRAL_TEXT, PIXTRAL_STEPS = 256, 256, 16
+
+
+def tab3_phase(card, rate):
+    """Phase 3e: LLaMA-2-13B at all 40 layers on the single-device path;
+    LLaMA-2-13B and Qwen3-32B (all 64 layers) through Alg. 1's engine at
+    TAB3_BUDGETS (H2D rate `rate` for the planning, phase 3b's);
+    StableLM-2-12B (parallel blocks, head_dim 160) at 8 layers on the
+    single-device path; Pixtral-12B's patch prefill at 8 layers. Returns
+    {row key: launches} of kernels 1, 2 and 4 at these shapes (the keys
+    of kernel_phase's rows) and the summed main-path launches."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    def fresh():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    shapes, launches = {}, {}
+
+    def add(got):
+        for k, n in got.items():
+            launches[k] = launches.get(k, 0) + n
+
+    cfg = get_config("llama2-13b")
+    t0 = time.monotonic()
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    log(f"phase 3e: {cfg.name} (Tab. III row 1) on the single-device path at full width "
+        f"and all {cfg.n_layers} layers (d_model {cfg.d_model}, {cfg.n_heads} heads, "
+        f"{cfg.n_kv_heads} kv heads: G 1, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}): "
+        f"{sum(t.numel() for t in _leaves(params)) / 1e9:.2f} B params in "
+        f"{time.monotonic() - t0:.1f} s [{card}]")
+    got = single_device_checks(cfg, params, card, "3e", tol=TAB3_LOGIT_REL_TOL,
+                               faults=True)
+    add(got)
+    shapes["decode_attention@llama2"] = got["decode_attention"]
+    del params
+    fresh()
+    for arch, budget in TAB3_BUDGETS:
+        cfg = get_config(arch)
+        got = alg1_phase(card, cfg, M.init_params_by_layer(cfg, seed=0), budget, rate,
+                         make_prompts(4, cfg.vocab_size, 0), phase="3e")
+        add(got)
+        if arch == "llama2-13b":
+            shapes["decode_attention@llama2"] += got["decode_attention"]
+            shapes["mq_decode_attention@llama2"] = got["mq_decode_attention@verify"]
+        fresh()
+    cfg = dataclasses.replace(get_config("stablelm-12b"), n_layers=TAB3_CUT)
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    log(f"phase 3e: {cfg.name} (parallel blocks: no ln2, head_dim {cfg.head_dim}) on the "
+        f"single-device path at full width, depth cut to {cfg.n_layers} of "
+        f"{get_full_layers(cfg)} layers: the non-Hopper attention bodies [{card}]")
+    got = single_device_checks(cfg, params, card, "3e", hopper=False, faults=True)
+    add(got)
+    shapes["decode_attention@dh160"] = got["decode_attention"]
+    shapes["flash_attention@dh160"] = got["flash_attention"]
+    del params
+    fresh()
+    add(pixtral_check(card))
+    fresh()
+    return shapes, launches
+
+
+def pixtral_check(card):
+    """Pixtral-12B's backbone at full width, TAB3_CUT layers, at the model
+    level: prefill of PIXTRAL_PATCHES random patch embeddings followed by a
+    PIXTRAL_TEXT-token prompt (B 4), then PIXTRAL_STEPS decode steps, the
+    kernel path against impl="ref" on the card (both fed the reference's
+    picks): argmax equal or a near tie, logits within LOGIT_REL_TOL of
+    |logit| max; the patches move the logits; every launch on the Hopper
+    bodies. Returns the launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(get_config("pixtral-12b"), n_layers=TAB3_CUT)
+    V, L = cfg.vocab_size, cfg.n_layers
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = M.init_params(cfg, gen)
+    patches = torch.randn((4, PIXTRAL_PATCHES, cfg.d_model), generator=gen,
+                          device="cuda")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        1, V, (4, PIXTRAL_TEXT))).long().cuda()
+    log(f"phase 3e: {cfg.name} ({cfg.family.value}) backbone at full width, depth cut "
+        f"to {L} of {get_full_layers(cfg)} layers: prefill of {PIXTRAL_PATCHES} patch "
+        f"embeddings + {PIXTRAL_TEXT} text tokens (B 4), {PIXTRAL_STEPS} decode steps, "
+        f"kernel path vs impl='ref' [{card}]")
+    zero_counts()
+    out = {}
+    for impl in ("ref", "kernel"):
+        cache = M.init_cache(cfg, 4, MAX_LEN)
+        lg, cache = M.prefill(cfg, params, toks, cache, frontend_embeds=patches, impl=impl)
+        if cache["pos"] != PIXTRAL_PATCHES + PIXTRAL_TEXT:
+            raise AssertionError(f"pixtral: prefill left pos {cache['pos']}")
+        out[impl] = (lg[:, -1, :V].float(), cache)
+    bare, _ = M.prefill(cfg, params, toks, M.init_cache(cfg, 4, MAX_LEN), impl="ref")
+    moved = (bare[:, -1, :V].float() - out["ref"][0]).abs().max().item()
+    (lr, cr), (lk, ck) = out["ref"], out["kernel"]
+    worst, ties = 0.0, 0
+    for t in range(PIXTRAL_STEPS + 1):
+        err, scale = (lk - lr).abs().max().item(), lr.abs().max().item()
+        worst = max(worst, err / scale)
+        if err > LOGIT_REL_TOL * scale:
+            raise AssertionError(f"pixtral position {t}: kernel logits off the reference")
+        ties += argmax_or_tie(f"pixtral position {t}", lk, lr, err)
+        if t == PIXTRAL_STEPS:
+            break
+        nxt = lr.argmax(-1, keepdim=True)
+        lg, cr = M.decode_step(cfg, params, cr, nxt, impl="ref")
+        lr = lg[:, -1, :V].float()
+        lg, ck = M.decode_step(cfg, params, ck, nxt, impl="kernel")
+        lk = lg[:, -1, :V].float()
+    torch.cuda.synchronize()
+    got = read_counts()
+    want = {"flash_attention": L, "flash_attention@hopper": L,
+            "decode_attention": L * PIXTRAL_STEPS,
+            "decode_attention@hopper": L * PIXTRAL_STEPS}
+    log(f"  {4 * (PIXTRAL_STEPS + 1)} positions: worst logit err {worst:.4f} of |logit| max "
+        f"(tol {LOGIT_REL_TOL}), {ties} near ties; without the patches the last "
+        f"prompt logits move by {moved:.3f}; launches "
+        f"{ {k: got[k] for k in want} } [{card}; {L} layers]")
+    if {k: got[k] for k in want} != want or any(
+            got[k] for k in got if k not in want):
+        raise AssertionError(f"pixtral: launches {got}, expected {want}")
+    if moved <= LOGIT_REL_TOL * out["ref"][0].abs().max().item():
+        raise AssertionError("pixtral: the patch embeddings do not reach the logits")
+    return want
 
 
 # ----------------------------------------------------------------------------
@@ -2990,8 +3277,14 @@ def main() -> int:
             launches[k] = launches.get(k, 0) + n
         for k, n in alg1_phase(card, **state80).items():
             launches[k] = launches.get(k, 0) + n
+        rate = state80["rate"]
         del state80
-        done("3d", t)
+        t = done("3d", t)
+        shapes, got = tab3_phase(card, rate)
+        for k, n in got.items():
+            launches[k] = launches.get(k, 0) + n
+        launches.update(shapes)
+        done("3e", t)
 
         for name in ("decode_attention@hopper", "paged_decode_attention@hopper",
                      "mq_decode_attention@verify", "wkv_scan@chunked", "ssm_scan@chunked"):
@@ -3017,7 +3310,18 @@ def main() -> int:
                 ("wkv_scan", "src/repro_torch/csrc/wkv_scan.cu",
                  "src/repro/kernels/rwkv6_scan/kernel.py:80"),
                 ("ssm_scan", "src/repro_torch/csrc/ssm_scan.cu",
-                 "src/repro/kernels/ssm_scan/kernel.py:80")):
+                 "src/repro/kernels/ssm_scan/kernel.py:80"),
+                # phase 3e's shapes: LLaMA-2-13B (G 1, 40 KV heads) and
+                # StableLM-2-12B (head_dim 160, the non-Hopper bodies)
+                ("decode_attention@llama2", "src/repro_torch/csrc/decode_attention.cu",
+                 "src/repro/kernels/decode_attention/kernel.py:88"),
+                ("mq_decode_attention@llama2",
+                 "src/repro_torch/csrc/mq_decode_attention.cu",
+                 "src/repro/kernels/decode_attention/multiquery.py:107"),
+                ("decode_attention@dh160", "src/repro_torch/csrc/decode_attention.cu",
+                 "src/repro/kernels/decode_attention/kernel.py:88"),
+                ("flash_attention@dh160", "src/repro_torch/csrc/flash_attention.cu",
+                 "src/repro/kernels/flash_attention/kernel.py:104")):
             r = rows[name]
             if launches[name] <= 0:
                 raise AssertionError(f"{name} never launched on the main path")

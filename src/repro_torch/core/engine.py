@@ -251,7 +251,7 @@ class InterleavedEngine:
             raise NotImplementedError(
                 "the port runs one stage; the multi-stage ring waits until a "
                 "run shows more than one card")
-        if cfg.family != Family.DENSE or cfg.parallel_block:
+        if cfg.family != Family.DENSE:
             raise NotImplementedError(
                 f"the port's engine runs the dense family, not {cfg.family}")
         self.cfg, self.plan = cfg, plan

@@ -38,11 +38,11 @@ from repro_torch.kvcache.pool import PagedKVConfig, PagePool
 from repro_torch.models import model as M
 from repro_torch.models.attention import (IMPLS, paged_attn_decode,
                                           paged_attn_decode_multi)
-from repro_torch.models.modules import embed, mlp, rms_norm, unembed
+from repro_torch.models.modules import embed, rms_norm, unembed
 
 
 def _check(cfg: ModelConfig, impl: str) -> None:
-    if cfg.family != Family.DENSE or cfg.parallel_block:
+    if cfg.family != Family.DENSE:
         raise NotImplementedError(
             f"paged decode in the port serves the dense family, not "
             f"{cfg.family} (a recurrent state per sequence that shared "
@@ -163,8 +163,7 @@ class PagedDecodeCache:
                     p["attn"], xn, self.k_pool[l], self.v_pool[l],
                     page_ids[:, 0], self.pos % ps, bt, ctx, self.pos,
                     rope_theta=cfg.rope_theta, window=window, impl=self.impl)
-            x = x + a_out
-            x = x + mlp(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps))
+            x = M.dense_rest(cfg, p, x, xn, a_out)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         return unembed(params, x)
 

@@ -1,6 +1,9 @@
 """Decoder models (counterpart of ``repro.models.model``): the dense
-family, the SSM family (RWKV6) and the hybrid family (Hymba: attention and
-Mamba heads side by side in each block).
+family (with StableLM-2's parallel blocks: attention and MLP on one
+pre-norm, no second norm), the VLM family (the dense backbone, prefilled
+with patch embeddings before the text), the SSM family (RWKV6) and the
+hybrid family (Hymba: attention and Mamba heads side by side in each
+block).
 
 * ``build_param_specs(cfg)`` / ``init_params(cfg, generator, device)`` —
   the parameter tree in the JAX package's layout, layers stacked on a
@@ -12,12 +15,15 @@ Mamba heads side by side in each block).
   ``pos``
 * ``prefill`` — the prompt pass, filling the cache (K/V ring-rolled when
   the prompt outruns the cache, the recurrent states as the scans leave
-  them) and returning last-token logits
+  them) and returning last-token logits; ``frontend_embeds`` (B, n_patch,
+  d_model) go in front of the prompt's embeddings and take its first
+  positions
 * ``decode_step`` — one token, written at slot ``pos % S_c``; the
   recurrent families advance their states by one step
 * ``verify_step`` — q_len tokens in one pass (speculative verification
   and the engine's chunked prefill), written contiguously from slot
-  ``pos % S_c``; dense only (a recurrent state cannot roll back by masking)
+  ``pos % S_c``; dense only (a recurrent state cannot roll back by
+  masking; the VLM is refused as the reference refuses it)
 * ``decode_layer`` — the one dense per-layer body that ``decode_step``,
   ``verify_step`` and the interleaved engine all run
 * ``init_params_by_layer`` — shared weights plus a layer *source* that
@@ -50,20 +56,20 @@ from repro_torch.models.ssm import (mamba_forward, mamba_head_specs,
 GLOBAL_WINDOW = 2 ** 30   # sentinel: effectively unwindowed
 
 
-FAMILIES = (Family.DENSE, Family.SSM, Family.HYBRID)
+FAMILIES = (Family.DENSE, Family.VLM, Family.SSM, Family.HYBRID)
 
 
 def _check(cfg: ModelConfig, impl: str) -> None:
-    if cfg.family not in FAMILIES or cfg.parallel_block:
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"the port runs the dense, SSM and hybrid families so far, not "
-            f"{cfg.family}")
+            f"the port runs the dense, VLM, SSM and hybrid families so far, "
+            f"not {cfg.family}")
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, not {impl!r}")
 
 
 def _check_dense(cfg: ModelConfig, what: str) -> None:
-    if cfg.family != Family.DENSE or cfg.parallel_block:
+    if cfg.family != Family.DENSE:
         raise NotImplementedError(
             f"{what} needs pure-KV per-layer state (the dense family), not "
             f"{cfg.family}")
@@ -73,13 +79,15 @@ def _check_dense(cfg: ModelConfig, what: str) -> None:
 # Params
 # ============================================================================
 def _dense_layer_specs(cfg: ModelConfig) -> dict:
-    return {
+    s = {
         "ln1": rms_norm_spec(cfg.d_model),
         "attn": attention_specs(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                                 cfg.head_dim),
-        "ln2": rms_norm_spec(cfg.d_model),
-        "mlp": mlp_specs(cfg.d_model, cfg.d_ff),
     }
+    if not cfg.parallel_block:
+        s["ln2"] = rms_norm_spec(cfg.d_model)
+    s["mlp"] = mlp_specs(cfg.d_model, cfg.d_ff)
+    return s
 
 
 def _rwkv_layer_specs(cfg: ModelConfig) -> dict:
@@ -106,8 +114,8 @@ def _hymba_layer_specs(cfg: ModelConfig) -> dict:
     }
 
 
-_LAYER_SPECS = {Family.DENSE: _dense_layer_specs, Family.SSM: _rwkv_layer_specs,
-                Family.HYBRID: _hymba_layer_specs}
+_LAYER_SPECS = {Family.DENSE: _dense_layer_specs, Family.VLM: _dense_layer_specs,
+                Family.SSM: _rwkv_layer_specs, Family.HYBRID: _hymba_layer_specs}
 
 
 def build_param_specs(cfg: ModelConfig) -> dict:
@@ -256,7 +264,18 @@ def _hymba_rest(cfg: ModelConfig, p: dict, x: torch.Tensor, xn: torch.Tensor,
                                 norm_eps=cfg.norm_eps, impl=impl)
     fused = 0.5 * (rms_norm(a_out, p["ln_attn"], cfg.norm_eps)
                    + rms_norm(m_out, p["ln_ssm"], cfg.norm_eps))
-    x = x + fused @ p["w_fuse"]
+    return dense_rest(cfg, p, x, xn, fused @ p["w_fuse"])
+
+
+def dense_rest(cfg: ModelConfig, p: dict, x: torch.Tensor, xn: torch.Tensor,
+               a_out: torch.Tensor) -> torch.Tensor:
+    """The rest of a dense layer once its attention a_out over the normed
+    xn is known: the MLP after the residual add, on its own pre-norm; or,
+    for a parallel block (StableLM-2), the MLP on the attention's pre-norm
+    xn, both added to the residual."""
+    if cfg.parallel_block:
+        return x + a_out + mlp(p["mlp"], xn)
+    x = x + a_out
     return x + mlp(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps))
 
 
@@ -288,14 +307,23 @@ def _prompt_pos_ids(cache: dict, S: int) -> None:
 
 
 def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor, cache: dict,
-            *, impl: str = "ref"):
+            *, frontend_embeds: Optional[torch.Tensor] = None,
+            impl: str = "ref"):
     """Run the prompt, fill the cache in place, return (last-token logits
     (B, 1, PV), cache). tokens: (B, S) int. The SSM family continues from
     the cache's states and position (as the reference's _ssm_prefill);
-    the attention families start from an empty cache."""
+    the attention families start from an empty cache. frontend_embeds
+    (B, n_patch, d_model), where given (the VLM's patch embeddings), are
+    cast to bf16 and run in front of the tokens: they take positions
+    0 .. n_patch - 1 and the cache counts them."""
     _check(cfg, impl)
-    B, S = tokens.shape
     x = embed(params, tokens).to(torch.bfloat16)
+    if frontend_embeds is not None:
+        if cfg.family == Family.SSM:
+            raise NotImplementedError("frontend embeddings feed the attention "
+                                      "families' prefill, not the SSM's")
+        x = torch.cat([frontend_embeds.to(x.dtype), x], 1)
+    S = x.shape[1]
     windows = layer_windows(cfg, cfg.n_layers)
     for l in range(cfg.n_layers):
         p = layer_params(params, l)
@@ -309,8 +337,7 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor, cache: dict,
         if cfg.family == Family.HYBRID:
             x = _hymba_rest(cfg, p, x, xn, a_out, cache, l, impl=impl)
         else:
-            x = x + a_out
-            x = x + mlp(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps))
+            x = dense_rest(cfg, p, x, xn, a_out)
     if "pos_ids" in cache:
         _prompt_pos_ids(cache, S)
         cache["pos"] = S
@@ -349,10 +376,10 @@ def decode_layer(cfg: ModelConfig, p: dict, x: torch.Tensor, cache: dict,
     q_len) over the one-token attention of decode_step (q_len 1)."""
     attn = attn_decode_multi if multi else attn_decode
     xn = rms_norm(x, p["ln1"], cfg.norm_eps)
-    x = x + attn(p["attn"], xn, cache["k"][l], cache["v"][l],
+    a_out = attn(p["attn"], xn, cache["k"][l], cache["v"][l],
                  cache["pos_ids"], cache["pos"], slot,
                  rope_theta=cfg.rope_theta, window=window, impl=impl)
-    return x + mlp(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps))
+    return dense_rest(cfg, p, x, xn, a_out)
 
 
 def _hymba_decode_layer(cfg: ModelConfig, p: dict, x: torch.Tensor,

@@ -24,6 +24,7 @@ FLASH_CASES = [
     (1, 96, 192, 3, 1, 64, True, None, "bf16"),     # Sq != Skv, odd H
     (1, 32, 32, 2, 2, 256, True, 8, "f32"),         # gemma3 head_dim
     (1, 64, 64, 10, 2, 64, True, 32, "bf16"),       # G 5 (Hymba's grouping)
+    (2, 64, 64, 8, 2, 160, True, None, "bf16"),     # G 4, dh 160 (StableLM-2)
 ]
 
 DECODE_CASES = [
@@ -35,6 +36,7 @@ DECODE_CASES = [
     (1, 64, 4, 2, 64, 200, 48, True),
     (3, 96, 6, 2, 32, 10, None, False),     # mostly-empty cache
     (2, 96, 10, 2, 64, 70, 64, False),      # G 5 (Hymba's grouping), window
+    (2, 96, 8, 2, 160, 70, None, False),    # G 4, dh 160 (StableLM-2)
 ]
 
 # The Hopper decode body (decode_sm90_kernel) at its ring's and cluster's
@@ -72,6 +74,7 @@ MQ_CASES = [
     (1, 3, 32, 4, 2, 32, 5, None, "first-masked"),
     (2, 5, 64, 4, 4, 64, 40, None, "stale"),         # G 1: a verify pass
     (1, 9, 80, 2, 2, 32, 60, 4, "ring"),             # G 1, window < q_len
+    (2, 5, 64, 8, 2, 160, 40, None, "stale"),        # G 4, dh 160 (StableLM-2)
 ]
 
 # The verify body (verify_sm90_kernel, kernels 4 and 5 at q_len·G <= 128)
@@ -98,6 +101,7 @@ VERIFY_SM90_CASES = [
     (1, 4, 64, 16, 2, 64, 40, 2, "linear"),             # window 2 < q_len 4
     (2, 6, 200, 16, 2, 64, 150, None, "first-masked"),  # row 0 sees nothing
     (1, 3, 200, 16, 2, 128, 5, None, "masked"),         # no row sees a slot
+    (4, 5, 1024, 40, 40, 128, 1019, None, "linear"),    # LLaMA-2-13B: G 1, KV 40
 ]
 
 # Shapes the Hopper mainloop (csrc/attention_sm90.cuh) takes: flash at
@@ -122,6 +126,8 @@ MQ_HOPPER_CASES = [
     (4, 128, 1024, 64, 8, 128, 1500, 700, "ring"),
     (4, 128, 1024, 64, 8, 128, 300, None, "stale"),
     (4, 128, 700, 64, 8, 80, 333, None, "linear"),   # dh 80, S_c % 64 != 0
+    (4, 512, 1024, 40, 40, 128, 0, None, "linear"),  # LLaMA-2-13B's round: G 1
+    (2, 200, 512, 4, 4, 128, 100, 150, "stale"),     # G 1, window
 ]
 
 MQ_PAGED_HOPPER_CASES = [
@@ -131,6 +137,8 @@ MQ_PAGED_HOPPER_CASES = [
     (4, 512, 64, 8, 128, 64, 16, (1000, 900, 600, 512), None),
     (4, 512, 64, 8, 128, 16, 64, (1024, 777, 513, 640), 256),
     (4, 128, 64, 8, 128, 24, 43, (1019, 700, 300, 130), None),  # 8-row boxes
+    (4, 512, 40, 40, 128, 64, 16, (1000, 900, 600, 512), None),  # G 1
+    (2, 200, 4, 4, 128, 16, 40, (600, 333), 150),               # G 1, window
 ]
 
 NP_DT = {"bf16": ml_dtypes.bfloat16, "f32": np.float32}
@@ -219,6 +227,7 @@ PAGED_CASES = [
     (2, 16, 2, 128, 16, 3, (5, 48), None),           # G 8
     (1, 4, 4, 64, 8, 6, (41,), 9),                   # window in a page
     (2, 8, 2, 64, 16, 4, (1, 30), None),             # one live slot
+    (2, 8, 2, 160, 16, 4, (50, 23), None),           # G 4, dh 160 (StableLM-2)
 ]
 
 # The Hopper decode body through block tables: page sizes 8, 24, 64.
@@ -240,6 +249,7 @@ MQ_PAGED_CASES = [
     (3, 9, 4, 2, 80, 8, 5, (9, 25, 40), 7),          # window < q_len
     (2, 5, 4, 4, 64, 8, 6, (45, 30), None),          # G 1: a verify pass
     (2, 3, 2, 2, 64, 16, 4, (50, 7), 2),             # G 1, window < q_len
+    (2, 5, 8, 8, 128, 16, 8, (100, 37), None),       # G 1, dh 128 (LLaMA-2)
 ]
 
 # The verify body through block tables (main path: page 64, 16 pages;

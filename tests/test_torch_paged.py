@@ -40,6 +40,7 @@ from repro.kvcache import pool as JP  # noqa: E402
 from repro.kvcache.paged_decode import PagedDecodeCache as JPDC  # noqa: E402
 from repro.models import model as JM  # noqa: E402
 from repro.prefixcache import radix as JR  # noqa: E402
+from repro_torch.configs.base import Family  # noqa: E402
 from repro_torch.kernels.decode_attention import multiquery as mq  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as da  # noqa: E402
 from repro_torch.kernels.decode_attention import paged as pg  # noqa: E402
@@ -372,8 +373,11 @@ def test_prefix_cache_refuses_an_engine():
     eng = types.SimpleNamespace(device=torch.device("cpu"), mb=1)
     with pytest.raises(NotImplementedError):
         EngineBackend(cfg, {}, engine=eng, prefix_cache=True)
+    # the paged path serves the dense family only (parallel blocks
+    # included), as the JAX package's does: the VLM's prefill takes patch
+    # embeddings that no page holds
     with pytest.raises(NotImplementedError):
-        PagedDecodeCache(dataclasses.replace(cfg, parallel_block=True), 1, 16,
+        PagedDecodeCache(dataclasses.replace(cfg, family=Family.VLM), 1, 16,
                          page_size=8, device="cpu")
     with pytest.raises(ValueError):
         PagedDecodeCache(cfg, 1, 16, page_size=8, impl="pallas", device="cpu")

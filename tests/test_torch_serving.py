@@ -25,6 +25,8 @@ MAX_LEN, MAX_NEW = 32, 6
     ("tiny", "sporadic", [8, 8]),
     ("tiny", "bursty", [8, 5, 8, 3]),        # uneven: left-padding with 0
     ("gemma3-1b", "bursty", [10, 10, 7, 10]),
+    ("stablelm-12b", "bursty", [8, 5, 8, 3]),   # parallel blocks
+    ("pixtral-12b", "bursty", [8, 5, 8, 3]),    # the VLM, text prompts
 ])
 def test_lime_server_token_identical(arch, pattern, lens, tiny_dense_factory):
     cfg = tiny_dense_factory() if arch == "tiny" else get_smoke_config(arch)
