@@ -77,6 +77,20 @@ Phases; any failure exits non-zero without the final ``ok`` line:
    bit-equal to the contiguous decode_step (kernel 1) at every step.
    Printed: pool pages and bytes, peak HBM, cold vs warm prefill time, the
    paged kernels' µs per call in a profiled serve.
+2c. speculative decoding on the single-device path, phase 2's weights and
+   bursty batch, k = 4, five ways: dense with n-gram drafts; dense with a
+   host ResidentDraft over all 8 layers (the draft is the target: the
+   accept path); paged (page 64) with n-gram drafts (kernel 5's verify
+   body); paged with the radix prefix cache and the gemma3-1b model draft;
+   dense at temperature 0.8 / top-p 0.95 (rejection sampling). Every step
+   launches exactly what it implies (the verify body of kernel 4 or 5 per
+   round, the drafts' own flash and decode launches); every greedy served
+   token is phase 2's pick on its prefix or a near tie; the whole-stack
+   draft accepts drafts and commits more than one token in a round; a
+   planted fault that
+   commits one token past a correction is rejected; the sampled serve's
+   counts are exact. Printed: acceptance, committed tokens per round, TTFT,
+   ms/token, and kernel 5's verify µs per call in a profiled serve.
 3a. the interleaved engine against the model on phase 2's weights, in a
    plan forced to stream (2 chunks of 2 resident + 2 streamed layers):
    decode and verify logits bit-equal to the model's kernel path (every
@@ -144,11 +158,14 @@ Phases; any failure exits non-zero without the final ``ok`` line:
    (MHA: G 1, 40 KV heads) at full width and all 40 layers on the
    single-device path, as phase 2 (exact launch counts, every call on the
    Hopper bodies, a profiled serve, the reference re-serve within
-   TAB3_LOGIT_REL_TOL; the reference's own noise floor read, planted
-   prefill faults rejected); LLaMA-2-13B and Qwen3-32B (all 64 layers)
-   through Alg. 1's engine as phase 3d, at TAB3_BUDGETS (about a third and
-   a half of their layers streamed; every verify on the verify body at G 1
-   and G 8, every prefill round on the Hopper mainloop); StableLM-2-12B
+   TAB3_LOGIT_REL_TOL; the reference's own noise floor read and held under
+   TAB3_NOISE_FLOOR_MAX, planted prefill faults rejected); LLaMA-2-13B and
+   Qwen3-32B (all 64 layers) through Alg. 1's engine as phase 3d, at
+   TAB3_BUDGETS (about a third and a half of their layers streamed; every
+   verify on the verify body at G 1 and G 8, every prefill round on the
+   Hopper mainloop), LLaMA-2-13B's engine serving the batch once more with
+   n-gram drafts proposed on the host, held to the same verify-pass
+   greedy; StableLM-2-12B
    (parallel blocks, head_dim 160) at 8 of 40 layers on the single-device
    path, as phase 2, every flash and decode launch on the bodies head_dim
    160 takes (flash_mma_kernel, decode_tile_kernel) with their µs per call
@@ -156,9 +173,9 @@ Phases; any failure exits non-zero without the final ``ok`` line:
    prefill of 256 patch embeddings and 256 text tokens, then 16 decode
    steps, the kernel path against impl="ref" (argmax equal or a near
    tie).
-Every flash launch of phases 2, 2b and 3c, every prefill round of kernel 5
-(2b) and of kernel 4 (3a, 3b) must run the Hopper mainloop, every verify
-pass of kernel 4 (3a, 3b) the verify body (none of kernel 5 is served),
+Every flash launch of phases 2, 2b, 2c and 3c, every prefill round of
+kernel 5 (2b, 2c) and of kernel 4 (3a, 3b) must run the Hopper mainloop,
+every verify pass of kernels 4 (2c, 3a, 3b) and 5 (2c) the verify body,
 and every launch of kernels 1 and 3 in phases 2, 2b, 3b and 3c the Hopper
 decode body (the wrappers' hopper and verify counters); the profiled
 serves show no second pass (decode_combine_kernel, mq_combine_kernel), and
@@ -1263,12 +1280,13 @@ def main_path_phase(card):
     torch.cuda.synchronize()
     n_par = sum(t.numel() for t in _leaves(params))
     log(f"  params: {n_par / 1e9:.2f} B in {time.monotonic() - t0:.1f} s")
-    launches = single_device_checks(cfg, params, card, "2")
-    return launches, cfg, params
+    served = {}
+    launches = single_device_checks(cfg, params, card, "2", served=served)
+    return launches, cfg, params, served["bursty"]
 
 
 def single_device_checks(cfg, params, card, phase, hopper=True, tol=LOGIT_REL_TOL,
-                         faults=False):
+                         faults=False, served=None):
     """A dense config's single-device path on the card: warm-up serves,
     then bursty and sporadic serves through LimeServer with exact launch
     counts of kernels 1 and 2 (each call on the Hopper bodies, or with
@@ -1277,7 +1295,8 @@ def single_device_checks(cfg, params, card, phase, hopper=True, tol=LOGIT_REL_TO
     kernel path by compare_greedy within `tol` of |logit| max. With
     faults, the reference's own noise floor at this depth, and planted
     prefill faults (planted_faults) that the limit must reject. Returns
-    the serves' launches."""
+    the serves' launches; `served`, where given, receives each pattern's
+    (prompts, kernel serve)."""
     import numpy as np
     import torch
 
@@ -1324,6 +1343,8 @@ def single_device_checks(cfg, params, card, phase, hopper=True, tol=LOGIT_REL_TO
             f"per request (p50) = {1e3 / rep.decode_tok_s_p50:.3f} ms/token, "
             f"span ms/token {rep.ms_per_token:.3f} [{card}; {cfg.name}, {depth}]")
         outs[pattern] = (prompts, done)
+    if served is not None:
+        served.update(outs)
     peak = torch.cuda.max_memory_allocated()
     log(f"  peak device memory {peak / 2**30:.2f} GiB [{card}]")
     breakdown(cfg, params, card, hopper)
@@ -1344,9 +1365,13 @@ def single_device_checks(cfg, params, card, phase, hopper=True, tol=LOGIT_REL_TO
         prompts = outs["bursty"][0]
         feed = np.array([r.output for r in refs["bursty"]], np.int64)
         floor = noise_floor(cfg, params, prompts, feed, ref_logits[0])
+        floor_max = TAB3_NOISE_FLOOR_MAX[cfg.name]
         log(f"  the reference's own noise floor: each bursty request fed alone against "
-            f"the 4-wide batch, logit err up to {floor:.4f} of |logit| max [{card}; "
-            f"{cfg.name}, {depth}]")
+            f"the 4-wide batch, logit err up to {floor:.4f} of |logit| max (at most "
+            f"{floor_max}) [{card}; {cfg.name}, {depth}]")
+        if floor > floor_max:
+            raise AssertionError(f"{cfg.name}: the reference's own noise floor "
+                                 f"{floor:.4f} is above {floor_max}")
         errs = fault_errors(cfg, params, prompts, feed, ref_logits[0])
         log(f"  planted prefill faults, the kernel path's logit err / |logit| max against "
             f"the reference: {', '.join(f'{k} {v:.4f}' for k, v, _ in errs)} (limit {tol}) "
@@ -1813,6 +1838,469 @@ def prefix_phase(cfg, params, card):
     seeded_bitwise(cfg, params, [by_rid[i].prompt for i in range(4)], card)
     us = prefix_profile(cfg, params, reqs[:4], card)
     return launches, us
+
+# ----------------------------------------------------------------------------
+# phase 2c: speculative decoding on the single-device path, 8 layers
+# ----------------------------------------------------------------------------
+# phase 2's bursty batch served eight ways, each SpecConfig(k=SPEC_K): (label,
+# SpecConfig fields, paged, radix prefix cache, sampled, short prompts). The
+# resident draft over all 8 layers runs the target's own layers: the accept
+# path (rounds that commit more than one token). Its own cache holds 512
+# slots, as the JAX package sizes it, so past a 512-token prompt it drops
+# the oldest positions, and the four slots commit in lockstep: at 8 layers
+# on random weights both cut its acceptance (the CPU, where its arithmetic
+# is the target's, reads 1.0 with a 128-token prompt and 0.29 with 512).
+# So the batch's prompts cut to SPEC_SHORT_PROMPT tokens, where the ring
+# never wraps, go through that draft once more, dense, paged and paged
+# with the prefix cache: there rounds must commit k + 1 (SPEC_SHORT_ACCEPT).
+SPEC_SHORT_PROMPT = 128
+SPEC_SHORT_ACCEPT = 0.5
+# the model draft's logits, kernel path against impl "ref" on its serve's
+# inputs (model_draft_check): each launch there reads within 0.0078 of its
+# plain version, but on random weights the draft's attention is one-hot
+# (scores of std ~134), so a rounding that moves the top slot moves a
+# position's logits: up to 0.056 of |logit| max (4 of 128 positions above
+# 0.02 on the H100), over LOGIT_REL_TOL's 0.05; planted prefill faults
+# read 1.7
+DRAFT_LOGIT_REL_TOL = 0.10
+_WHOLE = dict(draft="resident", resident_layers=N_LAYERS, adapt_k=False)
+SPEC_SERVES = (
+    ("dense, n-gram draft", dict(draft="ngram"), False, False, False, False),
+    ("dense, resident draft over all 8 layers", _WHOLE, False, False, False, False),
+    ("paged, n-gram draft", dict(draft="ngram"), True, False, False, False),
+    ("paged + prefix cache, gemma3-1b model draft",
+     dict(draft="model", draft_arch="gemma3-1b"), True, True, False, False),
+    ("dense, n-gram draft, temperature 0.8 / top-p 0.95", dict(draft="ngram", seed=7),
+     False, False, True, False),
+    (f"dense, resident draft over all 8 layers, prompt {SPEC_SHORT_PROMPT}", _WHOLE,
+     False, False, False, True),
+    (f"paged, resident draft over all 8 layers, prompt {SPEC_SHORT_PROMPT}", _WHOLE,
+     True, False, False, True),
+    (f"paged + prefix cache, resident draft over all 8 layers, prompt {SPEC_SHORT_PROMPT}",
+     _WHOLE, True, True, False, True),
+)
+SPEC_SAMPLER = dict(temperature=0.8, top_p=0.95, seed=7)
+
+
+def spec_backend(cfg, params, fields, paged, prefix, sampled):
+    """The backend of one phase-2c serve: LimeServer's (dense, or paged with
+    the radix prefix cache: page 64, prefill rounds of 128), or for the
+    paged path without the cache EngineBackend(paged=True) itself, as the
+    JAX package's server exposes it."""
+    from repro_torch.serving import EngineBackend, LimeServer, SamplerConfig
+    from repro_torch.specdec import SpecConfig
+    spec = SpecConfig(k=SPEC_K, **fields)
+    sampler = SamplerConfig(**SPEC_SAMPLER) if sampled else SamplerConfig()
+    if paged and not prefix:
+        return EngineBackend(cfg, params, n_slots=4, max_len=MAX_LEN, sampler=sampler,
+                             spec=spec, paged=True, page_size=PAGE)
+    return LimeServer(cfg, params, max_len=MAX_LEN, pattern="bursty", sampler=sampler,
+                      spec=spec, prefix_cache=prefix,
+                      prefill_chunk_tokens=PREFIX_CHUNK if prefix else 0,
+                      page_size=PAGE).make_backend()
+
+
+def draft_depth(fields):
+    """Layers of the draft's own model decode per drafted or observed
+    token (0: the n-gram draft runs none)."""
+    from repro_torch.configs import get_smoke_config
+    if fields["draft"] == "model":
+        return get_smoke_config(fields["draft_arch"]).n_layers
+    if fields["draft"] == "resident":
+        return fields["resident_layers"]
+    return 0
+
+
+def drive_spec(be, prompts, cfg, draft_layers, prefix, max_new=MAX_NEW):
+    """Serve the bursty batch `prompts` (all at t = 0) through `be` one
+    scheduler step at a time. Each step launches exactly what it implies:
+    the prefill n_layers flash kernels (dense, and paged: the dense prefill
+    scattered into pages) or, with the prefix cache, n_layers paged
+    multi-query kernels per 128-position round, plus a model or resident
+    draft's own prefill per request (draft_layers flash at batch 1); a
+    speculative round of k drafts committing c tokens n_layers verify-body
+    launches of kernel 4 (dense) or 5 (paged) and draft_layers decode
+    launches per live request per drafted and per observed token; every
+    launch of kernels 1 and 2 on the Hopper bodies. Returns (requests,
+    scheduler stats, the serve's launches)."""
+    import torch
+    from repro_torch.serving import ContinuousBatchingScheduler, Request, SchedulerConfig
+    n = cfg.n_layers
+    sched = ContinuousBatchingScheduler(be, SchedulerConfig())
+    reqs = [Request(i, p, max_new) for i, p in enumerate(prompts)]
+    sched.begin(reqs)
+    zero_counts()
+    prefills = 0
+    while True:
+        n_rounds = len(be.rounds)
+        live = sum(r.admitted_s is not None and not r.done for r in reqs)
+        c0 = read_counts()
+        if not sched.step():
+            break
+        torch.cuda.synchronize()
+        got = {k: v - c0[k] for k, v in read_counts().items()}
+        want = dict.fromkeys(got, 0)
+        if len(be.rounds) > n_rounds:
+            k, c = be.rounds[-1]
+            if k:
+                key = "mq_paged_decode_attention" if be.paged else "mq_decode_attention"
+                want[key] = want[key + "@verify"] = n
+                want["decode_attention"] = draft_layers * live * (k + c)
+            else:                                      # a plain step
+                key = "paged_decode_attention" if be.paged else "decode_attention"
+                want[key] = want[key + "@hopper"] = n
+                want["decode_attention"] += draft_layers * live
+        elif any(got.values()):                        # the prefill
+            prefills += 1
+            if prefix:
+                rounds = n * math.ceil(len(prompts[0]) / PREFIX_CHUNK)
+                want["mq_paged_decode_attention"] = rounds
+                want["mq_paged_decode_attention@prefill"] = rounds
+            else:
+                want["flash_attention"] = n
+            want["flash_attention"] += draft_layers * len(reqs)
+        want["flash_attention@hopper"] = want["flash_attention"]
+        want["decode_attention@hopper"] = want["decode_attention"]
+        if got != want:
+            raise AssertionError(f"spec serve round {len(be.rounds)}: launches "
+                                 f"{ {k: v for k, v in got.items() if v} }, expected "
+                                 f"{ {k: v for k, v in want.items() if v} }")
+    done = sorted(sched.finish_run(), key=lambda r: r.rid)
+    if prefills != 1:
+        raise AssertionError(f"spec serve: {prefills} prefill steps")
+    for r in done:
+        if len(r.output) != max_new or r.generated != max_new:
+            raise AssertionError(f"spec serve req {r.rid}: {len(r.output)} tokens, "
+                                 f"expected {max_new}")
+    return done, sched.stats, read_counts()
+
+
+def spec_references(cfg, params, prompts, feed, chunked):
+    """Logits (T, 4, V) fp32 of phase 2's bursty batch fed `feed` (4, T)
+    by two paths: the decode path (phase 2's: the flash prefill, decode
+    steps through kernel 1; forced_logits) and the multi-query path (the
+    serve's own prefill: flash, or with `chunked` the prompt in
+    128-position rounds through kernel 4 as the prefix serve prefills
+    through kernel 5; then position t + 1 as row 0 of a (SPEC_K + 1)-wide
+    verify pass over feed[t:], rolled back after each: the verify body at
+    the serve's width)."""
+    import torch
+
+    from repro_torch.models import model as M
+    from repro_torch.serving.backend import EngineBackend
+    V = cfg.vocab_size
+    ld = forced_logits(cfg, params, prompts, feed, 4, "kernel")
+    toks = torch.from_numpy(EngineBackend._pad_prompts(prompts)).long().cuda()
+    cache = M.init_cache(cfg, 4, MAX_LEN)
+    if chunked:
+        for off in range(0, toks.shape[1], PREFIX_CHUNK):
+            lg, cache = M.verify_step(cfg, params, cache,
+                                      toks[:, off:off + PREFIX_CHUNK], impl="kernel")
+    else:
+        lg, cache = M.prefill(cfg, params, toks, cache, impl="kernel")
+    lv = [lg[:, -1, :V].float()]
+    P = cache["pos"]
+    f = torch.from_numpy(feed).long().cuda()
+    W = SPEC_K + 1
+    f = torch.cat([f, f[:, -1:].repeat(1, W)], 1)     # windows past the end
+    for t in range(feed.shape[1] - 1):
+        lg, cache = M.verify_step(cfg, params, cache, f[:, t:t + W], impl="kernel")
+        cache["pos"] = P + t + 1
+        lv.append(lg[:, 0, :V].float())
+    return ld, torch.stack(lv)
+
+
+def spec_greedy_check(cfg, params, prompts, done, base, label, refs, chunked=False):
+    """A greedy speculative serve of phase 2's bursty batch against phase
+    2's non-speculative kernel serve `base`: both paths are fed the served
+    tokens (spec_references, cached in `refs` by tokens; `chunked`: the
+    serve prefilled in multi-query rounds). At every position
+    the multi-query path's pick must be the decode path's or a near tie
+    (argmax_or_tie, the position's error between the two paths), and the
+    served token the multi-query path's pick (the arithmetic that scored
+    it, a row of a verify pass of the serve's width) or else a near tie of
+    the decode path's pick (the decode path's gap between the two within
+    that error), so a divergence from phase 2's tokens is a near tie.
+    Returns (positions, near ties, served tokens other than the
+    multi-query path's pick, first divergence from phase 2 per request
+    (None where `base` is None: prompts phase 2 did not serve),
+    worst err / |logit|)."""
+    import numpy as np
+    import torch
+    feed = np.array([r.output for r in done], np.int64)
+    key = (feed.tobytes(), len(prompts[0]), chunked)
+    if key not in refs:
+        refs[key] = spec_references(cfg, params, prompts, feed, chunked)
+    ld, lv = refs[key]
+    err = (ld - lv).abs().amax(-1)                            # (T, 4)
+    argmax_or_tie(f"{label}: multi-query vs decode path", lv.flatten(0, 1),
+                  ld.flatten(0, 1), err.flatten())
+    fd = torch.from_numpy(feed.T.copy()).cuda()               # (T, 4)
+    pick = ld.argmax(-1)
+    gap = (ld.gather(-1, pick[..., None]) - ld.gather(-1, fd[..., None]))[..., 0]
+    mq_pick = lv.gather(-1, fd[..., None])[..., 0] == lv.amax(-1)
+    bad = ~mq_pick & (fd != pick) & (gap > err)
+    if bad.any():
+        t, j = (int(x) for x in bad.nonzero()[0])
+        raise AssertionError(f"{label}: req {j} token {t} is not the decode path's pick "
+                             f"outside a near tie (gap {gap[t, j].item():.4f}, err "
+                             f"{err[t, j].item():.4f})")
+    first = None if base is None else [
+        next((t for t, (a, b) in enumerate(zip(r.output, b_.output)) if a != b), MAX_NEW)
+        for r, b_ in zip(done, base)]
+    rel = (err / ld.abs().amax(-1)).max().item()
+    return feed.size, int((fd != pick).sum()), int((~mq_pick).sum()), first, rel
+
+
+def draft_logits(d, prompt, feed, impl, after_prefill=None):
+    """Logits (T, V) fp32 of the model draft `d` (a SmallModelDraft) of one
+    request as it runs them: batch 1, its own cache of d.max_len slots
+    (512, JAX's size: a 512-token prompt fills it, so every later step
+    overwrites the oldest slot), the prompt's prefill, then T - 1 decode
+    steps fed `feed` (T,) as observe() feeds the committed tokens.
+    after_prefill, where given, edits the prefilled cache (a planted
+    fault)."""
+    import torch
+
+    from repro_torch.models import model as M
+    V = d.cfg.vocab_size
+    cache = M.init_cache(d.cfg, 1, d.max_len)
+    lg, cache = M.prefill(d.cfg, d.params, torch.as_tensor(prompt).long().cuda()[None],
+                          cache, impl=impl)
+    if after_prefill is not None:
+        after_prefill(cache)
+    out = [lg[0, -1, :V].float()]
+    for t in feed[:-1]:
+        lg, cache = M.decode_step(d.cfg, d.params, cache,
+                                  torch.tensor([[int(t)]]).long().cuda(), impl=impl)
+        out.append(lg[0, -1, :V].float())
+    return torch.stack(out)
+
+
+def model_draft_check(cfg, prompts, done, label, card):
+    """The gemma3-1b model draft of a phase-2c serve (built as its provider
+    builds it: H 4, KV 1, dh 64, windows 128; kernels 2 and 1 at batch 1)
+    on its serve's inputs: each request's prompt and served tokens through
+    draft_logits. Every launch of kernels 2 and 1 there is held to its
+    plain version on the same inputs within BF16_REL, and a planted
+    off-by-one of each (the plain version without the diagonal, or
+    reading V one slot off) must read above it. (Dropping the current
+    slot reads 0 here: on random weights the draft's attention is one-hot,
+    scores of std ~134, and the top slot is an older one.) The logits against
+    impl "ref" must stay within DRAFT_LOGIT_REL_TOL of |logit| max, the
+    greedy picks equal or near ties, and planted prefill faults on the
+    kernel path must read above that limit."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.specdec import SpecConfig
+    from repro_torch.specdec.draft import make_draft_provider
+    d = make_draft_provider(SpecConfig(k=SPEC_K, draft="model", draft_arch="gemma3-1b"),
+                            cfg, device="cuda")
+    feeds = [np.asarray(r.output) for r in done]
+    calls = {"flash_attention": [], "decode_attention": []}      # rel errs
+    faults = {}
+    dec, fl = da.decode_attention, fa.flash_attention
+
+    def dec_checked(q, k, v, ids, pos, window=None):
+        out = dec(q, k, v, ids, pos, window=window)
+        ref = da.decode_attention_plain(q, k, v, ids, pos, window=window)
+        calls["decode_attention"].append(rel_err(out, ref))
+        faults.setdefault("decode_attention: V read one slot off", rel_err(
+            da.decode_attention_plain(q, k, v.roll(1, 1), ids, pos, window=window), ref))
+        return out
+
+    def fl_checked(q, k, v, **kw):
+        out = fl(q, k, v, **kw)
+        ref = fa.flash_attention_plain(q, k, v, **kw)
+        calls["flash_attention"].append(rel_err(out, ref))
+        faults.setdefault("flash_attention: diagonal dropped", rel_err(
+            fa.flash_attention_plain(q, k, v, **{**kw, "q_offset": -1}), ref))
+        return out
+    da.decode_attention, fa.flash_attention = dec_checked, fl_checked
+    try:
+        lk = torch.stack([draft_logits(d, p, f, "kernel")
+                          for p, f in zip(prompts, feeds)], 1)              # (T, 4, V)
+    finally:
+        da.decode_attention, fa.flash_attention = dec, fl
+    T, L = lk.shape[0], d.cfg.n_layers
+    want = {"flash_attention": 4 * L, "decode_attention": 4 * L * (T - 1)}
+    if {k: len(v) for k, v in calls.items()} != want:
+        raise AssertionError(f"{label}: draft launches {({k: len(v) for k, v in calls.items()})}"
+                             f", expected {want}")
+    worst = {k: max(v) for k, v in calls.items()}
+    lr = torch.stack([draft_logits(d, p, f, "ref") for p, f in zip(prompts, feeds)], 1)
+    scale = lr.abs().amax(-1)
+    err = (lk - lr).abs().amax(-1)
+    rel = (err / scale).max().item()
+    ties = argmax_or_tie(f"{label}: draft kernel vs ref", lk.flatten(0, 1),
+                         lr.flatten(0, 1), err.flatten())
+    planted = []
+    for name, edit, _ in planted_faults(d.cfg):
+        lf = torch.stack([draft_logits(d, p, f, "kernel", after_prefill=edit)
+                          for p, f in zip(prompts, feeds)], 1)
+        planted.append((name, ((lf - lr).abs().amax(-1) / scale).max().item()))
+    log(f"  {label}: the draft ({d.cfg.name} smoke: H {d.cfg.n_heads}, KV "
+        f"{d.cfg.n_kv_heads}, dh {d.cfg.head_dim}, windows {d.cfg.window_size}, batch 1, "
+        f"cache {d.max_len}) on its serve's inputs: each launch against its plain "
+        f"version, worst rel_err { {k: round(v, 5) for k, v in worst.items()} } over "
+        f"{ {k: len(v) for k, v in calls.items()} } launches (tol {BF16_REL:.4g}), "
+        f"planted off-by-ones { {k: round(v, 4) for k, v in faults.items()} }; logits "
+        f"against impl 'ref' over {T} positions x 4 requests: worst err {rel:.4f} of "
+        f"|logit| max (limit {DRAFT_LOGIT_REL_TOL}), {ties} near-tie picks, planted "
+        f"prefill faults {[(n, round(e, 4)) for n, e in planted]} [{card}]")
+    for k, v in worst.items():
+        if not v <= BF16_REL:
+            raise AssertionError(f"{label}: a draft launch of {k} is {v:.4g} from its plain "
+                                 f"version (tol {BF16_REL:.4g})")
+    for k, v in faults.items():
+        if not v > BF16_REL:
+            raise AssertionError(f"{label}: the per-launch check passes a planted fault "
+                                 f"({k}: {v:.4g})")
+    if not rel <= DRAFT_LOGIT_REL_TOL:
+        raise AssertionError(f"{label}: the draft's kernel path is {rel:.4f} of |logit| "
+                             f"max from its plain version (limit {DRAFT_LOGIT_REL_TOL})")
+    for name, e in planted:
+        if not e > DRAFT_LOGIT_REL_TOL:
+            raise AssertionError(f"{label}: the draft check passes a planted fault "
+                                 f"({name}: {e:.4f})")
+
+
+def planted_commit_fault():
+    """A planted fault of the acceptance walk: where a draft is corrected,
+    commit one token more (the next row's pick, which was scored after the
+    rejected draft token). Returns the restore function."""
+    from repro_torch.specdec import SpecDecodeController
+    orig = SpecDecodeController.verify
+
+    def verify(self, logits, draft, draft_probs=None):
+        out = orig(self, logits, draft, draft_probs)
+        i = len(out) - 1
+        if i < len(draft) and out[i] != int(draft[i]):
+            out.append(int(logits[i + 1, :self.cfg.vocab_size].argmax()))
+        return out
+    SpecDecodeController.verify = verify
+    return lambda: setattr(SpecDecodeController, "verify", orig)
+
+
+def spec_profile(make, prompts, card, label):
+    """Device time of the verify body over one profiled serve (a fresh
+    backend from `make`): its µs per call and the device's idle share."""
+    import torch
+    from repro_torch.serving import ContinuousBatchingScheduler, Request, SchedulerConfig
+
+    def run():
+        be = make()
+        ContinuousBatchingScheduler(be, SchedulerConfig()).serve(
+            [Request(i, p, MAX_NEW) for i, p in enumerate(prompts)])
+    prof, wall_us = profiled(run, "verify_sm90_kernel")
+    us = busy = 0.0
+    calls = 0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = e.self_cuda_time_total
+        one_pass(e.key.lower())
+        busy += t
+        if "verify_sm90_kernel" in e.key:
+            us += t
+            calls += e.count
+    if not calls:
+        raise AssertionError(f"{label}: the profiler shows no verify-body launch")
+    log(f"  profiled serve ({label}): verify body {us / calls:.2f} us per call ({calls} "
+        f"calls); busy {busy / 1e3:.2f} ms of {wall_us / 1e3:.2f} ms wall, idle share "
+        f"{1 - busy / wall_us:.1%} [{card}; {N_LAYERS} layers]")
+
+
+def spec_phase(cfg, params, card, base):
+    """Phase 2c: phase 2's bursty batch (`base`: prompts and phase 2's
+    kernel serve) through the single-device path's speculation, the eight
+    SPEC_SERVES on phase 2's weights; each step's launches exact
+    (drive_spec), greedy tokens held to phase 2's picks (spec_greedy_check),
+    the model draft held to its plain version (model_draft_check), the
+    resident draft over the whole stack accepting drafts and committing
+    more than one token in a round, and on the short prompts acceptance
+    above SPEC_SHORT_ACCEPT with rounds committing k + 1, a planted commit
+    fault rejected, the sampled serve's counts exact; a profiled paged
+    serve gives kernel 5's verify µs per call. Returns the serves'
+    launches."""
+    import numpy as np
+    import torch
+    from repro_torch.serving import summarize
+    prompts, base_done = base
+    log(f"phase 2c: speculative decoding on the single-device path, {cfg.name} full "
+        f"width, {cfg.n_layers} layers: phase 2's bursty batch (4 x prompt {PROMPT_LEN}, "
+        f"{MAX_NEW} new tokens), k = {SPEC_K}")
+    # warm-up (cuBLAS at the verify width, the allocator), not measured
+    warm = spec_backend(cfg, params, dict(draft="ngram"), False, False, False)
+    drive_spec(warm, prompts, cfg, 0, False, max_new=3)
+    del warm
+    launches = dict.fromkeys(kernel_counters(), 0)
+    refs = {}
+    for label, fields, paged, prefix, sampled, short in SPEC_SERVES:
+        ps = [p[:SPEC_SHORT_PROMPT] for p in prompts] if short else prompts
+        be = spec_backend(cfg, params, fields, paged, prefix, sampled)
+        t0 = time.monotonic()
+        done, stats, got = drive_spec(be, ps, cfg, draft_depth(fields), prefix)
+        wall = time.monotonic() - t0
+        for k, v in got.items():
+            launches[k] += v
+        rep = summarize(done, pattern="bursty", backend="spec", stats=stats)
+        ks = [(k, c) for k, c in be.rounds if k]
+        full = sum(c == k + 1 for k, c in ks)
+        log(f"  {label}: TTFT p50 {rep.ttft_p50_s * 1e3:.1f} ms; decode "
+            f"{1e3 / rep.decode_tok_s_p50:.2f} ms/token per request (p50); acceptance "
+            f"{rep.spec_acceptance_rate:.3f} ({rep.spec_accepted}/{rep.spec_drafted} "
+            f"drafts); {len(be.rounds)} rounds, committed per round mean "
+            f"{np.mean([c for _, c in ks]):.2f}, {full} committing k + 1; launches "
+            f"{ {k: v for k, v in got.items() if v} }; {wall:.1f} s wall [{card}; "
+            f"{cfg.n_layers} layers]")
+        if not ks:
+            raise AssertionError(f"{label}: no speculative round")
+        if sampled:
+            if not all(0 <= t < cfg.vocab_size for r in done for t in r.output):
+                raise AssertionError(f"{label}: a token outside the vocabulary")
+            continue
+        n_pos, n_tie, n_off, first, rel = spec_greedy_check(
+            cfg, params, ps, done, None if short else base_done, label, refs,
+            chunked=prefix)
+        log(f"    {n_pos} positions: every served token the decode path's pick on its "
+            f"prefix or a near tie ({n_tie} near ties; {n_off} not the multi-query path's "
+            f"own pick); first divergence from phase 2's tokens by request {first}; "
+            f"decode vs multi-query path worst logit err {rel:.4f} of |logit| max")
+        if fields["draft"] == "model":
+            model_draft_check(cfg, ps, done, label, card)
+        if fields["draft"] == "resident" and not (
+                rep.spec_accepted > 0 and max(c for _, c in ks) > 1):
+            raise AssertionError(f"{label}: the whole-stack draft accepted "
+                                 f"{rep.spec_accepted} drafts, no round committed more "
+                                 "than one token")
+        if short and not (rep.spec_acceptance_rate > SPEC_SHORT_ACCEPT and full > 0):
+            raise AssertionError(f"{label}: acceptance {rep.spec_acceptance_rate:.3f} "
+                                 f"(limit {SPEC_SHORT_ACCEPT}), {full} rounds committing "
+                                 "k + 1, where the draft's ring does not wrap")
+    # a planted fault: one token committed past each correction
+    restore = planted_commit_fault()
+    try:
+        be = spec_backend(cfg, params, dict(draft="ngram"), False, False, False)
+        done, _, _ = drive_spec(be, prompts, cfg, 0, False)
+    finally:
+        restore()
+    try:
+        spec_greedy_check(cfg, params, prompts, done, base_done, "planted fault", refs)
+    except AssertionError as e:
+        log(f"  planted fault (a token committed past each correction) rejected: {e}")
+    else:
+        raise AssertionError("the greedy check passes a commit past a correction")
+    spec_profile(lambda: spec_backend(cfg, params, dict(draft="ngram"), True, False, False),
+                 prompts, card, "paged, n-gram draft: kernel 5")
+    log(f"  launches {launches}")
+    return launches
+
 
 # ----------------------------------------------------------------------------
 # phase 3a: the engine against the model, 8 layers
@@ -2356,12 +2844,13 @@ def host_mem(label):
         f"this process's RSS {m['VmRSS'] / 1e9:.2f} GB")
 
 
-def drive(srv, prompts, pattern, n_layers, retier_at=(), scfg=None):
+def drive(srv, prompts, pattern, n_layers, retier_at=(), scfg=None, host_draft=False):
     """Serve `prompts` under `pattern` through srv's scheduler (config
     `scfg`, default the reserve policy) one step at a time: each step's mq
     and decode launches must be what the step implies (a prefill round:
     n_layers mq; a speculative round of k drafts: k x live resident layers
-    decode + n_layers mq; a plain step: n_layers decode), and retier_at's
+    decode + n_layers mq, or with host_draft (n-gram drafts proposed on the
+    host) n_layers mq alone; a plain step: n_layers decode), and retier_at's
     (round, delta) moves apply between rounds while requests are live.
     A retier the backend makes itself (an OnlinePlanner's rung or a
     reclaim) lands inside a step before its decode, so the resident count
@@ -2410,7 +2899,7 @@ def drive(srv, prompts, pattern, n_layers, retier_at=(), scfg=None):
                                  f"launches in a step of {got[1]} decode launches")
         if len(be.rounds) > n_rounds:
             k = be.rounds[-1][0]
-            want = (n_layers, k * res) if k else (0, n_layers)
+            want = (n_layers, 0 if host_draft else k * res) if k else (0, n_layers)
         else:                            # a prefill or an idle jump
             want = got if got in ((0, 0), (n_pf * n_layers, 0)) else None
             prefills += got[0] > 0
@@ -2676,7 +3165,7 @@ def full_model_phase(card):
         f"{[(n, round(t, 4)) for n, t in a1.candidates]} [{card}]")
 
     prompts = make_prompts(4, cfg.vocab_size, 0)
-    spec = SpecConfig(k=SPEC_K, adapt_k=False)
+    spec = SpecConfig(k=SPEC_K, draft="resident", adapt_k=False)
     launches = {"mq_decode_attention": 0, "decode_attention": 0,
                 "mq_decode_attention@prefill": 0, "decode_attention@hopper": 0,
                 "mq_decode_attention@verify": 0}
@@ -2838,7 +3327,7 @@ def full_model_phase(card):
 # ----------------------------------------------------------------------------
 # phase 3d: Alg. 1's plan on the 80-layer engine
 # ----------------------------------------------------------------------------
-def alg1_phase(card, cfg, params, budget, rate, prompts, phase="3d"):
+def alg1_phase(card, cfg, params, budget, rate, prompts, phase="3d", ngram=False):
     """The launcher's hetero path at a weight budget and an H2D rate (phase
     3d: phase 3b's): Alg. 1 (n_emp = the prompt length) at the budget's
     resident share, no retier headroom (its pinned store is n_seg
@@ -2847,8 +3336,10 @@ def alg1_phase(card, cfg, params, budget, rate, prompts, phase="3d"):
     passes on the verify body) and holds every token to this engine's
     verify-pass greedy; prints the plan, pinned bytes, the H2D rate
     measured on its store and the predicted T_total (at that rate) beside
-    the measured decode and verify passes. Returns the main path's
-    launches."""
+    the measured decode and verify passes. With ngram, the same engine
+    serves the batch once more with n-gram drafts proposed on the host
+    (engine.verify_requests on them), held to the same verify-pass greedy.
+    Returns the main path's launches."""
     import numpy as np
     import torch
 
@@ -2904,7 +3395,7 @@ def alg1_phase(card, cfg, params, budget, rate, prompts, phase="3d"):
         f"{plan.t_uncover:.4f} [{card}]")
     rate = rate_here
     srv = LimeServer(cfg, params, engine=eng, max_len=MAX_LEN, pattern="bursty",
-                     spec=SpecConfig(k=SPEC_K, adapt_k=False),
+                     spec=SpecConfig(k=SPEC_K, draft="resident", adapt_k=False),
                      prefill_chunk_tokens=PREFILL_CHUNK)
     t0 = time.monotonic()
     done, stats, (m, d, h, hd, vf), _, _ = drive(srv, prompts[:4], "bursty", L)
@@ -2940,7 +3431,26 @@ def alg1_phase(card, cfg, params, budget, rate, prompts, phase="3d"):
     st0 = eng.init_state(params)
     pass_profile(eng, st0, 0, lambda: eng.verify_step(st0, toks[:, :PREFILL_CHUNK]),
                  card, f"{cfg.name} chunked-prefill round (q_len {PREFILL_CHUNK})")
-    n_pos, n_tie, worst = reference_check(eng, params, cfg, prompts[:4], done, "bursty")
+    also = ()
+    if ngram:
+        srv = LimeServer(cfg, params, engine=eng, max_len=MAX_LEN, pattern="bursty",
+                         spec=SpecConfig(k=SPEC_K, draft="ngram"),
+                         prefill_chunk_tokens=PREFILL_CHUNK)
+        t0 = time.monotonic()
+        ng, stats, (m2, d2, h2, hd2, vf2), _, _ = drive(srv, prompts[:4], "bursty", L,
+                                                         host_draft=True)
+        rep = summarize(ng, pattern="bursty", backend="engine", stats=stats)
+        be = srv.make_backend()
+        log(f"  bursty, n-gram drafts on the host: acceptance "
+            f"{rep.spec_acceptance_rate:.3f} ({rep.spec_accepted}/{rep.spec_drafted}); "
+            f"{len(be.rounds)} rounds, committed {[c for _, c in be.rounds]}; launches mq "
+            f"{m2} ({vf2} verify body), decode {d2}; decode "
+            f"{1e3 / rep.decode_tok_s_p50:.1f} ms/token per request (p50); "
+            f"{time.monotonic() - t0:.1f} s wall [{card}; {cfg.name}, {L} layers]")
+        m, d, h, hd, vf = m + m2, d + d2, h + h2, hd + hd2, vf + vf2
+        also = (ng,)
+    n_pos, n_tie, worst = reference_check(eng, params, cfg, prompts[:4], done, "bursty",
+                                          also)
     log(f"  bursty: {n_pos} positions compared, {n_tie} near ties, worst "
         f"verify-vs-decode logit err {worst:.4f} of |logit| max [{cfg.name}]")
     eng.close()
@@ -2972,6 +3482,13 @@ TAB3_CUT = 8               # StableLM-2-12B and Pixtral-12B: 8 of 40 layers
 # (LLaMA-2) and 0.147 (Qwen3, 64 layers); a prefill that loses layer 0's
 # K/V or every layer's V reads 1.83-1.92, and must read above the limit
 TAB3_LOGIT_REL_TOL = 0.25
+# The reference's own noise floor at each 3e depth (each bursty request
+# fed alone against the 4-wide batch: only the GEMMs' batch shape
+# changes), as 3c's NOISE_FLOOR_MAX: a floor above it means the shared
+# model code moved, which TAB3_LOGIT_REL_TOL (3x the floor) could hide.
+# The card read 0.0808 for LLaMA-2-13B at 40 layers and 0.0152 for
+# StableLM-2-12B at 8 (H100 80GB HBM3, 700 W, the same in three calls)
+TAB3_NOISE_FLOOR_MAX = {"llama2-13b": 0.10, "stablelm-12b": 0.03}
 PIXTRAL_PATCHES, PIXTRAL_TEXT, PIXTRAL_STEPS = 256, 256, 16
 
 
@@ -3016,7 +3533,8 @@ def tab3_phase(card, rate):
     for arch, budget in TAB3_BUDGETS:
         cfg = get_config(arch)
         got = alg1_phase(card, cfg, M.init_params_by_layer(cfg, seed=0), budget, rate,
-                         make_prompts(4, cfg.vocab_size, 0), phase="3e")
+                         make_prompts(4, cfg.vocab_size, 0), phase="3e",
+                         ngram=arch == "llama2-13b")
         add(got)
         if arch == "llama2-13b":
             shapes["decode_attention@llama2"] += got["decode_attention"]
@@ -3257,12 +3775,17 @@ def main() -> int:
         t = time.monotonic()
         rows = kernel_phase()
         t = done(1, t)
-        launches, cfg8, params8 = main_path_phase(card)
+        launches, cfg8, params8, base = main_path_phase(card)
         t = done(2, t)
         prefix_launches, serve_us = prefix_phase(cfg8, params8, card)
         for k, n in prefix_launches.items():
             launches[k] = launches.get(k, 0) + n
         t = done("2b", t)
+        spec_launches = spec_phase(cfg8, params8, card, base)
+        for k, n in spec_launches.items():
+            launches[k] = launches.get(k, 0) + n
+        del base
+        t = done("2c", t)
         engine_check_phase(cfg8, params8, card)
         t = done("3a", t)
         del params8
@@ -3287,7 +3810,8 @@ def main() -> int:
         done("3e", t)
 
         for name in ("decode_attention@hopper", "paged_decode_attention@hopper",
-                     "mq_decode_attention@verify", "wkv_scan@chunked", "ssm_scan@chunked"):
+                     "mq_decode_attention@verify", "mq_paged_decode_attention@verify",
+                     "wkv_scan@chunked", "ssm_scan@chunked"):
             if launches.get(name, 0) <= 0:
                 raise AssertionError(f"{name} never launched on the main path")
         log(f"main-path launches: {launches}")
@@ -3305,6 +3829,11 @@ def main() -> int:
                 ("paged_decode_attention", "src/repro_torch/csrc/paged_decode_attention.cu",
                  "src/repro/kernels/decode_attention/paged.py:119"),
                 ("mq_paged_decode_attention",
+                 "src/repro_torch/csrc/mq_paged_decode_attention.cu",
+                 "src/repro/kernels/decode_attention/multiquery.py:248"),
+                # kernel 5's verify regime (verify_sm90_kernel), served by
+                # phase 2c's paged speculation
+                ("mq_paged_decode_attention@verify",
                  "src/repro_torch/csrc/mq_paged_decode_attention.cu",
                  "src/repro/kernels/decode_attention/multiquery.py:248"),
                 ("wkv_scan", "src/repro_torch/csrc/wkv_scan.cu",

@@ -34,6 +34,12 @@ an OnlinePlanner that retiers the live engine as KV pages grow.
       --smoke --layers 4 --device cpu --hbm-bytes 3.2e6 --adapt \\
       --retier-headroom 1 --page-size 8 --pattern sporadic --requests 4
 
+  # speculative decoding on the single-device path: n-gram drafts (or
+  # --spec-draft model / resident), rejection sampling at temperature > 0:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.3-70b \
+      --smoke --device cpu --spec --spec-draft ngram --spec-k 3 \
+      --pattern bursty --requests 4 --temperature 0.8
+
   # paged KV with the radix prefix cache (single-device path) on
   # template-sharing traffic:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.3-70b \\
@@ -149,7 +155,12 @@ def main(argv=None):
                     help="speculative decoding: draft k tokens, verify "
                          "them in one pass")
     ap.add_argument("--spec-k", type=int, default=4)
-    ap.add_argument("--spec-draft", choices=("resident",), default="resident")
+    ap.add_argument("--spec-draft", choices=("ngram", "model", "resident"),
+                    default="ngram",
+                    help="draft provider: prompt lookup, the registry's "
+                         "gemma3-1b smoke model, or the target's own "
+                         "resident tier (the engine's live tier, or the "
+                         "bottom half of the stack without an engine)")
     ap.add_argument("--plan", choices=("uniform", "hetero"),
                     default="uniform",
                     help="uniform: plan_for's budget rule; hetero: the "
@@ -235,12 +246,8 @@ def main(argv=None):
     else:
         params = M.init_params(cfg, torch.Generator(device=dev)
                                .manual_seed(args.seed), device=dev)
-    spec = SpecConfig(k=args.spec_k, draft=args.spec_draft) \
-        if args.spec else None
-    if spec is not None and engine is None:
-        raise SystemExit("--spec drafts on the engine's resident tier: the "
-                         "weights fit the budget, so no engine runs (lower "
-                         "--hbm-bytes)")
+    spec = SpecConfig(k=args.spec_k, draft=args.spec_draft,
+                      seed=args.seed) if args.spec else None
     if args.adapt and engine is None:
         raise SystemExit("--adapt retiers the engine's tiers: the weights fit "
                          "the budget, so no engine runs (lower --hbm-bytes)")

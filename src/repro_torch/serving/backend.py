@@ -19,9 +19,15 @@ The protocol the scheduler drives (duck-typed, as in the JAX package):
 Without an engine the backend runs the model's own prefill and
 decode_step on one device. With an InterleavedEngine (weights larger than
 HBM) it prefills through the engine's chunked multi-query rounds
-(prefill_partial) and decodes through its interleaved passes; with a
-SpecConfig (draft="resident") each decode round drafts k greedy tokens on
-the engine's live resident tier and verifies them in one pass.
+(prefill_partial) and decodes through its interleaved passes.
+
+With a SpecConfig each decode round drafts k tokens per live slot and
+verifies them in one multi-query pass: the engine's verify_requests, the
+model's verify_step (kernel 4) or the paged cache's verify (kernel 5).
+The drafts come from host providers (n-gram lookup, a small model, the
+target's own bottom layers) or, for draft="resident" on an engine, from
+the engine's live resident tier. Greedy sampling accepts the argmax
+prefix; temperature > 0 runs rejection sampling over the providers' q.
 
 Online memory adaptation (engine only): the scheduler's paged admission
 attaches its PagePool (attach_page_pool) and reports page occupancy
@@ -59,7 +65,6 @@ from repro_torch.kvcache.pool import PagedKVConfig, PagePool
 from repro_torch.models import model as M
 from repro_torch.prefixcache import RadixPrefixCache
 from repro_torch.serving.sampling import SamplerConfig, sample
-from repro_torch.specdec import DepthController, SpecDecodeController
 
 
 class EngineBackend:
@@ -71,10 +76,11 @@ class EngineBackend:
     don't sleep — advance_to() skews the clock, so a trace with long idle
     gaps runs in real compute time while latency math still sees the gaps.
 
-    Speculative decoding (spec, engine only): the shared-pos cache layout
-    (prompts left-padded, one position per batch) forces lockstep commits:
-    every live slot advances by the minimum committed count and the rest is
-    re-verified next round, which greedy re-derives exactly.
+    Speculative decoding (spec): the shared-pos cache layout (prompts
+    left-padded, one position per batch) forces lockstep commits: every
+    live slot advances by the minimum committed count and the rest is
+    verified again next round, which greedy re-derives exactly and
+    rejection sampling redraws from the same target conditional.
     """
 
     can_join_running = False
@@ -128,27 +134,40 @@ class EngineBackend:
         self._saved_tokens = 0            # prompt tokens seeded from cache
         self.spec = spec
         self._ctl = None
-        self._depth = None
         self._pos = 0                         # host mirror of the cache pos
+        # the resident self-draft: with an engine, k tokens are drafted on
+        # the engine itself (draft_requests: the resident tier only, no
+        # weight stream) and no host providers are built; without one,
+        # each slot gets a ResidentDraft over the bottom
+        # spec.resident_layers of the target's own stack
+        self._resident_engine = (spec is not None
+                                 and spec.draft == "resident"
+                                 and engine is not None)
+        self._depth = None
         if spec is not None:
             if cfg.family != Family.DENSE:
                 raise ValueError(
                     f"speculative decoding needs pure-KV per-layer state "
                     f"(the dense family), not {cfg.family}: a recurrent "
                     f"state cannot roll rejected drafts back")
-            if engine is None:
-                raise NotImplementedError(
-                    "the port drafts on the engine's resident tier: "
-                    "speculative decoding needs an InterleavedEngine")
-            if engine.k_res_cap == 0:
+            if self._resident_engine and engine.k_res_cap == 0:
                 raise ValueError("draft='resident' needs a resident tier; "
                                  "this plan streams every layer")
-            if spec.adapt_k:
+            if spec.draft == "resident" and spec.adapt_k:
+                # imported here, as the JAX package does: specdec imports
+                # serving.sampling, which imports this module
+                from repro_torch.specdec import DepthController
                 self._depth = DepthController(k_max=spec.k,
                                               prior=spec.acceptance)
-            # verify windows must not wrap the cache ring; past its end the
-            # plain ring-aware step takes over (decode_active fallback)
-            self._spec_cap = min(engine.S_c, max_len)
+            # verify windows must not wrap the cache ring (sliding caches
+            # hold S_c = window < max_len slots); past its end the plain
+            # ring-aware step takes over (decode_active fallback)
+            if self.paged:
+                self._spec_cap = max_len      # pool slots, no ring
+            elif engine is not None:
+                self._spec_cap = min(engine.S_c, max_len)
+            else:
+                self._spec_cap = min(M.kv_cache_len(cfg, max_len), max_len)
         self._adapt = {"retier_events": 0, "layers_demoted": 0,
                        "layers_promoted": 0, "hbm_returned_bytes": 0.0}
         # batch_width: what a step computes (fixed); n_slots: what the
@@ -257,8 +276,8 @@ class EngineBackend:
     def _sync_depth_rung(self) -> None:
         """Tell the DepthController the tier boundary moved: the new rung
         (demoted slots) starts from the acceptance prior scaled by the
-        live resident fraction."""
-        if self._depth is None:
+        live resident fraction. Without an engine the tier is fixed."""
+        if self._depth is None or self.engine is None:
             return
         eng = self.engine
         rung = sum(eng.demoted(d) for d in range(eng.plan.n_stage))
@@ -396,12 +415,19 @@ class EngineBackend:
                 self._state = None
         tok = self._sample(last)
         self._cur = tok[:, None]
+        host = tok.tolist()
         if self.spec is not None:
             if self._ctl is None:
-                self._ctl = SpecDecodeController(self.spec, self.sampler,
-                                                 self.cfg.vocab_size)
+                from repro_torch.specdec import SpecDecodeController
+                self._ctl = SpecDecodeController(
+                    self.spec, self.sampler, self.cfg, self.batch_width,
+                    target_params=self.params,
+                    external_drafts=self._resident_engine,
+                    device=self.device, impl=self.impl)
             self._pos = int(toks.shape[1])    # left-padded prompt span
-        host = tok.tolist()
+            for slot, p in enumerate(prompts):
+                # drafts see the real (unpadded) prompt + the first token
+                self._ctl.begin(slot, [int(t) for t in p] + [host[slot]])
         if self.prefix_cache:
             for slot in range(len(reqs)):
                 self._slot_out[slot].append(host[slot])
@@ -441,23 +467,49 @@ class EngineBackend:
         if self.prefix_cache:
             for s in slots:
                 self._slot_out[s].append(host[s])
+        if self.spec is not None:             # keep the drafts in step on
+            for s in slots:                   # the plain fallback step
+                self._ctl.observe(s, [host[s]])
         return {s: host[s] for s in slots}
 
     def _decode_active_spec(self, slots: Sequence[int], k: int):
-        """One speculative round: k resident-tier drafts per live slot,
-        verified in ONE multi-query pass (one weight stream); commit the
-        lockstep-min accepted prefix, roll the rejected suffix back."""
-        eng = self.engine
-        active = np.zeros(self.batch_width, bool)
-        active[list(slots)] = True
-        draft = self._draft_resident(active, k)            # (B, k)
+        """One speculative round: k drafts per live slot, verified in ONE
+        multi-query pass (one weight stream through an engine); commit the
+        lockstep-min accepted prefix, roll the rejected suffix back (pos
+        reset or block-table truncation)."""
         cur = self._cur.cpu().numpy()                      # (B, 1)
         mat = np.tile(cur, (1, 1 + k))                     # padding: replicas
-        mat[active, 1:] = draft[active]
-        lg, self._state = eng.verify_requests(
-            self._state, torch.from_numpy(mat).to(self.device), active)
-        lg = lg.float().cpu().numpy()                      # (B, k+1, PV)
-        committed = {s: self._ctl.verify(lg[s], draft[s]) for s in slots}
+        active = np.zeros(self.batch_width, bool)
+        active[list(slots)] = True
+        proposals = {}
+        if self._resident_engine:
+            # the self-draft on the engine: k resident-only steps batched
+            # across all live slots, rolled back before the verify pass
+            draft = self._draft_resident(active, k)
+            for s in slots:
+                proposals[s] = (draft[s], None)            # greedy point mass
+                mat[s, 1:] = draft[s]
+        else:
+            for s in slots:
+                toks, q = self._ctl.propose(s, k)
+                proposals[s] = (toks, q)
+                mat[s, 1:] = toks
+        mat_t = torch.from_numpy(mat).to(self.device)
+        if self.engine is not None:
+            lg, self._state = self.engine.verify_requests(self._state, mat_t,
+                                                          active)
+        elif self.paged:
+            if self.prefix_cache:
+                self._ensure_room(self._paged_cache, 1 + k)
+            lg = self._paged_cache.verify(self.params, mat_t)
+        else:
+            lg, self._state = M.verify_step(self.cfg, self.params,
+                                            self._state, mat_t,
+                                            impl=self.impl)
+        # acceptance reads each slot's rows where they lie: an argmax, or
+        # the filtered softmax of rejection sampling, on the card
+        committed = {s: self._ctl.verify(lg[s].float(), *proposals[s])
+                     for s in slots}
         c = min(len(v) for v in committed.values())
         for s in slots:
             # accepted AND committed drafts only (truncated tokens are
@@ -470,10 +522,23 @@ class EngineBackend:
         committed = {s: v[:c] for s, v in committed.items()}
         self.rounds.append((k, c))
         self._pos += c
-        self._state = eng.rollback(self._state, self._pos)
-        eng.note_committed(self._pos, active)
+        if self.engine is not None:
+            self._state = self.engine.rollback(self._state, self._pos)
+            self.engine.note_committed(self._pos, active)
+        elif self.paged:
+            self._paged_cache.commit(c)
+        else:
+            # rejected positions keep pos_ids > pos: invisible to every
+            # read until decoding reaches them again
+            self._state["pos"] = self._pos
         for s in slots:
+            self._ctl.observe(s, committed[s])
             cur[s, 0] = committed[s][-1]
+            if self.prefix_cache:
+                # several tokens landed at once: donate the pages they
+                # completed, so same-prefix traffic hits them mid-flight
+                self._slot_out[s].extend(committed[s])
+                self._donate_slot(s)
         self._cur = torch.from_numpy(cur).to(self.device)
         return committed
 

@@ -11,12 +11,14 @@ continuous-batching scheduler behind one call:
 The paper's request patterns map to slot counts: sporadic serves one
 request at a time, bursty fills the batch (4 slots, or the engine's batch
 width). With an InterleavedEngine the backend prefills and decodes through
-it, a SpecConfig turns on resident self-speculation, and an OnlinePlanner
-(planner=) retiers it as the KV pages of a paged admission grow (serve
-through a scheduler with SchedulerConfig(kv_policy="paged")). Without one,
-prefix_cache=True serves through a paged KV pool with a radix prefix cache
-over it (page_size tokens per page, the uncached suffix prefilled in
-rounds of prefill_chunk_tokens).
+it, and an OnlinePlanner (planner=) retiers it as the KV pages of a paged
+admission grow (serve through a scheduler with
+SchedulerConfig(kv_policy="paged")). Without one, prefix_cache=True
+serves through a paged KV pool with a radix prefix cache over it
+(page_size tokens per page, the uncached suffix prefilled in rounds of
+prefill_chunk_tokens). A SpecConfig turns on speculative decoding on
+either path: n-gram, small-model or resident drafts, verified in one
+multi-query pass, rejection-sampled at temperature > 0.
 """
 from __future__ import annotations
 

@@ -1,18 +1,113 @@
-"""DepthController (counterpart of ``repro.specdec.resident_draft``): the
-draft depth of the resident self-draft, adapted per retier rung.
+"""Resident-tier self-speculative drafting (counterpart of
+``repro.specdec.resident_draft``).
 
-State is an acceptance-rate EMA per rung (rung = demoted layer slots):
-retier events switch rungs instead of polluting one global average, so a
-rung revisited after a promotion remembers what the draft was worth there.
-Unseen rungs start from a prior; callers pass acceptance x live resident
-fraction, so a demotion shrinks k at once instead of waiting for
-rejections to pile up. The draft itself runs on the engine
-(InterleavedEngine.draft_step); the host-side ResidentDraft of the JAX
-package (a truncated model without an engine) is not ported.
+The offload split leaves a resident tier in HBM while the streamed tier
+pays a weight copy per pass. That split is a free draft model: a forward
+through only the resident layers, with the final norm and LM head as an
+early-exit head, costs no extra weight memory and no stream. The full
+verify pass keeps the output lossless; the draft only sets acceptance.
+
+  truncate_stack   (cfg, params) restricted to some layer ids: views of
+                   the stacked layer tensors where the ids are contiguous
+                   (the model code only reads them), shared embeddings,
+                   final norm and LM head
+  ResidentDraft    host-side draft provider over a truncated stack (the
+                   single-device analogue of the engine's draft_step,
+                   which the engine path runs instead); retier() rebuilds
+                   it when the live tier boundary moves and replays the
+                   committed history
+  DepthController  the draft depth per retier rung: an acceptance-rate EMA
+                   per rung (rung = demoted layer slots), so a rung
+                   revisited after a promotion remembers what the draft
+                   was worth there. Unseen rungs start from a prior;
+                   callers pass acceptance x live resident fraction, so a
+                   demotion shrinks k at once. k = round(a / (1 - a))
+                   clipped to [k_min, k_max], the expected accepted run of
+                   a geometric(a) acceptance stream
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import dataclasses
+from typing import Dict, List, Optional, Sequence
+
+from repro_torch.specdec.draft import SmallModelDraft
+
+
+def default_resident_ids(cfg, n: Optional[int] = None) -> List[int]:
+    """First-n layer ids for an engine-less resident draft (the bottom of
+    the stack is what a uniform plan keeps resident)."""
+    if n is None:
+        n = max(1, cfg.n_layers // 2)
+    return list(range(min(max(int(n), 1), cfg.n_layers)))
+
+
+def _map(fn, tree):
+    return {k: _map(fn, v) for k, v in tree.items()} \
+        if isinstance(tree, dict) else fn(tree)
+
+
+def truncate_stack(cfg, params, resident_ids: Sequence[int]):
+    """(cfg, params) restricted to ``resident_ids`` of the stacked layers;
+    embeddings, final norm and LM head are shared (early exit). A
+    contiguous id range slices views of the layer tensors; other sets
+    gather copies."""
+    ids = sorted({int(i) for i in resident_ids})
+    if not ids:
+        raise ValueError("resident draft needs at least one resident layer")
+    if any(i < 0 or i >= cfg.n_layers for i in ids):
+        raise ValueError(f"resident ids {ids} outside 0..{cfg.n_layers - 1}")
+    if "dense_layers" in params:
+        raise NotImplementedError(
+            "resident draft supports homogeneous stacked layers only")
+    sel = slice(ids[0], ids[-1] + 1) \
+        if ids == list(range(ids[0], ids[-1] + 1)) else ids
+    sub = {k: (_map(lambda a: a[sel], v) if k == "layers" else v)
+           for k, v in params.items()}
+    return dataclasses.replace(cfg, n_layers=len(ids)), sub
+
+
+class ResidentDraft(SmallModelDraft):
+    """Draft provider running the target's own resident layers as the
+    draft. Snapshot-and-advance comes from SmallModelDraft (the truncated
+    stack keeps its own committed-only cache); it also keeps the committed
+    token history, so retier() can rebuild the truncated stack for a moved
+    tier boundary and replay the history through it.
+
+    Windowed configs index their window pattern by position in the
+    truncated stack, so a truncated model may see another local/global mix
+    than the same layers in the full model: draft quality only."""
+
+    def __init__(self, cfg, params, resident_ids: Sequence[int], *,
+                 max_len: int = 512, temperature: float = 0.0,
+                 seed: int = 0, device=None, impl: str = "kernel"):
+        self._full_cfg = cfg
+        self._full_params = params
+        self.resident_ids = tuple(sorted({int(i) for i in resident_ids}))
+        sub_cfg, sub_params = truncate_stack(cfg, params, self.resident_ids)
+        super().__init__(sub_cfg, sub_params, max_len=max_len,
+                         temperature=temperature, seed=seed, device=device,
+                         impl=impl)
+        self._tokens: List[int] = []
+
+    def reset(self, tokens) -> None:
+        self._tokens = [int(t) for t in tokens]
+        super().reset(tokens)
+
+    def observe(self, tokens) -> None:
+        self._tokens.extend(int(t) for t in tokens)
+        super().observe(tokens)
+
+    def retier(self, resident_ids: Sequence[int]) -> None:
+        """The live tier boundary moved: rebuild the truncated stack and
+        replay the committed history through it."""
+        ids = tuple(sorted({int(i) for i in resident_ids}))
+        if ids == self.resident_ids:
+            return
+        self.resident_ids = ids
+        self.cfg, self.params = truncate_stack(self._full_cfg,
+                                               self._full_params, ids)
+        if self._tokens:
+            super().reset(self._tokens)
 
 
 class DepthController:

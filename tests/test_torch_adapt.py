@@ -123,7 +123,8 @@ def plain_outputs(model):
     for k in (0, 3):
         eng = _engine(cfg, plan, 0)
         done, _, _, _ = _serve(cfg, pp, prompts, eng, SchedulerConfig(),
-                               spec=SpecConfig(k=k, adapt_k=False) if k else None)
+                               spec=SpecConfig(k=k, draft="resident",
+                                               adapt_k=False) if k else None)
         out[k] = [r.output for r in done]
         assert eng.resident_layer_ids() == [0, 2]
         eng.close()
@@ -156,7 +157,8 @@ def test_adaptive_serve_planner_retiers_mid_serve(k, model, plain_outputs):
     scfg = SchedulerConfig(kv_policy="paged", page_size=PAGE)
     done, stats, be, fired = _serve(cfg, pp, prompts, eng, scfg,
                                     planner=planner,
-                                    spec=SpecConfig(k=k, adapt_k=False) if k else None)
+                                    spec=SpecConfig(k=k, draft="resident",
+                                                    adapt_k=False) if k else None)
     n_rounds = len(be.rounds)
     assert len(fired) == 1
     at, live = fired[0]

@@ -77,7 +77,8 @@ def test_spec_engine_serve_matches_jax_greedy(arch, pattern, lens, max_len,
     prompts = _prompts(cfg, lens)
     ref = _serve(JaxServer(cfg, jp, max_len=max_len, pattern=pattern), prompts)
     srv = _engine_server(cfg, pp, pattern, max_len,
-                         SpecConfig(k=K, adapt_k=False) if spec else None)
+                         SpecConfig(k=K, draft="resident", adapt_k=False)
+                         if spec else None)
     m0, d0 = mq.launches, da.launches
     got = _serve(srv, prompts)
     assert (mq.launches, da.launches) == (m0, d0), "CPU tensors never launch"
@@ -106,6 +107,27 @@ def test_spec_engine_serve_matches_jax_greedy(arch, pattern, lens, max_len,
         assert min(ks) < K
 
 
+@pytest.mark.parametrize("draft", ["ngram", "model"])
+def test_spec_engine_host_drafts_match_jax_greedy(draft, tiny_dense_factory):
+    """The engine verifying host-proposed drafts (engine.verify_requests,
+    rollback, note_committed): the JAX package's single-device greedy
+    tokens, and the engine's own non-speculative serve's."""
+    cfg = _cfg("tiny", tiny_dense_factory)
+    jp, _, pp = jax_params(cfg)
+    prompts = _prompts(cfg, [8, 5, 8, 3])
+    ref = _serve(JaxServer(cfg, jp, max_len=32, pattern="bursty"), prompts)
+    plain = _serve(_engine_server(cfg, pp, "bursty", 32, None), prompts)
+    srv = _engine_server(cfg, pp, "bursty", 32, SpecConfig(k=K, draft=draft))
+    got = _serve(srv, prompts)
+    assert [r.output for r in got] == [r.output for r in plain]
+    assert_same_or_near_tie(cfg, jp, pp, prompts, [r.output for r in got],
+                            [r.output for r in ref], 32, 8)
+    be = srv.make_backend()
+    assert be._ctl.drafts is not None and be._depth is None
+    assert be.spec_stats["spec_rounds"] == 4 * sum(1 for k, _ in be.rounds if k)
+    assert {k for k, _ in be.rounds} == {K}
+
+
 def test_retier_during_spec_serve_token_identical(tiny_dense_factory):
     """retier(+1) after the first round and retier(-1) two rounds later,
     on the live serve: the tokens of the serve without retier, and the
@@ -116,7 +138,8 @@ def test_retier_during_spec_serve_token_identical(tiny_dense_factory):
     prompts = _prompts(cfg, [8, 8, 8, 8])
     outs = []
     for retier in (False, True):
-        srv = _engine_server(cfg, pp, "bursty", 32, SpecConfig(k=K))
+        srv = _engine_server(cfg, pp, "bursty", 32,
+                             SpecConfig(k=K, draft="resident"))
         be = srv.make_backend()
         for p in prompts:
             srv.queue.submit(p, MAX_NEW)
@@ -168,11 +191,41 @@ def test_depth_controller_matches_jax():
 
 
 def test_spec_config_refuses_what_the_port_lacks(tiny_dense_factory):
-    with pytest.raises(NotImplementedError):
-        SpecConfig(draft="ngram")
-    cfg = port_cfg(tiny_dense_factory())
-    with pytest.raises(NotImplementedError):
-        LimeServer(cfg, {}, spec=SpecConfig(), device="cpu").make_backend()
+    """The refusals left are the JAX package's own: an unknown draft
+    name, a recurrent family, a resident draft on an engine whose plan
+    streams every layer. A dense model without an engine speculates."""
+    import types
+
+    from repro.serving.backend import EngineBackend as JaxBackend
+    from repro.specdec import SpecConfig as JaxSpec
+    from repro.specdec import make_draft_provider as jax_make_draft
+    with pytest.raises(KeyError):
+        SpecConfig(draft="medusa")
+    with pytest.raises(KeyError):
+        jax_make_draft(JaxSpec(draft="medusa"), tiny_dense_factory())
+    ssm = get_smoke_config("rwkv6-3b")
+    with pytest.raises(ValueError, match="pure-KV"):
+        JaxBackend(ssm, {}, spec=JaxSpec())
+    with pytest.raises(ValueError, match="pure-KV"):
+        LimeServer(port_cfg(ssm), {}, spec=SpecConfig(),
+                   device="cpu").make_backend()
+    cfg = port_cfg(tiny_dense_factory(n_layers=4))
+    eng = PE.InterleavedEngine(cfg, PE.UniformPlan(1, 2, 0, 2), mb=4,
+                               max_len=32, device="cpu")
+    assert eng.k_res_cap == 0
+    with pytest.raises(ValueError, match="resident tier"):
+        LimeServer(cfg, {}, engine=eng, max_len=32,
+                   spec=SpecConfig(draft="resident")).make_backend()
+    # the JAX engine refuses the same plan at the same check
+    fake = types.SimpleNamespace(k_res_cap=0, n_mb=1, mb=4, S_c=32)
+    with pytest.raises(ValueError, match="resident tier"):
+        JaxBackend(tiny_dense_factory(n_layers=4), {}, engine=fake,
+                   max_len=32, spec=JaxSpec(draft="resident"))
+    eng.close()
+    for draft in ("ngram", "model", "resident"):
+        be = LimeServer(cfg, {}, spec=SpecConfig(draft=draft),
+                        device="cpu").make_backend()
+        assert be.spec.draft == draft and be.engine is None
 
 
 def test_launcher_engine_spec_prints_report(capsys):

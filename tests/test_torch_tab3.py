@@ -240,7 +240,7 @@ def test_pixtral_patch_prefill_rolls_the_ring_vs_jax():
     with pytest.raises(NotImplementedError):
         PE.InterleavedEngine(pcfg, PE.UniformPlan(1, 2, 1, 0), device="cpu")
     with pytest.raises(ValueError, match="pure-KV"):
-        LimeServer(pcfg, pp, max_len=max_len, spec=SpecConfig(k=2),
+        LimeServer(pcfg, pp, max_len=max_len, spec=SpecConfig(k=2, draft="resident"),
                    device="cpu").make_backend()
 
 
