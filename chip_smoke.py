@@ -116,6 +116,27 @@ Phases; any failure exits non-zero without the final ``ok`` line:
    prompts. Printed: TTFT, ms/token, peak HBM, state bytes per sequence,
    and a profiled serve (device time by class, each kernel's µs per call,
    idle share).
+3f. the recurrent families through the interleaved engine, after 3c:
+   RWKV6-3B, then Hymba-1.5B, at full width and all 32 layers, random
+   weights from seed 0, plan_for's plan at a --hbm-bytes budget that
+   streams half the layers (2 x (8 resident + 8 streamed); the resident
+   layers' packed bytes within the budget's share). A bursty batch (4 x
+   prompt 512, ENGINE_NEW = 8 tokens) through LimeServer with exact launch
+   counts every step (the prompt pass over the tiers: a chunked scan and,
+   for Hymba, a flash launch per layer; a decode step: a sequential scan
+   and, for Hymba, a decode-attention launch per layer); the engine's
+   logits on the served tokens bit-equal to the model's kernel path
+   (M.prefill + M.decode_step, the weights whole on the card) and, at 32
+   layers, within 3c's RECURRENT_LOGIT_REL_TOL of impl="ref" with the
+   reference's own noise floor read and held under NOISE_FLOOR_MAX;
+   planted faults (every streamed layer run from the other load buffer;
+   the first streamed layer's scan state dropped after the prompt pass)
+   rejected by that bit-equality; Hymba's batch once more through a paged
+   engine (page 64): its tokens equal, its pages in use as reckoned after
+   every step. Printed: the plan, packed against counted layer bytes, H2D
+   GB/s, the streamed bytes' copy time against the measured decode pass
+   and the cost model's T_total, a profiled pass (compute idle share),
+   TTFT, ms/token, state bytes per sequence, each step's time.
 3b. the main path: all 80 layers of LLaMA-3.3-70B at full width (or the
    deepest cut, >= 40 layers, whose streamed tier the host's memory holds,
    printed as a cut), random weights from seed 0, through the
@@ -173,11 +194,11 @@ Phases; any failure exits non-zero without the final ``ok`` line:
    prefill of 256 patch embeddings and 256 text tokens, then 16 decode
    steps, the kernel path against impl="ref" (argmax equal or a near
    tie).
-Every flash launch of phases 2, 2b, 2c and 3c, every prefill round of
+Every flash launch of phases 2, 2b, 2c, 3c and 3f, every prefill round of
 kernel 5 (2b, 2c) and of kernel 4 (3a, 3b) must run the Hopper mainloop,
 every verify pass of kernels 4 (2c, 3a, 3b) and 5 (2c) the verify body,
-and every launch of kernels 1 and 3 in phases 2, 2b, 3b and 3c the Hopper
-decode body (the wrappers' hopper and verify counters); the profiled
+and every launch of kernels 1 and 3 in phases 2, 2b, 3b, 3c and 3f the
+Hopper decode body (the wrappers' hopper and verify counters); the profiled
 serves show no second pass (decode_combine_kernel, mq_combine_kernel), and
 phase 3b's pass profiles give each attention kernel's µs per call.
 4. a JSON line of per-kernel numbers, then the ``ok`` line.
@@ -2466,16 +2487,18 @@ def step_launches(cfg, decode):
     return want
 
 
-def drive_recurrent(srv, prompts, pattern):
-    """Serve `prompts` under `pattern` one scheduler step at a time: every
-    step's launches must be what it implies (step_launches). Returns
-    (finished requests, scheduler stats)."""
+def drive_recurrent(srv, prompts, pattern, max_new=MAX_NEW, after_step=None):
+    """Serve `prompts` under `pattern` (max_new tokens each) one scheduler
+    step at a time: every step's launches must be what it implies
+    (step_launches); after_step, where given, is called after each step
+    that launched anything.
+    Returns (finished requests, scheduler stats)."""
     import torch
     from repro_torch.serving import (ContinuousBatchingScheduler, Request,
                                      SchedulerConfig, cli_arrivals)
     be = srv.make_backend()
     arrivals = cli_arrivals(pattern, len(prompts), prompt_len=PROMPT_LEN,
-                            max_new_tokens=MAX_NEW, burst_size=srv.slots)
+                            max_new_tokens=max_new, burst_size=srv.slots)
     base = be.now()
     reqs = [Request(i, p, ev.max_new_tokens, arrival_s=base + ev.time_s)
             for i, (ev, p) in enumerate(zip(arrivals, prompts))]
@@ -2498,6 +2521,8 @@ def drive_recurrent(srv, prompts, pattern):
             want = got
         if got != want:
             raise AssertionError(f"{pattern}: a step launched {got}, expected {want}")
+        if after_step is not None and any(got.values()):
+            after_step()
     if n_prefill != (1 if pattern == "bursty" else len(prompts)):
         raise AssertionError(f"{pattern}: {n_prefill} prefill steps")
     return sorted(sched.finish_run(), key=lambda r: r.rid), sched.stats
@@ -2797,6 +2822,235 @@ def recurrent_phase(card):
     launches = {}
     for arch in RECURRENT_ARCHS:
         for k, n in recurrent_serve(arch, card).items():
+            launches[k] = launches.get(k, 0) + n
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
+# ----------------------------------------------------------------------------
+# phase 3f: the recurrent families through the engine, all 32 layers
+# ----------------------------------------------------------------------------
+ENGINE_NEW = 8            # tokens per request in phase 3f's serves
+ENGINE_PAGE = 64          # the paged Hymba serve's page
+
+
+def engine_forced_logits(eng, params, prompts, feed, after_prefill=None, steps=None):
+    """forced_logits through the engine: its prompt pass over the tiers,
+    seed_cache, then decode steps fed the (n, T) tokens `feed` (the first
+    `steps` of them where given). Logits (T, n, vocab) fp32."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serving.backend import EngineBackend
+    V = eng.cfg.vocab_size
+    toks = torch.from_numpy(EngineBackend._pad_prompts(prompts)).long().cuda()
+    T = feed.shape[1] if steps is None else steps + 1
+    lg, cache = eng.prefill(toks)
+    if after_prefill is not None:
+        after_prefill(cache)
+    st = eng.seed_cache(eng.init_state(params), cache)
+    out = [lg[:, -1, :V].float()]
+    for t in range(T - 1):
+        lg, st = eng.decode_step(st, torch.from_numpy(
+            np.ascontiguousarray(feed[:, t:t + 1])).long().cuda())
+        out.append(lg[:, :V].float())
+    return torch.stack(out)
+
+
+def recurrent_engine_plan(cfg):
+    """(budget, plan) of a --hbm-bytes budget whose plan_for plan streams
+    half of cfg's layers (2 segments of L/4 resident + L/4 streamed) and
+    whose resident layers fit its share by their packed bytes (the
+    config's layer_params() count misjudges them: RWKV6 above, Hymba
+    below)."""
+    from repro_torch.core.engine import packed_layer_bytes, plan_for
+    from repro_torch.launch.serve import HBM_FRAC
+    L = cfg.n_layers
+    packed, counted = packed_layer_bytes(cfg), cfg.layer_params() * 2
+    budget = max(L // 2 * packed, (L // 2 + 0.5) * counted) / HBM_FRAC
+    plan = plan_for(cfg, 1, hbm_frac_for_weights=HBM_FRAC, hbm_bytes=budget)
+    if (plan.n_seg, plan.k_res, plan.k_off) != (2, L // 4, L // 4) \
+            or L // 2 * packed > budget * HBM_FRAC:
+        raise AssertionError(f"{cfg.name}: budget {budget:.4g} B plans {plan}")
+    return budget, plan
+
+
+def recurrent_engine_serve(arch, card):
+    """One recurrent config at full width and all its layers through the
+    InterleavedEngine (half of them streamed, recurrent_engine_plan), random
+    weights from seed 0: a bursty batch served through LimeServer with exact
+    launch counts; the engine's logits bit-equal to the model's kernel path
+    (M.prefill + M.decode_step) on the same weights and tokens, and within
+    phase 3c's limits of impl="ref" (the reference's noise floor read in
+    the same run); planted faults (a streamed layer run from the other load
+    buffer, a prefill that drops the first streamed layer's scan state)
+    rejected; a decode pass timed against the copy of its streamed bytes
+    and profiled; Hymba served once more by a paged engine. Returns the
+    serves' launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import Family
+    from repro_torch.core.engine import InterleavedEngine
+    from repro_torch.launch.serve import HBM_FRAC, cost_env, measure_h2d
+    from repro_torch.models import model as M
+    from repro_torch.serving import LimeServer, summarize
+
+    cfg = get_config(arch)
+    V, L = cfg.vocab_size, cfg.n_layers
+    t_lap = [time.monotonic()]
+
+    def lap(what):
+        now = time.monotonic()
+        log(f"  {what}: {now - t_lap[0]:.1f} s")
+        t_lap[0] = now
+
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    budget, plan = recurrent_engine_plan(cfg)
+    eng = InterleavedEngine(cfg, plan, mb=4, max_len=MAX_LEN)
+    eng.init_state(params)
+    torch.cuda.synchronize()
+    n_res = len(eng.resident_layer_ids())
+    streamed = (L - n_res) * eng.layer_bytes
+    rate = measure_h2d(eng.store.data.flatten(0, 1)) / 1e9
+    env = cost_env(cfg, budget, width=4, prompt_len=PROMPT_LEN, load_bw=rate * 1e9)
+    env.evaluate(plan)
+    log(f"phase 3f: {cfg.name} ({cfg.family.value}) at full width and all {L} layers "
+        f"through the engine: --hbm-bytes {budget / 1e9:.3f} GB (x {HBM_FRAC}), plan_for "
+        f"n_seg {plan.n_seg}, k_res {plan.k_res}, k_off {plan.k_off}: {n_res} resident "
+        f"{eng.resident_layer_ids()}, packed layer {eng.layer_bytes / 1e6:.2f} MB (the "
+        f"config's count {cfg.layer_params() * 2 / 1e6:.2f} MB), {streamed / 1e9:.3f} GB "
+        f"streamed a pass from {eng.store.nbytes / 1e9:.3f} GB pinned (registered "
+        f"{eng.store.registered}); H2D {rate:.2f} GB/s on a side stream, the streamed "
+        f"bytes' copy {streamed / rate / 1e6:.2f} ms; cost model T_total "
+        f"{plan.t_total * 1e3:.2f} ms (T_comp {plan.t_comp * 1e3:.2f}, T_uncover "
+        f"{plan.t_uncover * 1e3:.2f}) [{card}]")
+    lap(f"{cfg.name} weights and tiers")
+    prompts = make_prompts(4, V, 0)
+    warm = eng.init_state(params)
+    eng.decode_step(warm, torch.ones((4, 1), dtype=torch.long, device="cuda"))
+    del warm
+    zero_counts()
+    srv = LimeServer(cfg, params, engine=eng, max_len=MAX_LEN, pattern="bursty")
+    done, stats = drive_recurrent(srv, prompts, "bursty", max_new=ENGINE_NEW)
+    torch.cuda.synchronize()
+    got = read_counts()
+    rep = summarize(done, pattern="bursty", backend="engine", stats=stats)
+    feed = np.array([r.output for r in done], np.int64)
+    log(f"  bursty through the engine: 4 requests x {ENGINE_NEW} tokens, prompt "
+        f"{PROMPT_LEN}: TTFT p50 {rep.ttft_p50_s * 1e3:.2f} ms, decode "
+        f"{1e3 / rep.decode_tok_s_p50:.3f} ms/token per request (p50); launches "
+        f"{ {k: n for k, n in got.items() if n} } (exact every step); state per "
+        f"sequence {state_bytes(M.init_cache(cfg, 1, MAX_LEN), 1) / 1e6:.2f} MB "
+        f"[{card}; {L} layers]")
+    lap(f"{cfg.name} engine serve")
+    le = engine_forced_logits(eng, params, prompts, feed)
+    lk = forced_logits(cfg, params, prompts, feed, 4, "kernel")
+    served = torch.from_numpy(feed.T).cuda()
+    same = torch.equal(le, lk)
+    log(f"  engine vs the model's kernel path (M.prefill + M.decode_step) on the "
+        f"served tokens: logits {'bit-equal' if same else 'DIFFER'} (max |diff| "
+        f"{(le - lk).abs().max().item():.3g}); served tokens "
+        f"{'are' if torch.equal(le.argmax(-1), served) else 'ARE NOT'} the engine's "
+        f"argmaxes")
+    if not same or not torch.equal(le.argmax(-1), served):
+        raise AssertionError(f"{cfg.name}: the engine is not the model's kernel path")
+    lap(f"{cfg.name} forced engine and model passes")
+    tol = RECURRENT_LOGIT_REL_TOL
+    lr = forced_logits(cfg, params, prompts, feed, 4, "ref")
+    err = (le - lr).abs().amax(-1)
+    scale = lr.abs().amax(-1)
+    worst = (err / scale).max().item()
+    ties = argmax_or_tie(f"{cfg.name} engine vs impl='ref'", le.flatten(0, 1),
+                         lr.flatten(0, 1), err.flatten())
+    log(f"  the kernel path vs impl='ref' at {L} layers: worst logit err {worst:.4f} "
+        f"of |logit| max (tol {tol}), {ties} near ties of {le.shape[0] * 4} picks")
+    if worst > tol:
+        raise AssertionError(f"{cfg.name}: kernel logits off the reference at {L} layers")
+    floor = noise_floor(cfg, params, prompts, feed, lr)
+    log(f"  the reference's own noise floor at {L} layers: each request alone against "
+        f"the 4-wide batch, up to {floor:.4f} of |logit| max (at most "
+        f"{NOISE_FLOOR_MAX}) [{card}]")
+    if floor > NOISE_FLOOR_MAX:
+        raise AssertionError(f"{cfg.name}: the reference's noise floor {floor:.4f} is "
+                             f"above {NOISE_FLOOR_MAX}")
+    lap(f"{cfg.name} reference passes and noise floor")
+    first = int(eng._off_ids[0, 0, 0])
+    scan = "rwkv_state" if cfg.family == Family.SSM else "ssm_state"
+
+    def drop(cache):
+        cache[scan][first].zero_()
+    eng._buf_views.reverse()
+    swapped = engine_forced_logits(eng, params, prompts, feed, steps=1)
+    eng._buf_views.reverse()
+    dropped = engine_forced_logits(eng, params, prompts, feed, after_prefill=drop,
+                                   steps=1)
+    faults = []
+    for label, lf in (("streamed layers run from the other load buffer", swapped),
+                      (f"{scan} of layer {first} (the first streamed) dropped", dropped)):
+        n = lf.shape[0]
+        faults.append((label, ((lf - lk[:n]).abs().amax(-1)
+                               / lk[:n].abs().amax(-1)).max().item(),
+                       torch.equal(lf, lk[:n])))
+    log("  planted engine faults, rejected by the bit-equality to the model's kernel "
+        "path (prefill + 1 step); logit err / |logit| max: "
+        + ", ".join(f"{k} {v:.4f}" for k, v, _ in faults)
+        + f" (phase 3c's limit {tol} alone would see those above it)")
+    missed = [k for k, _, eq in faults if eq]
+    if missed or faults[0][1] <= tol:
+        raise AssertionError(f"{cfg.name}: planted faults pass {missed or faults[0][0]}")
+    lap(f"{cfg.name} planted faults")
+    st = eng.seed_cache(eng.init_state(params), eng.prefill(
+        torch.from_numpy(np.stack(prompts)).long().cuda())[1])
+    tok = torch.from_numpy(feed[:, :1]).cuda()
+    passes = sorted(timed_s(lambda: eng.decode_step(st, tok)) for _ in range(3))
+    copy_s = streamed / (rate * 1e9)
+    log(f"  decode pass (B 4, {L - n_res} of {L} layers streamed): median of 3 "
+        f"{passes[1] * 1e3:.2f} ms (min {passes[0] * 1e3:.2f}) against the streamed "
+        f"bytes' copy {copy_s * 1e3:.2f} ms at {rate:.2f} GB/s and the cost model's "
+        f"T_total {plan.t_total * 1e3:.2f} ms [{card}]")
+    pass_profile(eng, st, st["pos"], lambda: eng.decode_step(st, tok), card,
+                 f"{cfg.name} decode")
+    lap(f"{cfg.name} timed and profiled passes")
+    eng.close()
+    if cfg.family == Family.HYBRID:
+        engp = InterleavedEngine(cfg, plan, mb=4, max_len=MAX_LEN, paged=True,
+                                 page_size=ENGINE_PAGE)
+        engp.init_state(params)
+        pages = []
+        zero_counts()
+        srv = LimeServer(cfg, params, engine=engp, max_len=MAX_LEN, pattern="bursty")
+        donep, _ = drive_recurrent(srv, prompts, "bursty", max_new=ENGINE_NEW,
+                                   after_step=lambda: pages.append(
+                                       engp.paged_stats()["pages_in_use"]))
+        torch.cuda.synchronize()
+        for k, n in read_counts().items():
+            got[k] += n
+        def per(ctx):            # pages of one slot's table at ctx tokens
+            return -(-min(ctx, engp.S_c) // ENGINE_PAGE)
+        want = [4 * per(PROMPT_LEN)] + [4 * per(PROMPT_LEN + t)
+                                         for t in range(1, ENGINE_NEW - 1)] + [0]
+        same = [r.output for r in donep] == [r.output for r in done]
+        log(f"  the batch once more through a paged engine (page {ENGINE_PAGE}, "
+            f"{engp.page_pool.cfg.device_pages} pages): tokens "
+            f"{'equal to' if same else 'DIFFER from'} the unpaged serve's; pages in use "
+            f"after each step {pages} (reckoned {want})")
+        if not same or pages != want:
+            raise AssertionError(f"{cfg.name}: the paged engine serve is off")
+        engp.close()
+        lap(f"{cfg.name} paged engine serve")
+    return got
+
+
+def recurrent_engine_phase(card):
+    """Phase 3f: recurrent_engine_serve for RWKV6-3B, then Hymba-1.5B, each
+    on a card holding nothing of the other. Returns the summed launches."""
+    import torch
+    launches = {}
+    for arch in RECURRENT_ARCHS:
+        for k, n in recurrent_engine_serve(arch, card).items():
             launches[k] = launches.get(k, 0) + n
         gc.collect()
         torch.cuda.empty_cache()
@@ -3794,6 +4048,9 @@ def main() -> int:
         for k, n in recurrent_phase(card).items():
             launches[k] = launches.get(k, 0) + n
         t = done("3c", t)
+        for k, n in recurrent_engine_phase(card).items():
+            launches[k] = launches.get(k, 0) + n
+        t = done("3f", t)
         engine_launches, depth, state80 = full_model_phase(card)
         t = done("3b", t)
         for k, n in engine_launches.items():

@@ -11,9 +11,25 @@ of a chunk is fetched while the chunk's resident layers compute: the
 paper's interleave. A copy waits on the compute stream's "buffer free"
 event for its buffer, compute waits on the copy's "copy done" event.
 
+Families: dense, SSM (RWKV6) and hybrid (Hymba), each layer run by the
+model's own per-layer bodies (``M.step_layer`` in a pass,
+``M.prefill_layer`` in the prompt pass over the tiers); MoE and
+encoder-decoder are not ported, and the VLM (whose patch embeddings only
+M.prefill takes) is refused as the JAX engine's paths refuse it.
+Chunked prefill, verification and the resident self-draft need pure-KV
+per-layer state (the dense family), as in the JAX package; the recurrent
+families prefill through ``prefill`` (the prompt pass over the tiers)
+and ``seed_cache``.
+
 Of the JAX package's two streaming designs this is fetch_mode="slot"
 (each streamed layer fetched when its chunk runs) on one stage; the
-multi-stage ring (n_stage > 1) and fetch_mode="step" are not ported.
+multi-stage ring (n_stage > 1) and fetch_mode="step" (every streamed
+layer restored once a step: on one stage that would hold them all in HBM)
+are not ported. Also ported: ``long_mode`` (windowed globals, a
+window-sized ring) and the paged slot accounting (``paged=``: block tables
+over a PagePool, ``seed_cache`` moving K/V through the pages, extended per
+decode step and per committed spec round, freed on release). One position
+is shared by every slot, as in the JAX engine.
 
 Placement: ``plan_layout`` / ``split_layer_stack`` give the JAX package's
 index maps for every plan whose resident count divides its segments. Where
@@ -26,13 +42,13 @@ n_seg x (retier_headroom + k_off) one-layer slots. Pinned memory is plain
 host memory registered with cudaHostRegister: PyTorch's pinned allocator
 rounds each block up to a power of two (a 1.71 GB layer would take 2 GiB).
 
-The KV cache stays in HBM in the model's layout (L, B, S_c, KV, dh),
-indexed by real layer id whichever tier holds the layer, so ``retier``
-moves weights only: unlike the JAX package's per-stage grid (where a
-demoted layer's cache rows move with it) no cache row moves. The engine
-state *is* the model's cache dict (``pos``, ``pos_ids``, ``k``, ``v``),
-so engine and model steps run on the same state; the weights belong to
-the engine (``init_state`` loads them once from a layer source).
+The cache stays in HBM in the model's layout (K/V (L, B, S_c, KV, dh),
+the recurrent states (L, B, ...)), indexed by real layer id whichever tier
+holds the layer, so ``retier`` moves weights only: unlike the JAX
+package's per-stage grid (where a demoted layer's cache rows move with
+it) no cache row moves. The engine state *is* the model's cache dict, so
+engine and model steps run on the same state; the weights belong to the
+engine (``init_state`` loads them once from a layer source).
 """
 from __future__ import annotations
 
@@ -46,8 +62,15 @@ import torch
 from repro_torch.configs.base import Family, ModelConfig
 from repro_torch.core.cost_model import ExecutionPlan
 from repro_torch.device import resolve_device
+from repro_torch.kvcache.allocator import BlockTable
+from repro_torch.kvcache.layout import gather_from_pages, scatter_to_pages
+from repro_torch.kvcache.pool import PagedKVConfig, PagePool
 from repro_torch.models import model as M
 from repro_torch.models.modules import rms_norm, round_up, unembed
+
+# the families whose layers the engine streams; of them only the dense
+# family has pure-KV per-layer state (chunked prefill, verify, draft)
+FAMILIES = (Family.DENSE, Family.SSM, Family.HYBRID)
 
 
 def UniformPlan(n_stage: int, n_seg: int, k_res: int,
@@ -85,15 +108,38 @@ def plan_for(cfg: ModelConfig, n_stage: int, *, hbm_frac_for_weights: float,
 
 def weight_budget(cfg: ModelConfig, *, batch: int, max_len: int,
                   free_bytes: float) -> float:
-    """HBM left for resident layers out of free_bytes: less the KV cache
-    (every layer, batch x S_c slots, bf16), the two one-layer load buffers
+    """HBM left for resident layers out of free_bytes: less the model's
+    cache for `batch` sequences (K/V at S_c slots, bf16; the recurrent
+    states), the two one-layer load buffers (the engine's packed layer)
     and the shared weights (embedding, lm_head, final norm)."""
-    kv = 2 * cfg.n_layers * batch * M.kv_cache_len(cfg, max_len) \
-        * cfg.n_kv_heads * cfg.head_dim * 2
+    cache = M.init_cache(cfg, batch, max_len, device="meta")
+    state = sum(t.numel() * t.element_size() for k, t in cache.items()
+                if k not in ("pos", "pos_ids"))
     pv = round_up(cfg.vocab_size, 256)
     shared = (pv * cfg.d_model * (1 if cfg.tie_embeddings else 2)
               + cfg.d_model) * 2
-    return free_bytes - kv - 2 * cfg.layer_params() * 2 - shared
+    return free_bytes - state - 2 * packed_layer_bytes(cfg) - shared
+
+
+def _layer_slots(cfg: ModelConfig) -> Tuple[List[Tuple[Tuple[str, ...], tuple,
+                                                      int]], int]:
+    """The flat packing of one layer of cfg's family: every leaf at a
+    256-byte aligned offset of one bf16 tensor (one H2D copy per streamed
+    layer). Returns ([(path, shape, offset)], numel)."""
+    slots, off = [], 0
+    for path, shape in _leaves(M._LAYER_SPECS[cfg.family](cfg)):
+        slots.append((path, shape, off))
+        off += -(-math.prod(shape) // 128) * 128
+    return slots, off
+
+
+def packed_layer_bytes(cfg: ModelConfig) -> int:
+    """Bytes of one packed layer: what a resident layer holds in HBM and a
+    streamed one copies per pass. cfg.layer_params() (the reference's
+    count, which plan_for and the cost model price) misjudges the
+    recurrent layers: an RWKV6-3B layer packs 85.6 M parameters against
+    its 81.9 M."""
+    return _layer_slots(cfg)[1] * 2
 
 
 def plan_layout(plan: ExecutionPlan, headroom: int = 0, k_res_live=None):
@@ -246,17 +292,20 @@ class InterleavedEngine:
 
     def __init__(self, cfg: ModelConfig, plan: ExecutionPlan, *, mb: int = 1,
                  max_len: int = 256, retier_headroom: int = 0,
-                 impl: str = "kernel", device=None):
+                 long_mode: bool = False, paged: bool = False,
+                 page_size: int = 64, impl: str = "kernel", device=None):
         if plan.n_stage != 1:
             raise NotImplementedError(
                 "the port runs one stage; the multi-stage ring waits until a "
                 "run shows more than one card")
-        if cfg.family != Family.DENSE:
+        if cfg.family not in FAMILIES:
             raise NotImplementedError(
-                f"the port's engine runs the dense family, not {cfg.family}")
+                f"the port's engine runs the dense, SSM and hybrid families, "
+                f"not {cfg.family}")
         self.cfg, self.plan = cfg, plan
         self.mb = mb
         self.max_len = max_len
+        self.long_mode = long_mode
         self.impl = impl
         self.device = resolve_device(device)
         self.k_res_b = plan.k_res_list
@@ -265,16 +314,24 @@ class InterleavedEngine:
         self.H = max(int(retier_headroom), 0)
         self.k_off_cap = self.H + max(self.k_off_b)
         self.k_res_live = list(self.k_res_b)
-        self.S_c = M.kv_cache_len(cfg, max_len)
-        self.windows = M.layer_windows(cfg, cfg.n_layers)
-        # flat packing of one layer: every leaf at a 256-byte aligned
-        # offset of one bf16 tensor (one H2D copy per streamed layer)
-        self._slots: List[Tuple[Tuple[str, ...], tuple, int]] = []
-        off = 0
-        for path, shape in _leaves(M._dense_layer_specs(cfg)):
-            self._slots.append((path, shape, off))
-            off += -(-math.prod(shape) // 128) * 128
-        self.layer_numel = off
+        self.S_c = M.kv_cache_len(cfg, max_len, long_mode)
+        self.windows = M.layer_windows(cfg, cfg.n_layers, long_mode)
+        # paged KV accounting (the JAX engine's): the per-slot cache is
+        # carved into page_size-token pages of a PagePool; each slot holds
+        # a block table, so the serving layer sees page-granular occupancy
+        # and seed_cache moves K/V through real pages
+        self.paged = paged and self.S_c > 0 and cfg.n_kv_heads > 0
+        self.page_size = page_size
+        if self.paged:
+            self.pages_per_slot = -(-self.S_c // page_size)
+            page_bytes = (2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim
+                          * page_size * 2.0)            # k+v, bf16
+            self.page_pool = PagePool(PagedKVConfig(
+                page_size=page_size, device_pages=mb * self.pages_per_slot,
+                page_bytes=page_bytes))
+            self.slot_tables = [BlockTable(page_size) for _ in range(mb)]
+            self._paged_pos = 0        # host mirror of the state's pos
+        self._slots, self.layer_numel = _layer_slots(cfg)
         self._loaded_from = None
         self._res: Dict[int, torch.Tensor] = {}
         self._res_views: Dict[int, dict] = {}
@@ -284,6 +341,11 @@ class InterleavedEngine:
         self._shared: dict = {}
         self._refresh_tier_inputs()
         self._build_res = self._res_ids      # the layout before any retier
+
+    @property
+    def layer_bytes(self) -> int:
+        """Bytes of one packed layer (packed_layer_bytes)."""
+        return self.layer_numel * 2
 
     # -- tiers -----------------------------------------------------------------
     def _refresh_tier_inputs(self) -> None:
@@ -381,21 +443,20 @@ class InterleavedEngine:
         """Load the weights from params (shared leaves plus "layers", a
         stacked tree or a layer source, see M.init_params_by_layer) unless
         this params object is already loaded, and return a fresh state:
-        an empty KV cache for mb sequences at pos 0."""
+        an empty cache (K/V, recurrent states) for mb sequences at pos
+        0."""
         if self._loaded_from is not params:
             self._load(params)
-        return M.init_cache(self.cfg, self.mb, self.max_len,
+        return M.init_cache(self.cfg, self.mb, self.max_len, self.long_mode,
                             device=self.device)
 
     # -- passes ----------------------------------------------------------------
-    def _pass(self, state: dict, tokens: torch.Tensor, *, multi: bool,
-              resident_only: bool = False):
-        if self._loaded_from is None:
-            raise RuntimeError("init_state(params) loads the weights first")
-        cfg = self.cfg
-        pos = state["pos"]
-        x = M.embed(self._shared, tokens).to(torch.bfloat16)
-        slot = M.new_positions(state, tokens.shape[1])
+    def _run_layers(self, x: torch.Tensor, body, resident_only: bool = False):
+        """x through every layer of a pass in the tiers' order:
+        body(weights, layer id, x) -> x on each resident layer's HBM
+        views, and on each streamed layer's load buffer once its copy has
+        landed, the next streamed layer's copy issued first (the
+        interleave)."""
         order = self._order(resident_only)
         streamed = [where for _, where in order if where is not None]
         st, store = self._streamer, self._store.data
@@ -404,21 +465,85 @@ class InterleavedEngine:
         i = 0
         for l, where in order:
             if where is None:
-                x = M.decode_layer(cfg, self._res_views[l], x, state, l, slot,
-                                   self.windows[l], impl=self.impl,
-                                   multi=multi)
+                x = body(self._res_views[l], l, x)
                 continue
             if i + 1 < len(streamed):       # interleave: next copy first
                 st.fetch((i + 1) % 2, store[streamed[i + 1]])
             b = i % 2
             st.acquire(b)
-            x = M.decode_layer(cfg, self._buf_views[b], x, state, l, slot,
-                               self.windows[l], impl=self.impl, multi=multi)
+            x = body(self._buf_views[b], l, x)
             st.release(b)
             i += 1
+        return x
+
+    def _check_loaded(self) -> None:
+        if self._loaded_from is None:
+            raise RuntimeError("init_state(params) loads the weights first")
+
+    def _pass(self, state: dict, tokens: torch.Tensor, *, multi: bool,
+              resident_only: bool = False):
+        self._check_loaded()
+        cfg = self.cfg
+        pos = state["pos"]
+        x = M.embed(self._shared, tokens).to(torch.bfloat16)
+        slot = M.new_positions(state, tokens.shape[1]) \
+            if "pos_ids" in state else 0
+
+        def body(p, l, x):
+            return M.step_layer(cfg, p, x, state, l, slot, self.windows[l],
+                                impl=self.impl, multi=multi)
+        x = self._run_layers(x, body, resident_only)
         state["pos"] = pos + tokens.shape[1]
         x = rms_norm(x, self._shared["final_norm"], cfg.norm_eps)
         return unembed(self._shared, x)
+
+    def prefill(self, tokens: torch.Tensor):
+        """The prompt pass of every family over the engine's own tiers (the
+        counterpart of the JAX backend's M.prefill on replicated params,
+        which one card cannot hold): M.prefill_layer on each layer's
+        weights, resident ones from HBM, streamed ones through the load
+        buffers in the interleave of a pass, into a fresh model-layout
+        cache for mb sequences (long_mode's windows and ring). tokens:
+        (mb, S). Returns (last-token logits (mb, 1, PV), cache): M.prefill's
+        on the same weights, bit for bit, for seed_cache to adopt."""
+        self._check_loaded()
+        cfg = self.cfg
+        cache = M.init_cache(cfg, self.mb, self.max_len, self.long_mode,
+                             device=self.device)
+        x = M.embed(self._shared, tokens).to(torch.bfloat16)
+
+        def body(p, l, x):
+            return M.prefill_layer(cfg, p, x, cache, l, self.windows[l],
+                                   impl=self.impl)
+        x = self._run_layers(x, body)
+        M.prefill_positions(cache, x.shape[1])
+        x = rms_norm(x[:, -1:], self._shared["final_norm"], cfg.norm_eps)
+        return unembed(self._shared, x), cache
+
+    def seed_cache(self, state: dict, cache: dict) -> dict:
+        """Adopt a model-layout cache (prefill's, or M.prefill's for mb
+        sequences) as the engine's state: its entries replace the state's,
+        in place; returns the state. Paged: each slot's block table is
+        rebuilt to hold the cache's pos tokens and its K/V rows move
+        through the table's pool pages and back (scatter_to_pages /
+        gather_from_pages), an identity by construction that exercises
+        the table indirection on whatever pages the free list handed out."""
+        for key, v in cache.items():
+            old = state.get(key)
+            if isinstance(old, torch.Tensor) and (
+                    tuple(v.shape) != tuple(old.shape) or v.dtype != old.dtype):
+                raise ValueError(f"cache entry {key}: {tuple(v.shape)} "
+                                 f"{v.dtype}, the engine holds "
+                                 f"{tuple(old.shape)} {old.dtype}")
+        ctx = int(cache["pos"]) if self.paged else 0
+        if self.paged:
+            self._paged_pos = ctx
+            self._paged_seed_slots(ctx)
+        for key, v in cache.items():
+            if self.paged and key in ("k", "v"):
+                v = self._through_pages(v, ctx)
+            state[key] = v
+        return state
 
     def decode_step(self, state: dict, tokens: torch.Tensor):
         """tokens: (mb, 1) -> (logits (mb, PV), state), pos advanced by 1."""
@@ -433,14 +558,25 @@ class InterleavedEngine:
     def decode_requests(self, state, tokens, active):
         """decode_step where only the `active` slots are live: inactive
         slots ride as padding with zeroed tokens; their logits are to be
-        ignored."""
+        ignored. Paged: each live slot's table grows to the new position
+        (a page every page_size steps)."""
+        if self.paged:
+            self._paged_pos += 1
+            for slot in np.flatnonzero(np.asarray(
+                    torch.as_tensor(active).cpu(), bool)):
+                self.extend_slot(int(slot), self._paged_pos)
         return self.decode_step(state, self._masked(tokens, active))
 
     def verify_step(self, state: dict, tokens: torch.Tensor):
         """Score q_len positions per slot in one pass (one weight stream).
         tokens: (mb, q_len), column 0 the last committed token, the rest
         drafted. Returns (logits (mb, q_len, PV), state) with pos advanced
-        by q_len and all q_len K/V written; rollback() commits a prefix."""
+        by q_len and all q_len K/V written; rollback() commits a prefix.
+        Dense family only (a recurrent state cannot roll back)."""
+        if self.cfg.family != Family.DENSE:
+            raise NotImplementedError(
+                f"speculative verification needs pure-KV per-layer state "
+                f"(DENSE/MOE), not {self.cfg.family}")
         q_len = tokens.shape[1]
         if not 1 <= q_len < max(self.S_c, 2):
             raise ValueError(f"q_len {q_len} must be in [1, {self.S_c})")
@@ -455,7 +591,12 @@ class InterleavedEngine:
         head. tokens: (mb, 1) -> (logits (mb, PV), state), pos advanced by
         1. Its K/V land in resident layers only; after rollback the verify
         pass overwrites every layer's rows at the drafted positions before
-        reading them, so drafting leaks nothing into the verified stream."""
+        reading them, so drafting leaks nothing into the verified stream.
+        It never touches the page accounting (note_committed does)."""
+        if self.cfg.family != Family.DENSE:
+            raise NotImplementedError(
+                f"resident self-draft needs pure-KV per-layer state "
+                f"(DENSE/MOE), not {self.cfg.family}")
         if self.k_res_cap == 0:
             raise ValueError("resident self-draft needs a resident tier "
                              "(this plan streams every layer)")
@@ -470,13 +611,22 @@ class InterleavedEngine:
         """Prefill (mb, T) prompt positions from the state's pos through
         the engine itself: ceil(T / chunk) verify rounds, each one pass
         (one weight stream) over `chunk` positions. Returns (the last
-        round's logits (mb, q, PV), state) with pos advanced by T."""
+        round's logits (mb, q, PV), state) with pos advanced by T. Dense
+        family only; paged: the slot tables are rebuilt at the prefilled
+        span (released, then extended)."""
+        if self.cfg.family != Family.DENSE:
+            raise NotImplementedError(
+                "partial-context prefill rides the multi-query verify "
+                "step (pure-KV families only)")
         T = int(tokens.shape[1])
         chunk = T if chunk <= 0 else min(chunk, T)
         logits = None
         for off in range(0, T, chunk):
             logits, state = self.verify_step(state,
                                              tokens[:, off:off + chunk])
+        if self.paged:
+            self._paged_pos = state["pos"]
+            self._paged_seed_slots(state["pos"])
         return logits, state
 
     def rollback(self, state: dict, pos: int) -> dict:
@@ -486,12 +636,51 @@ class InterleavedEngine:
         state["pos"] = int(pos)
         return state
 
+    # -- paged slot accounting ---------------------------------------------------
+    def _paged_seed_slots(self, ctx: int) -> None:
+        """(Re)build every slot's block table to hold `ctx` tokens."""
+        for t in self.slot_tables:
+            self.page_pool.release_table(t)
+        for t in self.slot_tables:
+            self.page_pool.extend_table(t, min(ctx, self.S_c))
+
+    def _through_pages(self, x: torch.Tensor, ctx: int) -> torch.Tensor:
+        """A model-layout (L, B, S_c, ...) K or V stack round-tripped
+        through the page pool: each slot's first ctx rows scattered into
+        its table's pages, then gathered back into a copy."""
+        ctx = min(ctx, self.S_c)
+        pool = x.new_zeros((x.shape[0], self.page_pool.alloc.n_pages,
+                            self.page_size) + tuple(x.shape[3:]))
+        scatter_to_pages(pool, x, self.slot_tables, ctx)
+        return gather_from_pages(x.clone(), pool, self.slot_tables, ctx)
+
+    def extend_slot(self, slot: int, n_tokens: Optional[int] = None) -> None:
+        """Page-granular growth of one slot (per decode step for live
+        slots), capped at S_c tokens: the pool holds pages_per_slot pages
+        a slot, so it never runs dry."""
+        t = self.slot_tables[slot]
+        target = t.tokens + 1 if n_tokens is None else n_tokens
+        self.page_pool.extend_table(t, min(target, self.S_c))
+
+    def free_slot(self, slot: int) -> None:
+        """Release a completed request's pages (the serving release hook)."""
+        self.page_pool.release_table(self.slot_tables[slot])
+
+    def paged_stats(self) -> Dict[str, object]:
+        return {"pages_in_use": self.page_pool.pages_in_use(),
+                "page_size": self.page_size,
+                "slot_tokens": [t.tokens for t in self.slot_tables]}
+
     def note_committed(self, pos: int, active) -> None:
-        """Paged bookkeeping after a spec round (the JAX engine's hook):
-        the port's engine keeps a dense per-slot cache, and its page
-        accounting waits for the first path that hands it a cache made
-        outside it (seed_cache). Admission's pages live in the
-        scheduler's pool."""
+        """Paged bookkeeping after a spec round: live slots grow to the
+        committed context (several tokens a round); rejected candidates
+        never had pages."""
+        if not self.paged:
+            return
+        self._paged_pos = pos
+        for slot in np.flatnonzero(np.asarray(torch.as_tensor(active).cpu(),
+                                              bool)):
+            self.extend_slot(int(slot), pos)
 
     # -- online memory adaptation ----------------------------------------------
     def demoted(self, stage: int) -> int:

@@ -19,6 +19,13 @@ an OnlinePlanner that retiers the live engine as KV pages grow.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \\
       --smoke --device cpu --pattern bursty --requests 4 --max-new 8
 
+  # ... and through the engine: a weight budget that streams 2 of 4 layers
+  # (the prompt pass over the tiers, then seed_cache):
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \\
+      --smoke --layers 4 --device cpu --hbm-bytes 4e6 --pattern bursty
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \\
+      --smoke --layers 4 --device cpu --hbm-bytes 4e6 --pattern bursty
+
   # the engine with resident self-speculation on the CPU: a forced weight
   # budget streams half of the layers (plain versions of the kernels):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.3-70b \\
@@ -179,7 +186,8 @@ def main(argv=None):
     import torch
 
     from repro_torch.configs import get_config, get_smoke_config
-    from repro_torch.core.engine import (InterleavedEngine, plan_for,
+    from repro_torch.core.engine import (InterleavedEngine,
+                                         packed_layer_bytes, plan_for,
                                          weight_budget)
     from repro_torch.device import resolve_device
     from repro_torch.models import model as M
@@ -216,7 +224,12 @@ def main(argv=None):
         print(f"Alg. 1: {r.reason or 'offloading'}; candidates (n_seg, "
               f"T_total s) {[(n, round(t, 4)) for n, t in r.candidates]}")
     elif hbm is not None:
-        plan = plan_for(cfg, 1, hbm_frac_for_weights=HBM_FRAC, hbm_bytes=hbm)
+        # plan_for counts cfg.layer_params(); where a packed layer holds
+        # more (Hymba), the budget is given in those units, so the plan's
+        # resident layers fit it by the bytes they really take
+        packed, counted = packed_layer_bytes(cfg), cfg.layer_params() * 2
+        plan = plan_for(cfg, 1, hbm_frac_for_weights=HBM_FRAC,
+                        hbm_bytes=hbm * min(counted / packed, 1.0))
     engine = planner = None
     if plan is not None and plan.k_off > 0:
         engine = InterleavedEngine(
@@ -224,16 +237,24 @@ def main(argv=None):
             retier_headroom=args.retier_headroom if args.adapt else 0,
             device=dev)
         n_res = len(engine.resident_layer_ids())
-        if args.plan == "hetero" and n_res * cfg.layer_params() * 2 \
+        # residency by the bytes a resident layer really holds: the
+        # engine's packed layer, which cfg.layer_params() (what Alg. 1
+        # prices) misjudges for the recurrent families
+        if args.plan == "hetero" and n_res * engine.layer_bytes \
                 > hbm * HBM_FRAC:
-            raise SystemExit(f"Alg. 1's plan holds {n_res} resident layers, "
+            raise SystemExit(f"Alg. 1's plan holds {n_res} resident layers "
+                             f"({n_res * engine.layer_bytes:.4g} B packed), "
                              f"more than the budget's {hbm * HBM_FRAC:.4g} B "
                              f"share holds")
         params = M.init_params_by_layer(cfg, seed=args.seed, device=dev)
         if env is not None:
             env.evaluate(plan)
         print(f"engine: n_seg {plan.n_seg}, k_res {plan.k_res}, k_off "
-              f"{plan.k_off}, resident layers {n_res}"
+              f"{plan.k_off}, resident layers {n_res}, family "
+              f"{cfg.family.value}, packed layer {engine.layer_bytes} B (the "
+              f"config's count "
+              f"{cfg.layer_params() * 2} B), streamed a pass "
+              f"{(cfg.n_layers - n_res) * engine.layer_bytes} B"
               + (f", predicted T_total {plan.t_total:.4f} s (T_comp "
                  f"{plan.t_comp:.4f}, T_comm {plan.t_comm:.2e}, T_uncover "
                  f"{plan.t_uncover:.4f})" if env is not None else ""))

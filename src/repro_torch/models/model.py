@@ -24,11 +24,13 @@ block).
   and the engine's chunked prefill), written contiguously from slot
   ``pos % S_c``; dense only (a recurrent state cannot roll back by
   masking; the VLM is refused as the reference refuses it)
-* ``decode_layer`` — the one dense per-layer body that ``decode_step``,
-  ``verify_step`` and the interleaved engine all run
+* ``step_layer`` / ``prefill_layer`` — the one per-layer body of a
+  decode (or verify) step and of a prompt pass, by family, that the
+  model and the interleaved engine both run (``decode_layer`` is the dense
+  one of a step)
 * ``init_params_by_layer`` — shared weights plus a layer *source* that
   draws each layer on demand, for models whose layers do not fit the card
-  together
+  together (every family of ``_LAYER_SPECS``)
 
 The cache dict is updated in place (the JAX reference returns a new one;
 PyTorch runs eagerly and copying an 8-layer 70B-width cache per token buys
@@ -141,10 +143,11 @@ def init_params_by_layer(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     ``"layers"`` a source ``l -> layer l's parameter dict`` that draws
     each layer from its own seed when asked, with init_params'
     distributions (layer weights scaled 1/sqrt(n_layers), the stacked
-    fan-in quirk). The values differ from init_params' (other random
-    streams); the interleaved engine builds its tiers from such a source
-    so the whole model never sits on the card at once."""
-    _check_dense(cfg, "the layer source of the interleaved engine")
+    fan-in quirk), for any family ``_LAYER_SPECS`` names. The values
+    differ from init_params' (other random streams); the interleaved
+    engine builds its tiers from such a source so the whole model never
+    sits on the card at once."""
+    _check(cfg, "ref")
     dev = resolve_device(device)
     shared = dict(embed_specs(cfg.vocab_size, cfg.d_model, cfg.tie_embeddings))
     shared["final_norm"] = rms_norm_spec(cfg.d_model)
@@ -155,7 +158,7 @@ def init_params_by_layer(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     def quirk(t):
         return {k: quirk(v) for k, v in t.items()} if isinstance(t, dict) \
             else dataclasses.replace(t, scale=scale)
-    layer_specs = quirk(_dense_layer_specs(cfg))
+    layer_specs = quirk(_LAYER_SPECS[cfg.family](cfg))
 
     def source(l: int) -> dict:
         gen = torch.Generator(device=dev).manual_seed(
@@ -306,6 +309,34 @@ def _prompt_pos_ids(cache: dict, S: int) -> None:
     pos_ids.copy_(ids)
 
 
+def prefill_layer(cfg: ModelConfig, p: dict, x: torch.Tensor, cache: dict,
+                  l: int, window: int, *, impl: str) -> torch.Tensor:
+    """Layer l of a prompt pass over x (B, S, D) with weights p: its K/V
+    written into layer l's cache rows (ring-rolled past S_c), its
+    recurrent states advanced over the S steps, in place. The one body of
+    prefill and of the interleaved engine's prefill over its tiers."""
+    if cfg.family == Family.SSM:
+        return _rwkv_layer(cfg, p, x, cache, l, impl=impl)
+    xn = rms_norm(x, p["ln1"], cfg.norm_eps)
+    a_out, (k, v) = attn_forward(p["attn"], xn, rope_theta=cfg.rope_theta,
+                                 causal=True, window=window, impl=impl)
+    _write_kv(cache, l, k, v)
+    if cfg.family == Family.HYBRID:
+        return _hymba_rest(cfg, p, x, xn, a_out, cache, l, impl=impl)
+    return dense_rest(cfg, p, x, xn, a_out)
+
+
+def prefill_positions(cache: dict, S: int) -> None:
+    """After every layer of an S-position prompt pass: the attention
+    families' cache holds positions 0 .. S - 1 (pos_ids ring-rolled past
+    S_c); the SSM family's continues from its position."""
+    if "pos_ids" in cache:
+        _prompt_pos_ids(cache, S)
+        cache["pos"] = S
+    else:
+        cache["pos"] += S
+
+
 def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor, cache: dict,
             *, frontend_embeds: Optional[torch.Tensor] = None,
             impl: str = "ref"):
@@ -323,26 +354,11 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor, cache: dict,
             raise NotImplementedError("frontend embeddings feed the attention "
                                       "families' prefill, not the SSM's")
         x = torch.cat([frontend_embeds.to(x.dtype), x], 1)
-    S = x.shape[1]
     windows = layer_windows(cfg, cfg.n_layers)
     for l in range(cfg.n_layers):
-        p = layer_params(params, l)
-        if cfg.family == Family.SSM:
-            x = _rwkv_layer(cfg, p, x, cache, l, impl=impl)
-            continue
-        xn = rms_norm(x, p["ln1"], cfg.norm_eps)
-        a_out, (k, v) = attn_forward(p["attn"], xn, rope_theta=cfg.rope_theta,
-                                     causal=True, window=windows[l], impl=impl)
-        _write_kv(cache, l, k, v)
-        if cfg.family == Family.HYBRID:
-            x = _hymba_rest(cfg, p, x, xn, a_out, cache, l, impl=impl)
-        else:
-            x = dense_rest(cfg, p, x, xn, a_out)
-    if "pos_ids" in cache:
-        _prompt_pos_ids(cache, S)
-        cache["pos"] = S
-    else:
-        cache["pos"] += S
+        x = prefill_layer(cfg, layer_params(params, l), x, cache, l,
+                          windows[l], impl=impl)
+    prefill_positions(cache, x.shape[1])
     x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
     return unembed(params, x), cache
 
@@ -394,27 +410,33 @@ def _hymba_decode_layer(cfg: ModelConfig, p: dict, x: torch.Tensor,
     return _hymba_rest(cfg, p, x, xn, a_out, cache, l, impl=impl)
 
 
+def step_layer(cfg: ModelConfig, p: dict, x: torch.Tensor, cache: dict,
+               l: int, slot: int, window: int, *, impl: str,
+               multi: bool = False) -> torch.Tensor:
+    """Layer l of a decode step (or, dense only, a verify pass: multi)
+    with weights p, by family: RWKV6 advances its states by one step
+    (slot and window unused), Hymba and the dense family write their K/V
+    at `slot`. The one per-layer body of _step and of the interleaved
+    engine's passes."""
+    if cfg.family == Family.SSM:
+        return _rwkv_layer(cfg, p, x, cache, l, impl=impl)
+    if cfg.family == Family.HYBRID:
+        return _hymba_decode_layer(cfg, p, x, cache, l, slot, window,
+                                   impl=impl)
+    return decode_layer(cfg, p, x, cache, l, slot, window, impl=impl,
+                        multi=multi)
+
+
 def _step(cfg, params, cache, tokens, *, impl, multi, long_mode=False):
     _check(cfg, impl)
     if multi:
         _check_dense(cfg, "speculative verification")
     pos = cache["pos"]
     x = embed(params, tokens).to(torch.bfloat16)
-    if cfg.family == Family.SSM:
-        for l in range(cfg.n_layers):
-            x = _rwkv_layer(cfg, layer_params(params, l), x, cache, l,
-                            impl=impl)
-    else:
-        slot = new_positions(cache, tokens.shape[1])
-        for l, window in enumerate(layer_windows(cfg, cfg.n_layers,
-                                                 long_mode)):
-            p = layer_params(params, l)
-            if cfg.family == Family.HYBRID:
-                x = _hymba_decode_layer(cfg, p, x, cache, l, slot, window,
-                                        impl=impl)
-            else:
-                x = decode_layer(cfg, p, x, cache, l, slot, window,
-                                 impl=impl, multi=multi)
+    slot = new_positions(cache, tokens.shape[1]) if "pos_ids" in cache else 0
+    for l, window in enumerate(layer_windows(cfg, cfg.n_layers, long_mode)):
+        x = step_layer(cfg, layer_params(params, l), x, cache, l, slot,
+                       window, impl=impl, multi=multi)
     cache["pos"] = pos + tokens.shape[1]
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return unembed(params, x), cache

@@ -19,7 +19,12 @@ The protocol the scheduler drives (duck-typed, as in the JAX package):
 Without an engine the backend runs the model's own prefill and
 decode_step on one device. With an InterleavedEngine (weights larger than
 HBM) it prefills through the engine's chunked multi-query rounds
-(prefill_partial) and decodes through its interleaved passes.
+(prefill_partial) where the family is dense and the prompt fits the
+cache ring, else through the engine's prompt pass over its tiers
+(prefill) adopted by seed_cache (the recurrent families; a prompt longer
+than a window-sized ring), and decodes through its interleaved passes.
+A paged engine (InterleavedEngine(paged=True)) keeps its own page
+accounting; release frees a slot's pages.
 
 With a SpecConfig each decode round drafts k tokens per live slot and
 verifies them in one multi-query pass: the engine's verify_requests, the
@@ -389,11 +394,17 @@ class EngineBackend:
         if self.prefix_cache:
             last = self._start_batch_prefix(reqs, prompts, toks_t)
         elif self.engine is not None:
-            # chunked prefill through the engine itself: the weights do not
-            # fit the card, so there is no prefill over all of them at once
+            # through the engine itself: the weights do not fit the card,
+            # so there is no prefill over all of them at once. Chunked
+            # multi-query rounds where the family and the ring allow them,
+            # else the prompt pass over the tiers, adopted by seed_cache
             state = self.engine.init_state(self.params)
-            logits, self._state = self.engine.prefill_partial(
-                state, toks_t, chunk=self.chunk)
+            if self._engine_can_chunk(toks.shape[1]):
+                logits, self._state = self.engine.prefill_partial(
+                    state, toks_t, chunk=self.chunk)
+            else:
+                logits, cache = self.engine.prefill(toks_t)
+                self._state = self.engine.seed_cache(state, cache)
             last = logits[:, -1]
         else:
             if self.paged:   # pages first: their constructor refuses a
@@ -564,9 +575,20 @@ class EngineBackend:
         """The slot keeps padding the fixed batch until the epoch drains.
         With the prefix cache, its committed pages become future prefix
         hits now (the table itself lives until the next epoch's
-        reset_tables; the tree's increfs carry the pages on)."""
+        reset_tables; the tree's increfs carry the pages on); with a paged
+        engine its pages are freed now."""
         if self.prefix_cache:
             self._donate_slot(slot)
+        if self.engine is not None and self.engine.paged:
+            self.engine.free_slot(slot)
+
+    def _engine_can_chunk(self, T: int) -> bool:
+        """Chunked prefill rounds through the engine: the dense family
+        (pure-KV state), rounds shorter than the ring, and a prompt that
+        fits it (a round must not wrap the ring)."""
+        chunk = min(self.chunk or T, T)
+        return self.cfg.family == Family.DENSE and chunk < self.engine.S_c \
+            and T <= self.engine.S_c
 
     # -- radix prefix cache over the real paged pool ---------------------------
     def _prefix_structures(self):

@@ -213,6 +213,56 @@ def test_engine_streams_and_matches_model(cuda_device):
     eng.close()
 
 
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "hymba-1.5b"])
+def test_recurrent_engine_streams_and_matches_model(arch, cuda_device):
+    """The recurrent families through the engine (smoke, 4 layers, 2
+    chunks of 1 resident + 1 streamed layer): the prompt pass over the
+    tiers (160 tokens: the scans' chunked body; past Hymba's 128-slot
+    ring) leaves M.prefill's logits and cache bit for bit, and decode
+    steps equal M.decode_step's, both through the kernels with exact
+    launch counts; a paged engine's decode is the same."""
+    cfg = dataclasses.replace(get_smoke_config(arch), n_layers=4)
+    L = cfg.n_layers
+    params = M.init_params(cfg, torch.Generator(cuda_device).manual_seed(0))
+    toks = torch.randint(1, cfg.vocab_size, (2, 160), device=cuda_device,
+                         generator=torch.Generator(cuda_device).manual_seed(1))
+    scan = wkv_ops if cfg.family.value == "ssm" else ssm_ops
+    runs = []
+    for paged in (False, True):
+        eng = InterleavedEngine(cfg, UniformPlan(1, 2, 1, 1), mb=2,
+                                max_len=256, paged=paged, page_size=16)
+        st = eng.init_state(params)
+        n0, c0, f0 = scan.launches, scan.chunked_launches, fa.launches
+        el, cache = eng.prefill(toks)
+        torch.cuda.synchronize()
+        assert (scan.launches - n0, scan.chunked_launches - c0) == (L, L)
+        assert fa.launches - f0 == (L if scan is ssm_ops else 0)
+        st = eng.seed_cache(st, cache)
+        mc = M.init_cache(cfg, 2, 256)
+        ml, mc = M.prefill(cfg, params, toks, mc, impl="kernel")
+        assert torch.equal(el, ml)
+        for key in mc:
+            if key != "pos":
+                assert torch.equal(st[key], mc[key]), key
+        tok = el[:, -1, :cfg.vocab_size].argmax(-1, keepdim=True)
+        out = [el[:, -1]]
+        for _ in range(3):
+            n0, d0 = scan.launches, da.launches
+            el, st = eng.decode_requests(st, tok, torch.ones(2, dtype=torch.bool))
+            torch.cuda.synchronize()
+            assert scan.launches - n0 == L
+            assert da.launches - d0 == (L if scan is ssm_ops else 0)
+            ml, mc = M.decode_step(cfg, params, mc, tok, impl="kernel")
+            assert torch.equal(el, ml[:, 0])
+            out.append(el)
+            tok = el[:, :cfg.vocab_size].argmax(-1, keepdim=True)
+        if eng.paged:
+            assert eng.paged_stats()["slot_tokens"] == [min(163, eng.S_c)] * 2
+        runs.append(torch.stack(out))
+        eng.close()
+    assert torch.equal(runs[0], runs[1])
+
+
 def test_adaptive_engine_serve_on_the_card(cuda_device):
     """llama smoke, 4 layers (2 resident, plan_for at a 4.6 MB budget), a
     bursty batch of 4 under paged admission (page 8) with an OnlinePlanner

@@ -235,7 +235,9 @@ def test_launcher_serves_rwkv(capsys):
 def test_recurrent_state_refuses_what_needs_rollback_or_pages():
     """Speculation, paged KV and the prefix cache need pure-KV per-layer
     state: the SSM family is refused with a clear message (the reference
-    refuses speculation and verify_step for it too)."""
+    refuses speculation and verify_step for it too). The interleaved engine
+    streams the family (and its layer source draws it) but refuses
+    verification and chunked prefill, as the reference's engine does."""
     from repro_torch.core.engine import InterleavedEngine, UniformPlan
     from repro_torch.kvcache.paged_decode import PagedDecodeCache
     cfg = port_cfg(get_smoke_config(ARCH))
@@ -251,8 +253,10 @@ def test_recurrent_state_refuses_what_needs_rollback_or_pages():
         srv.serve_all()             # refused by the pages, before any prefill
     with pytest.raises(NotImplementedError, match="dense family"):
         PagedDecodeCache(cfg, 1, 16, page_size=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="dense family"):
-        InterleavedEngine(cfg, UniformPlan(1, 2, 1, 1), device="cpu")
-    with pytest.raises(NotImplementedError, match="dense family"):
-        PM.init_params_by_layer(cfg, device="cpu")
+    eng = InterleavedEngine(cfg, UniformPlan(1, 2, 1, 1), device="cpu")
+    with pytest.raises(NotImplementedError, match="pure-KV"):
+        eng.verify_step(None, torch.zeros((1, 3), dtype=torch.long))
+    with pytest.raises(NotImplementedError, match="pure-KV"):
+        eng.prefill_partial(None, torch.zeros((1, 3), dtype=torch.long))
+    assert callable(PM.init_params_by_layer(cfg, device="cpu")["layers"])
     assert cache.keys() == {"pos", "rwkv_state", "last_tm", "last_cm"}
