@@ -23,7 +23,8 @@ Phases; any failure exits non-zero without the final ``ok`` line:
    path's shapes (Hymba's G 5 / dh 64 / window 1024 attention included;
    phase 3e's: kernels 1 and 4 at LLaMA-2-13B's G 1 / 40 KV heads, the
    verify pass and the prefill round; kernels 1, 2 and 4 at StableLM-2-
-   12B's head_dim 160, on the bodies that are not the Hopper ones)
+   12B's head_dim 160, on the bodies that are not the Hopper ones; phase
+   3g's: kernels 1, 2 and 4's verify at DeepSeekMoE-16B's G 1 / 16 heads)
    and at ring-buffer / window / unaligned / offset cases,
    within a tolerance relative to the reference's size that is shown to
    reject planted off-by-one faults;
@@ -193,7 +194,31 @@ Phases; any failure exits non-zero without the final ``ok`` line:
    in a profiled serve; Pixtral-12B's backbone at 8 of 40 layers: a
    prefill of 256 patch embeddings and 256 text tokens, then 16 decode
    steps, the kernel path against impl="ref" (argmax equal or a near
-   tie).
+   tie). LLaMA-2-13B's hidden state after each of its 40 layers, the
+   kernel path against impl="ref" on one prefill and one decode step,
+   accumulated and each layer's own (layer_errors).
+3g. the MoE family, after 3b's engine is closed (before 3d): (a)
+   DeepSeekMoE-16B as published (dense layer 0, then 27 MoE layers of 64
+   routed top-6 + 2 shared experts) at full width and all 28 layers on
+   the single-device path, as phase 2 (exact launch counts of kernels 2
+   and 1, a profiled serve, the reference re-serve within
+   MOE_LOGIT_REL_TOL, its noise floor under MOE_NOISE_FLOOR_MAX), the
+   routes that differ from "ref" per MoE layer, every MoE call of the
+   served prefill and first decode step held to a plain MoE layer
+   (moe_plain) on the same input within MOE_LAYER_REL, planted MoE faults
+   (capacity from B in the prefill, top-k weights not renormalised, the
+   router product in bf16, the shared experts dropped) that must break
+   it, the layer-by-layer errors, and an n-gram speculative serve (k 4,
+   kernel 4's verify body at G 1) whose every pick is the reference's on
+   the same verify calls or a near tie; (c) Kimi-K2 at full width, depth
+   cut to 2 of 61 layers (its dense layer 0 and one MoE layer of 384
+   routed top-8 experts), a bursty serve against "ref" and moe_plain; (b)
+   DeepSeekMoE-16B folded (first_dense_layers 0) at all 28 layers through
+   the engine at MOE_ENGINE_HBM (12 resident, 16 streamed), the bursty
+   batch with resident self-speculation and a live retier, every engine
+   call replayed through the model's kernel path bit for bit and every
+   served token its verify pass's greedy; a decode pass against the copy
+   of its streamed bytes, the cost model's T_total and Alg. 1's plan.
 Every flash launch of phases 2, 2b, 2c, 3c and 3f, every prefill round of
 kernel 5 (2b, 2c) and of kernel 4 (3a, 3b) must run the Hopper mainloop,
 every verify pass of kernels 4 (2c, 3a, 3b) and 5 (2c) the verify body,
@@ -207,6 +232,7 @@ Imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -440,6 +466,11 @@ def kernel_phase():
          bf16, [("diagonal dropped: q_offset - 1", dict(q_offset=-1)),
                 ("last 64-row kv tile dropped", dict(kv_keep=448)),
                 ("row // G off by one", dict(head_shift=1))]),
+        # phase 3g's DeepSeekMoE-16B prefill: G 1, 16 heads
+        ("moe B4 S512 H16 KV16 dh128 causal", 4, 512, 512, 16, 16, 128, True, None, 0,
+         bf16, [("diagonal dropped: q_offset - 1", dict(q_offset=-1)),
+                ("last 64-row kv tile dropped", dict(kv_keep=448)),
+                ("row // G off by one", dict(head_shift=1))]),
     ]
     for name, B, Sq, Skv, H, KV, dh, causal, window, q_off, dt, planted in fl_cases:
         q = randn((B, Sq, H, dh), dt, gen)
@@ -460,7 +491,7 @@ def kernel_phase():
                 fa.flash_attention_plain, bad.pop("head_shift", 0), q,
                 k[:, :n_kv], v[:, :n_kv], **bad)))
         err = check(name, out, ref, BF16_REL if dt == bf16 else F32_REL, faults)
-        if name.startswith(("main", "hymba", "stablelm")):
+        if name.startswith(("main", "hymba", "stablelm", "moe")):
             # window 1024 >= S: causal alone decides, as for SDPA's is_causal
             ms = time_ms(lambda: fa.flash_attention(q, k, v, **kw))
             plain = time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), reps=10)
@@ -471,7 +502,8 @@ def kernel_phase():
             flops = 2 * 2 * B * H * pairs * dh
             byts = nbytes(q, k, v) + nbytes(q)
             rows["flash_attention" if name.startswith("main") else
-                 "flash_attention@hymba" if name.startswith("hymba")
+                 "flash_attention@hymba" if name.startswith("hymba") else
+                 "flash_attention@moe" if name.startswith("moe")
                  else "flash_attention@dh160"] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
                 bytes=byts, flops=flops, bytes_bound_ms=byts / HBM_BYTES_PER_S * 1e3,
@@ -504,6 +536,8 @@ DECODE_TIMED = (
     ("decode_attention@hymba", 4, 1024, 25, 5, 64, 543, 1024, []),
     ("decode_attention@llama2", 4, 1024, 40, 40, 128, 1023, None, DECODE_FAULTS),
     ("decode_attention@dh160", 4, 1024, 32, 8, 160, 1023, None, DECODE_FAULTS),
+    # phase 3g's DeepSeekMoE-16B decode: G 1, 16 KV heads
+    ("decode_attention@moe", 4, 1024, 16, 16, 128, 1023, None, DECODE_FAULTS),
 )
 
 
@@ -654,6 +688,10 @@ def mq_phase(gen, rows):
         ("stablelm verify B4 q5 S1024 H32 KV8 dh160", 4, 5, 1024, 32, 8, 160, 1019, None,
          "linear", [("diagonal dropped: <= -> <", dict(pos=1018)),
                     ("row // G off by one", dict(pos=1020))]),
+        # phase 3g's DeepSeekMoE-16B verify pass (G 1, 16 heads)
+        ("moe verify B4 q5 S1024 H16 KV16 dh128", 4, 5, 1024, 16, 16, 128, 1019, None,
+         "linear", [("diagonal dropped: <= -> <", dict(pos=1018)),
+                    ("row // G off by one", dict(pos=1020))]),
     ]
     for name, B, Q, S_c, H, KV, dh, pos, window, kind, planted in cases:
         q = randn((B, Q, H, dh), bf16, gen)
@@ -679,7 +717,8 @@ def mq_phase(gen, rows):
         key = {"verify": "mq_decode_attention", "sporadic": "mq_decode_attention@B1",
                "prefill": "mq_decode_attention@prefill",
                "llama2 verify": "mq_decode_attention@llama2",
-               "stablelm verify": "mq_decode_attention@dh160"}.get(
+               "stablelm verify": "mq_decode_attention@dh160",
+               "moe verify": "mq_decode_attention@moe"}.get(
             name.split(" B")[0])
         if key is None:
             continue
@@ -1226,7 +1265,7 @@ def forced_logits(cfg, params, prompts, feed, width, impl, after_prefill=None):
 
 
 def compare_greedy(cfg, params, pattern, prompts, got, ref, width,
-                   tol=LOGIT_REL_TOL, keep=None):
+                   tol=LOGIT_REL_TOL, keep=None, max_new=MAX_NEW):
     """Every decoded position of every request. The reference serve's tokens
     are fed through both impls at the served batch shape. At each position:
     the reference's argmax is its served token (the forced run reproduces
@@ -1237,14 +1276,14 @@ def compare_greedy(cfg, params, pattern, prompts, got, ref, width,
     equal: its argmax broke an exact tie by index). The kernel serve's tokens up to its first
     divergence from the reference serve are the kernel path's argmaxes.
     Each batch's reference logits (T, n, V) are appended to `keep` where
-    given. Returns (positions compared, near-tie positions, worst error /
-    |logit|)."""
+    given. Serves of max_new tokens a request. Returns (positions
+    compared, near-tie positions, worst error / |logit|)."""
     import numpy as np
     n_pos = n_tie = 0
     worst = 0.0
     for idx in served_batches(pattern, len(prompts)):
         for i in idx:
-            assert len(got[i].output) == len(ref[i].output) == MAX_NEW, \
+            assert len(got[i].output) == len(ref[i].output) == max_new, \
                 (len(got[i].output), len(ref[i].output))
         feed = np.array([ref[i].output for i in idx], np.int64)
         ps = [prompts[i] for i in idx]
@@ -1265,9 +1304,9 @@ def compare_greedy(cfg, params, pattern, prompts, got, ref, width,
         worst = max(worst, (err / scale).max().item())
         for j, i in enumerate(idx):
             a, b = got[i].output, ref[i].output
-            t_div = next((t for t, (x, y) in enumerate(zip(a, b)) if x != y), MAX_NEW)
-            ties = [t for t in range(MAX_NEW) if ak[t, j] != ar[t, j]]
-            log(f"  {pattern} req {ref[i].rid}: {MAX_NEW} positions, kernel argmax "
+            t_div = next((t for t, (x, y) in enumerate(zip(a, b)) if x != y), max_new)
+            ties = [t for t in range(max_new) if ak[t, j] != ar[t, j]]
+            log(f"  {pattern} req {ref[i].rid}: {max_new} positions, kernel argmax "
                 f"differs at {ties or 'none'} (ref gap there "
                 f"{[round(gap[t, j].item(), 4) for t in ties]}, kernel gap "
                 f"{[round(kgap[t, j].item(), 4) for t in ties]}, logit err "
@@ -1277,11 +1316,11 @@ def compare_greedy(cfg, params, pattern, prompts, got, ref, width,
             if far[:, j].any() or not_tie[:, j].any():
                 raise AssertionError(f"req {ref[i].rid}: kernel logits off the "
                                      "reference outside the near-tie rule")
-            upto = min(t_div + 1, MAX_NEW)
+            upto = min(t_div + 1, max_new)
             if a[:upto] != ak[:upto, j].tolist():
                 raise AssertionError(f"req {ref[i].rid}: the kernel serve's tokens "
                                      "are not the kernel path's argmaxes")
-            n_pos += MAX_NEW
+            n_pos += max_new
             n_tie += len(ties)
     return n_pos, n_tie, worst
 
@@ -1321,6 +1360,7 @@ def single_device_checks(cfg, params, card, phase, hopper=True, tol=LOGIT_REL_TO
     import numpy as np
     import torch
 
+    from repro_torch.configs.base import Family
     from repro_torch.kernels.decode_attention import ops as da
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.serving import LimeServer, summarize
@@ -1368,16 +1408,31 @@ def single_device_checks(cfg, params, card, phase, hopper=True, tol=LOGIT_REL_TO
         served.update(outs)
     peak = torch.cuda.max_memory_allocated()
     log(f"  peak device memory {peak / 2**30:.2f} GiB [{card}]")
-    breakdown(cfg, params, card, hopper)
+    # an MoE layer launches ~3x a dense layer's ops, and the profiler's
+    # own event processing took 83 s over a 32-token MoE serve: 8 tokens
+    breakdown(cfg, params, card, hopper,
+              max_new=MOE_NEW if cfg.family == Family.MOE else MAX_NEW)
 
     log(f"phase {phase}: re-serve on the reference math (impl='ref'), then both impls "
         "fed the reference's tokens at the served batch shape")
     ref_logits, refs = [], {}
+    moe = cfg.family == Family.MOE
     for pattern, (prompts, done) in outs.items():
         refs[pattern] = ref = serve(cfg, params, pattern, prompts, "ref")
         width = LimeServer(cfg, params, pattern=pattern).slots
-        n_pos, n_tie, worst = compare_greedy(cfg, params, pattern, prompts, done,
-                                             ref, width, tol, ref_logits)
+        with moe_calls() as calls:
+            n_pos, n_tie, worst = compare_greedy(cfg, params, pattern, prompts, done,
+                                                 ref, width, tol, ref_logits)
+        if moe and pattern == "bursty":
+            # the forced kernel run, then the forced reference run
+            n_moe = cfg.n_layers - cfg.first_dense_layers
+            half = len(calls) // 2
+            pre, dec, per_pre, per_dec = route_flips(calls[:half], calls[half:], n_moe)
+            log(f"  {pattern}: routes that differ between the kernel path and 'ref' per "
+                f"MoE layer (layers {cfg.first_dense_layers}..{cfg.n_layers - 1}): "
+                f"prefill {pre} of {per_pre} tokens each, decode {dec} of {per_dec} "
+                f"each [{card}]")
+        del calls
         n_same = sum(a.output == b.output for a, b in zip(done, ref))
         log(f"  {pattern}: {n_same}/{len(done)} requests token-identical; "
             f"{n_pos} positions compared, {n_tie} near ties, worst logit err "
@@ -1386,13 +1441,16 @@ def single_device_checks(cfg, params, card, phase, hopper=True, tol=LOGIT_REL_TO
         prompts = outs["bursty"][0]
         feed = np.array([r.output for r in refs["bursty"]], np.int64)
         floor = noise_floor(cfg, params, prompts, feed, ref_logits[0])
-        floor_max = TAB3_NOISE_FLOOR_MAX[cfg.name]
+        floor_max = {**TAB3_NOISE_FLOOR_MAX, MOE_ARCH: MOE_NOISE_FLOOR_MAX}[cfg.name]
         log(f"  the reference's own noise floor: each bursty request fed alone against "
             f"the 4-wide batch, logit err up to {floor:.4f} of |logit| max (at most "
             f"{floor_max}) [{card}; {cfg.name}, {depth}]")
         if floor > floor_max:
             raise AssertionError(f"{cfg.name}: the reference's own noise floor "
                                  f"{floor:.4f} is above {floor_max}")
+        if moe:
+            moe_fault_check(cfg, params, prompts, feed, card)
+            return launches
         errs = fault_errors(cfg, params, prompts, feed, ref_logits[0])
         log(f"  planted prefill faults, the kernel path's logit err / |logit| max against "
             f"the reference: {', '.join(f'{k} {v:.4f}' for k, v, _ in errs)} (limit {tol}) "
@@ -1465,18 +1523,20 @@ def profiled(fn, kernel):
             "profiling the serve once more")
 
 
-def breakdown(cfg, params, card, hopper=True):
-    """Device time by kernel class over one bursty serve (torch.profiler,
-    kernels' own time), and the device's idle share of the serve's wall
-    time under the profiler. The serve's csrc/ kernels must be the Hopper
-    bodies (decode_sm90_kernel, the mainloop), or with hopper=False the
-    bodies head_dim 160 takes (decode_tile_kernel, flash_mma_kernel)."""
+def breakdown(cfg, params, card, hopper=True, max_new=MAX_NEW):
+    """Device time by kernel class over one bursty serve of max_new tokens
+    a request (torch.profiler, kernels' own time), and the device's idle
+    share of the serve's wall time under the profiler. The serve's csrc/
+    kernels must be the Hopper bodies (decode_sm90_kernel, the mainloop),
+    or with hopper=False the bodies head_dim 160 takes (decode_tile_kernel,
+    flash_mma_kernel)."""
     import torch
 
     prompts = make_prompts(4, cfg.vocab_size, 7)
     want = ({"decode_sm90_kernel", "sm90_attention_kernel"} if hopper
             else {"decode_tile_kernel", "flash_mma_kernel"})
-    prof, wall_us = profiled(lambda: serve(cfg, params, "bursty", prompts, "kernel"),
+    prof, wall_us = profiled(lambda: serve(cfg, params, "bursty", prompts, "kernel",
+                                           max_new=max_new),
                              "decode_sm90_kernel" if hopper else "decode_tile_kernel")
     by = {"decode_attention": 0.0, "flash_attention": 0.0, "gemm": 0.0,
           "other": 0.0}
@@ -1499,7 +1559,7 @@ def breakdown(cfg, params, card, hopper=True):
             cls = "other"
         by[cls] += us
     busy = sum(by.values())
-    n_dec, n_fl = cfg.n_layers * (MAX_NEW - 1), cfg.n_layers
+    n_dec, n_fl = cfg.n_layers * (max_new - 1), cfg.n_layers
     log(f"  profiled kernels of csrc/ (name: launches): {seen}")
     for cls in seen:
         if by[cls] <= 0:
@@ -3098,7 +3158,8 @@ def host_mem(label):
         f"this process's RSS {m['VmRSS'] / 1e9:.2f} GB")
 
 
-def drive(srv, prompts, pattern, n_layers, retier_at=(), scfg=None, host_draft=False):
+def drive(srv, prompts, pattern, n_layers, retier_at=(), scfg=None, host_draft=False,
+          max_new=MAX_NEW_80):
     """Serve `prompts` under `pattern` through srv's scheduler (config
     `scfg`, default the reserve policy) one step at a time: each step's mq
     and decode launches must be what the step implies (a prefill round:
@@ -3118,7 +3179,7 @@ def drive(srv, prompts, pattern, n_layers, retier_at=(), scfg=None, host_draft=F
     be = srv.make_backend()
     eng = srv.engine
     arrivals = cli_arrivals(pattern, len(prompts), prompt_len=PROMPT_LEN,
-                            max_new_tokens=MAX_NEW_80, burst_size=srv.slots)
+                            max_new_tokens=max_new, burst_size=srv.slots)
     base = be.now()
     reqs = [Request(i, p, ev.max_new_tokens, arrival_s=base + ev.time_s)
             for i, (ev, p) in enumerate(zip(arrivals, prompts))]
@@ -3782,6 +3843,7 @@ def tab3_phase(card, rate):
                                faults=True)
     add(got)
     shapes["decode_attention@llama2"] = got["decode_attention"]
+    layer_errors(cfg, params, make_prompts(4, cfg.vocab_size, 0), card, cfg.name)
     del params
     fresh()
     for arch, budget in TAB3_BUDGETS:
@@ -3875,6 +3937,683 @@ def pixtral_check(card):
     if moved <= LOGIT_REL_TOL * out["ref"][0].abs().max().item():
         raise AssertionError("pixtral: the patch embeddings do not reach the logits")
     return want
+
+
+# ----------------------------------------------------------------------------
+# phase 3g: the MoE family (DeepSeekMoE-16B, Kimi-K2)
+# ----------------------------------------------------------------------------
+MOE_ARCH, KIMI_ARCH = "deepseek-moe-16b", "kimi-k2-1t-a32b"
+KIMI_LAYERS = 2           # Kimi-K2: its dense layer 0 and one MoE layer of 61
+MOE_NEW = 8               # tokens per request in the folded engine's and Kimi's serves
+# the folded engine's --hbm-bytes: plan_for keeps 12 of the 28 packed layers
+# (1.18 GB each) resident and streams 16 (2 segments of 6 + 8)
+MOE_ENGINE_HBM = 16e9
+MOE_RETIER_AT = ((2, +1),)        # (after decode round, delta): one live retier
+# Limits of phase 3g, fixed before its first chip call. On DeepSeekMoE-16B as
+# the reference initialises it, layer 0's stack of one draws at std 1 (the
+# stacked fan-in quirk), so its output (~1.5e5 rms) dominates the residual
+# and the 27 MoE layers (std 1/sqrt(27)) add ~2% of it: the logits sit
+# within a few bf16 ulps of each other whatever the MoE layers do. At the
+# full width, cut to layer 0 + 2 MoE layers on a CPU (the kernels' plain
+# versions), the kernel path read 0.0068 of |logit| max against "ref", the
+# reference alone against its 4-wide batch 0.0070, and every planted MoE
+# fault 0.0070-0.0075: one logit ulp. So the logit limit and the floor
+# (3e's dense 40 layers read 0.167 and 0.081) bound the drift and the
+# shared code, and the planted faults are read where they act: every MoE
+# call of the served path is held to a plain MoE layer (moe_plain) on the
+# same input, each token's output within MOE_LAYER_REL of its largest
+# |value|. The served layer rounds its combine to bf16 after each of its K
+# adds and once more for the shared experts, and runs its experts as
+# batched products; the plain one sums in fp32 and runs each expert alone:
+# up to (K + 1) / 2 + 1 ulps of a row's largest value (2^-8..2^-7 each;
+# 5.5 ulps, 0.043, at Kimi-K2's K 8). A flipped route moves a token by an
+# expert's share (~1/K of its routed output); at the smoke width on a CPU
+# (E 4, K 2) the faults read 0.55-1.35 and the clean layers 0.0152.
+MOE_LOGIT_REL_TOL = 0.10
+MOE_NOISE_FLOOR_MAX = 0.10
+MOE_LAYER_REL = 2.0 ** -4
+
+
+def _alloc_stack(specs, n):
+    import torch
+    return {k: (_alloc_stack(v, n) if isinstance(v, dict) else
+                torch.zeros((n,) + tuple(v.shape), dtype=v.dtype, device="cuda"))
+            for k, v in specs.items()}
+
+
+def _draw_layer(specs, out, j, gen, scale):
+    """Layer j of the stack `out` drawn from `gen` as init_params draws it
+    (normal x `scale`, the stack's 1/sqrt(n); "small" leaves 0.01 x N(0, 1);
+    zeros left zero), in slices of at most 2^28 elements: no fp32 copy of a
+    whole leaf (Kimi-K2's expert leaves hold 5.6e9 elements)."""
+    import torch
+    for k in sorted(specs):
+        s = specs[k]
+        if isinstance(s, dict):
+            _draw_layer(s, out[k], j, gen, scale)
+            continue
+        if s.init == "zeros":
+            continue
+        sc = 0.01 if s.init == "small" else scale
+        t = out[k][j]
+        t2 = t.reshape(t.shape[0], -1) if t.dim() > 1 else t.reshape(1, -1)
+        rows = max(1, (1 << 28) // t2.shape[1])
+        for i in range(0, t2.shape[0], rows):
+            part = t2[i:i + rows]
+            part.copy_(torch.randn(part.shape, generator=gen, dtype=torch.float32,
+                                   device="cuda").mul_(sc))
+
+
+def moe_params(cfg, seed=0):
+    """cfg's parameters on the card in the reference's layout (an MoE
+    config's first_dense_layers stacked as "dense_layers", the rest as
+    "layers"), each layer from its own seed with init_params'
+    distributions (the stacked fan-in quirk: a stack of n at 1/sqrt(n));
+    the shared weights as init_params_by_layer draws them."""
+    import torch
+
+    from repro_torch.models import model as M
+    params = {k: v for k, v in M.init_params_by_layer(cfg, seed=seed).items()
+              if k != "layers"}
+    nd = M.n_dense_first(cfg)
+    for key, lo, hi in (("dense_layers", 0, nd), ("layers", nd, cfg.n_layers)):
+        if hi == lo:
+            continue
+        specs = M.layer_specs(cfg, lo)
+        params[key] = _alloc_stack(specs, hi - lo)
+        for l in range(lo, hi):
+            gen = torch.Generator(device="cuda").manual_seed((seed + 1) * 1_000_003 + l)
+            _draw_layer(specs, params[key], l - lo, gen, (hi - lo) ** -0.5)
+    torch.cuda.synchronize()
+    return params
+
+
+@contextlib.contextmanager
+def _patched(mod, name, fn):
+    old = getattr(mod, name)
+    setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        setattr(mod, name, old)
+
+
+def moe_faults():
+    """Planted MoE faults, each a patch of models/moe.py: [(label, (module,
+    attribute, replacement))]."""
+    import torch
+
+    from repro_torch.models import moe
+    fwd, route, cap = moe.moe_forward, moe._route, moe.capacity
+
+    def cap_from_b(p, x, **kw):
+        with _patched(moe, "capacity", lambda n, k, e, cf: cap(x.shape[0], k, e, cf)):
+            return fwd(p, x, **kw)
+
+    def no_renorm(router, x, k):
+        w, i, p = route(router, x, k)
+        return p.gather(-1, i), i, p
+
+    def bf16_router(router, x, k):
+        probs = torch.softmax((x.to(torch.bfloat16) @ router.to(torch.bfloat16)).float(), -1)
+        w, i = torch.sort(probs, dim=-1, descending=True, stable=True)
+        w, i = w[:, :k], i[:, :k]
+        return w / w.sum(-1, keepdim=True).clamp_min(1e-9), i, probs
+
+    def no_shared(p, x, **kw):
+        return fwd({k: v for k, v in p.items() if k != "shared"}, x, **kw)
+    return [("capacity from B, not B*S, in the prefill", (moe, "moe_forward", cap_from_b)),
+            ("top-k weights not renormalised", (moe, "_route", no_renorm)),
+            ("the router product in bf16", (moe, "_route", bf16_router)),
+            ("the shared experts dropped", (moe, "moe_forward", no_shared))]
+
+
+@contextlib.contextmanager
+def moe_calls():
+    """The routes of every MoE layer call in the block, in call order:
+    [(ids (T, K),)]."""
+    from repro_torch.models import moe
+    calls = []
+    route = moe._route
+
+    def rec(router, x, k):
+        w, i, p = route(router, x, k)
+        calls.append((i.clone(),))
+        return w, i, p
+    with _patched(moe, "_route", rec):
+        yield calls
+
+
+def route_flips(a, b, n_moe):
+    """Tokens whose top-k differs between two runs' MoE calls (the same
+    calls in the same order: a prefill's n_moe, then n_moe a decode step),
+    per MoE layer: (prefill counts, decode counts summed over the steps,
+    routes per layer of a prefill, of all decode steps)."""
+    pre, dec = [0] * n_moe, [0] * n_moe
+    if len(a) != len(b):
+        raise AssertionError(f"{len(a)} MoE calls against {len(b)}")
+    for c, ((ia,), (ib,)) in enumerate(zip(a, b)):
+        n = int((ia != ib).any(-1).sum())
+        (pre if c < n_moe else dec)[c % n_moe] += n
+    per_pre = a[0][0].shape[0]
+    per_dec = sum(ia.shape[0] for ia, in a[n_moe::n_moe])
+    return pre, dec, per_pre, per_dec
+
+
+def layer_errors(cfg, params, prompts, card, label):
+    """ROADMAP §C.1 item 2: the hidden state after each layer, the kernel
+    path against impl="ref", over one prefill of the bursty batch and the
+    decode step after it (fed the reference's pick). Per layer: the
+    accumulated error (each path on its own state) and the layer's own
+    (the reference's body run on the kernel path's input: what this
+    layer's kernels add), each as ||x_k - x_r|| / ||x_r|| over the layer's
+    output; for MoE layers also the tokens whose routes differ (own /
+    accumulated). Logs the table; returns {phase: [(acc, own, own flips,
+    acc flips)]}."""
+    import torch
+
+    from repro_torch.configs.base import Family
+    from repro_torch.models import model as M
+    from repro_torch.models.modules import rms_norm, unembed
+    from repro_torch.serving.backend import EngineBackend
+    toks = torch.from_numpy(EngineBackend._pad_prompts(prompts)).long().cuda()
+    B, L, V = toks.shape[0], cfg.n_layers, cfg.vocab_size
+    win = M.layer_windows(cfg, L)
+    caches = {i: M.init_cache(cfg, B, MAX_LEN) for i in ("kernel", "ref")}
+    own = M.init_cache(dataclasses.replace(cfg, n_layers=1), B, MAX_LEN)
+    moe = cfg.family == Family.MOE
+
+    def rel(a, b):
+        return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+    def flips(a, b):
+        return sum(int((x[0] != y[0]).any(-1).sum()) for x, y in zip(a, b))
+
+    out, tok = {}, None
+    for phase in ("prefill", "decode"):
+        src = toks if phase == "prefill" else tok
+        x = {i: M.embed(params, src).to(torch.bfloat16) for i in caches}
+        slot = {i: M.new_positions(caches[i], 1) for i in caches} \
+            if phase == "decode" else None
+        rows = []
+        for l in range(L):
+            p = M.layer_params(params, l)
+            res = {}
+            for run, impl, cache, li, inp in (
+                    ("kernel", "kernel", caches["kernel"], l, x["kernel"]),
+                    ("own", "ref", own, 0, x["kernel"]),
+                    ("ref", "ref", caches["ref"], l, x["ref"])):
+                if run == "own" and phase == "decode":
+                    own["k"][0].copy_(caches["kernel"]["k"][l])
+                    own["v"][0].copy_(caches["kernel"]["v"][l])
+                    own["pos_ids"], own["pos"] = caches["kernel"]["pos_ids"], \
+                        caches["kernel"]["pos"]
+                with moe_calls() as calls:
+                    if phase == "prefill":
+                        y = M.prefill_layer(cfg, p, inp, cache, li, win[l], impl=impl)
+                    else:
+                        s = slot["ref" if run == "ref" else "kernel"]
+                        y = M.step_layer(cfg, p, inp, cache, li, s, win[l], impl=impl)
+                res[run] = (y, calls)
+            rows.append((rel(res["kernel"][0], res["ref"][0]),
+                         rel(res["kernel"][0], res["own"][0]),
+                         flips(res["kernel"][1], res["own"][1]),
+                         flips(res["kernel"][1], res["ref"][1])))
+            x = {"kernel": res["kernel"][0], "ref": res["ref"][0]}
+        for i, cache in caches.items():
+            if phase == "prefill":
+                M.prefill_positions(cache, toks.shape[1])
+            else:
+                cache["pos"] += 1
+        lg = {i: unembed(params, rms_norm(x[i][:, -1:], params["final_norm"],
+                                          cfg.norm_eps))[:, 0, :V].float() for i in x}
+        lerr = ((lg["kernel"] - lg["ref"]).abs().amax(-1)
+                / lg["ref"].abs().amax(-1)).max().item()
+        tok = lg["ref"].argmax(-1, keepdim=True)
+        acc = [r[0] for r in rows]
+        own_e = [r[1] for r in rows]
+        worst = max(range(L), key=lambda i: own_e[i])
+        log(f"  layer by layer, {label} {phase} (B {B}): ||x_kernel - x_ref|| / ||x_ref|| "
+            f"after each layer {[round(a, 4) for a in acc]}; each layer's own (the "
+            f"reference's body on the kernel path's input) {[round(a, 4) for a in own_e]}"
+            + (f"; routes that differ, own {[r[2] for r in rows]}, accumulated "
+               f"{[r[3] for r in rows]}" if moe else "")
+            + f"; largest own error at layer {worst} ({own_e[worst]:.4f}, the median "
+            f"{statistics.median(own_e):.4f}); last-token logit err {lerr:.4f} of "
+            f"|logit| max [{card}]")
+        out[phase] = rows
+    return out
+
+
+def moe_plain(p, x, cfg, capacity_factor=1.25, chunk=16):
+    """A plain MoE layer for the card's checks, x (T, D) -> (T, D): the
+    router's fp32 logits, softmax, the first top_k of a stable descending
+    sort, renormalised; expert e keeps the tokens that chose it up to the
+    first `capacity` in token order (a token takes one slot an expert);
+    every expert's MLP on every token (`chunk` experts at a time), summed
+    in fp32 with the kept weights; the shared experts added."""
+    import torch
+    import torch.nn.functional as F
+    T, D = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    probs = torch.softmax(x.float() @ p["router"].float(), -1)
+    w, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    w, ids = w[:, :K], ids[:, :K]
+    w = w / w.sum(-1, keepdim=True).clamp_min(1e-9)
+    cap = max(1, int(T * K / E * capacity_factor + 0.999))
+    chosen = torch.zeros((T, E), dtype=torch.bool, device=x.device).scatter_(1, ids, True)
+    kept = chosen & (chosen.long().cumsum(0) <= cap)
+    wk = torch.zeros((T, E), dtype=torch.float32, device=x.device).scatter_(1, ids, w) * kept
+    out = torch.zeros((T, D), dtype=torch.float32, device=x.device)
+    for e0 in range(0, E, chunk):
+        e1 = min(e0 + chunk, E)
+        xe = x.expand(e1 - e0, T, D)
+        y = torch.bmm(F.silu(torch.bmm(xe, p["wi_gate"][e0:e1]))
+                      * torch.bmm(xe, p["wi_up"][e0:e1]), p["wo"][e0:e1])
+        out += (wk[:, e0:e1].t()[:, :, None] * y.float()).sum(0)
+    out = out.to(x.dtype)
+    if "shared" in p:
+        sh = p["shared"]
+        out = out + (F.silu(x @ sh["wi_gate"]) * (x @ sh["wi_up"])) @ sh["wo"]
+    return out
+
+
+@contextlib.contextmanager
+def moe_io():
+    """Every MoE layer call in the block, in call order: (its parameters,
+    input (T, D), output (T, D)), wrapping whatever models/moe.py holds on
+    entry (a planted fault included)."""
+    from repro_torch.models import moe
+    calls = []
+    fwd = moe.moe_forward
+
+    def rec(p, x, **kw):
+        out, aux = fwd(p, x, **kw)
+        calls.append((p, x.reshape(-1, x.shape[-1]), out.reshape(-1, out.shape[-1])))
+        return out, aux
+    with _patched(moe, "moe_forward", rec):
+        yield calls
+
+
+def moe_layer_errors(cfg, calls):
+    """Per MoE call: the largest over its tokens of |out - moe_plain| / the
+    plain row's largest |value|."""
+    errs = []
+    for p, x, out in calls:
+        ref = moe_plain(p, x, cfg).float()
+        errs.append(((out.float() - ref).abs().amax(-1)
+                     / ref.abs().amax(-1).clamp_min(1e-30)).max().item())
+    return errs
+
+
+def moe_fault_check(cfg, params, prompts, feed, card):
+    """The served MoE layers and the planted MoE faults (moe_faults), on the
+    kernel path's prefill and first decode step of the bursty batch: every
+    MoE call's output held to moe_plain on the same input within
+    MOE_LAYER_REL (each token's row); each fault must break it at some
+    call. The faults' logit errors against impl="ref" are printed beside
+    (on this config they read within a few ulps of the clean path's)."""
+    def run(fault=None):
+        with contextlib.ExitStack() as stack:
+            if fault is not None:
+                stack.enter_context(_patched(*fault))
+            calls = stack.enter_context(moe_io())
+            lg = forced_logits(cfg, params, prompts, feed[:, :1], 4, "kernel")
+        return lg, moe_layer_errors(cfg, calls)
+    lr = forced_logits(cfg, params, prompts, feed[:, :1], 4, "ref")
+    scale = lr.abs().amax(-1)
+    lk, clean = run()
+    clean_logit = ((lk - lr).abs().amax(-1) / scale).max().item()
+    res = []
+    for label, fault in moe_faults():
+        lf, errs = run(fault)
+        res.append((label, max(errs), ((lf - lr).abs().amax(-1) / scale).max().item()))
+    log(f"  MoE layers against moe_plain on their served inputs (prefill + 1 decode step, "
+        f"{len(clean)} calls): worst token err {max(clean):.4f} of its largest |value| "
+        f"(limit {MOE_LAYER_REL:.4f}; median call {statistics.median(clean):.4f}); logit "
+        f"err against 'ref' {clean_logit:.4f}. Planted faults (worst MoE-layer err, logit "
+        f"err of |logit| max against 'ref'): "
+        + ", ".join(f"{k} {o:.4f} / {g:.4f}" for k, o, g in res) + f" [{card}]")
+    if max(clean) > MOE_LAYER_REL:
+        raise AssertionError(f"{cfg.name}: served MoE layers off moe_plain ({max(clean):.4f})")
+    missed = [k for k, o, _ in res if o <= MOE_LAYER_REL]
+    if missed:
+        raise AssertionError(f"{cfg.name}: the MoE layer limit passes planted faults "
+                             f"{missed}")
+    return clean, res
+
+
+def moe_spec_check(cfg, params, card, base):
+    """One n-gram speculative serve (k SPEC_K) of the bursty batch on the
+    single-device path, with exact launch counts (kernel 4's verify body,
+    G 1): every served token is the kernel path's pick of its verify (or
+    decode) call, and that pick is the reference's on the same calls
+    replayed through impl="ref" (the same rows: MoE capacity counts every
+    drafted row), or a near tie. The positions where the served tokens
+    leave the decode-path serve `base` are counted and printed. Returns
+    the serve's launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import model as M
+    from repro_torch.serving import EngineBackend, summarize
+    from repro_torch.specdec import SpecConfig
+    prompts, plain = base
+    V = cfg.vocab_size
+    calls = []
+
+    def rec(fn, kind):
+        def wrapped(cfg_, params_, cache, tokens, **kw):
+            pos = cache["pos"]
+            lg, cache = fn(cfg_, params_, cache, tokens, **kw)
+            calls.append((kind, tokens.clone(), pos, lg[..., :V].float()))
+            return lg, cache
+        return wrapped
+    be = EngineBackend(cfg, params, n_slots=4, max_len=MAX_LEN, impl="kernel",
+                       spec=SpecConfig(k=SPEC_K, draft="ngram"))
+    with _patched(M, "verify_step", rec(M.verify_step, "verify")), \
+            _patched(M, "decode_step", rec(M.decode_step, "decode")):
+        done, stats, got = drive_spec(be, prompts, cfg, 0, False)
+    torch.cuda.synchronize()
+    rep = summarize(done, pattern="bursty", backend="single-device")
+    toks = torch.from_numpy(EngineBackend._pad_prompts(prompts)).long().cuda()
+    cache = M.init_cache(cfg, 4, MAX_LEN)
+    lr0, cache = M.prefill(cfg, params, toks, cache, impl="ref")
+    n_pick = n_tie = 0
+    rounds = [r for r in be.rounds]
+    if len(rounds) != len(calls):
+        raise AssertionError(f"{len(rounds)} rounds, {len(calls)} recorded calls")
+    for (k, c), (kind, tokens, pos, lk) in zip(rounds, calls):
+        cache["pos"] = pos
+        fn = M.verify_step if kind == "verify" else M.decode_step
+        lr, cache = fn(cfg, params, cache, tokens, impl="ref")
+        lr = lr[..., :V].float()
+        a, b = lk[:, :c].reshape(-1, V), lr[:, :c].reshape(-1, V)
+        n_tie += argmax_or_tie(f"{cfg.name} spec {kind} call", a, b,
+                               (a - b).abs().amax(-1))
+        n_pick += a.shape[0]
+    moved = [next((t for t, (x, y) in enumerate(zip(r.output, q.output)) if x != y),
+                  None) for r, q in zip(done, plain)]
+    n_diff = sum(sum(x != y for x, y in zip(r.output, q.output))
+                 for r, q in zip(done, plain))
+    st = be.spec_stats
+    log(f"  n-gram speculation (k {SPEC_K}) on the single-device path: {len(rounds)} "
+        f"rounds (k, committed) {rounds[:6]}...; drafts accepted "
+        f"{st['spec_accepted']} of {st['spec_drafted']}; launches "
+        f"{ {k: n for k, n in got.items() if n} } (exact every step); "
+        f"{n_pick} committed picks each the reference verify/decode call's or a near "
+        f"tie ({n_tie} near ties); against the decode-path serve the served tokens "
+        f"differ at {n_diff} of {4 * MAX_NEW} positions (first per request {moved}: "
+        f"MoE capacity counts the drafted rows); TTFT p50 {rep.ttft_p50_s * 1e3:.2f} ms, "
+        f"{1e3 / rep.decode_tok_s_p50:.3f} ms/token p50 [{card}]")
+    return got
+
+
+def moe_engine_check(card):
+    """(b): DeepSeekMoE-16B folded (first_dense_layers=0: every layer an MoE
+    layer, widths unchanged; the JAX engine's homogeneous stack) through
+    the InterleavedEngine at MOE_ENGINE_HBM (plan_for by the packed layer,
+    its fp32 router included), retier headroom 1: the bursty batch (4 x
+    512, MOE_NEW tokens) through LimeServer with resident self-speculation
+    (k SPEC_K) and a live retier, exact launch counts every step; every
+    prefill, verify and decode call of the engine replayed through the
+    model's kernel path (the same weights whole on the card, the same rows
+    a call) bit for bit, and every served token its verify pass's greedy;
+    a decode pass timed against the copy of its streamed bytes, the cost
+    model's T_total, Alg. 1's plan at that budget. Returns the launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import InterleavedEngine, packed_layer_bytes, plan_for
+    from repro_torch.launch.serve import HBM_FRAC, cost_env, hetero_plan, measure_h2d
+    from repro_torch.models import model as M
+    from repro_torch.serving import LimeServer, summarize
+    from repro_torch.serving.backend import EngineBackend
+    from repro_torch.specdec import SpecConfig
+    cfg = dataclasses.replace(get_config(MOE_ARCH), first_dense_layers=0)
+    L, V = cfg.n_layers, cfg.vocab_size
+    params = moe_params(cfg, seed=0)
+    packed, counted = packed_layer_bytes(cfg), cfg.layer_params() * 2
+    plan = plan_for(cfg, 1, hbm_frac_for_weights=HBM_FRAC,
+                    hbm_bytes=MOE_ENGINE_HBM * min(counted / packed, 1.0))
+    eng = InterleavedEngine(cfg, plan, mb=4, max_len=MAX_LEN, retier_headroom=1)
+    n_res = len(eng.resident_layer_ids())
+    if not 0 < n_res < L or n_res * packed > MOE_ENGINE_HBM * HBM_FRAC:
+        raise AssertionError(f"folded {cfg.name}: plan {plan} at {MOE_ENGINE_HBM:.3g} B")
+    wait_for_host_memory(eng.streamed_store_bytes + HOST_RESERVE, "3g's folded engine")
+    eng.init_state(params)
+    torch.cuda.synchronize()
+    streamed = (L - n_res) * packed
+    rate = measure_h2d(eng.store.data.flatten(0, 1)) / 1e9
+    env = cost_env(cfg, MOE_ENGINE_HBM, width=4, prompt_len=PROMPT_LEN,
+                   load_bw=rate * 1e9)
+    env.evaluate(plan)
+    try:
+        a1, _, a1_scale = hetero_plan(cfg, MOE_ENGINE_HBM, width=4, prompt_len=PROMPT_LEN,
+                                      n_emp=PROMPT_LEN, load_bw=rate * 1e9)
+        alg1 = (f"scale {a1_scale}, n_seg {a1.plan.n_seg}, "
+                f"{dataclasses.astuple(a1.plan.stages[0])} (resident, streamed full / "
+                f"attention / MLP a segment), T_total {a1.plan.t_total * 1e3:.2f} ms; "
+                f"candidates {[(n, round(t * 1e3, 2)) for n, t in a1.candidates]}")
+    except SystemExit as e:
+        alg1 = str(e)
+    log(f"phase 3g(b): {cfg.name} folded (first_dense_layers 0: layer 0 an MoE layer, "
+        f"widths unchanged) at all {L} layers through the engine: --hbm-bytes "
+        f"{MOE_ENGINE_HBM / 1e9:.1f} GB (x {HBM_FRAC}), plan_for n_seg {plan.n_seg}, k_res "
+        f"{plan.k_res}, k_off {plan.k_off}: {n_res} resident, packed layer "
+        f"{packed / 1e9:.4f} GB (the config's count {counted / 1e9:.4f}: the fp32 router "
+        f"at 4 bytes), {streamed / 1e9:.2f} GB streamed a pass from "
+        f"{eng.store.nbytes / 1e9:.2f} GB pinned; H2D {rate:.2f} GB/s, the streamed bytes' "
+        f"copy {streamed / rate / 1e6:.1f} ms; cost model T_total {plan.t_total * 1e3:.2f} "
+        f"ms (T_comp {plan.t_comp * 1e3:.2f}, T_uncover {plan.t_uncover * 1e3:.2f}); "
+        f"Alg. 1 at this budget: {alg1} [{card}]")
+    prompts = make_prompts(4, V, 0)
+    log_calls = []
+    for name in ("verify_requests", "decode_requests"):
+        fn = getattr(eng, name)
+
+        def rec(state, tokens, active, _fn=fn, _name=name):
+            lg, state = _fn(state, tokens, active)
+            log_calls.append((_name, tokens.clone(), torch.as_tensor(active).clone(),
+                              state["pos"], lg[..., :V].float()))
+            return lg, state
+        setattr(eng, name, rec)
+    srv = LimeServer(cfg, params, engine=eng, max_len=MAX_LEN, pattern="bursty",
+                     spec=SpecConfig(k=SPEC_K, draft="resident", adapt_k=False),
+                     prefill_chunk_tokens=PREFILL_CHUNK)
+    t0 = time.monotonic()
+    done, stats, counts, applied, _ = drive(srv, prompts, "bursty", L, MOE_RETIER_AT,
+                                            max_new=MOE_NEW)
+    wall = time.monotonic() - t0
+    del eng.verify_requests, eng.decode_requests
+    rep = summarize(done, pattern="bursty", backend="engine", stats=stats)
+    # the replay: the prompt as one verify round (prefill_partial's), then
+    # every recorded call on the model's kernel path from the same position
+    toks = torch.from_numpy(EngineBackend._pad_prompts(prompts)).long().cuda()
+    cache = M.init_cache(cfg, 4, MAX_LEN)
+    lg, cache = M.verify_step(cfg, params, cache, toks, impl="kernel")
+    out = [[int(t)] for t in lg[:, -1, :V].argmax(-1).tolist()]
+    n_calls = 0
+    for name, tokens, active, pos_after, le in log_calls:
+        tokens = torch.where(active.to(tokens.device)[:, None], tokens,
+                             torch.zeros_like(tokens))
+        fn = M.verify_step if name == "verify_requests" else M.decode_step
+        lm, cache = fn(cfg, params, cache, tokens, impl="kernel")
+        lm = lm[..., :V].float()
+        if name == "decode_requests":
+            lm = lm[:, 0]
+        if not torch.equal(lm, le):
+            raise AssertionError(f"{cfg.name}: engine call {n_calls} ({name}) is not the "
+                                 f"model's kernel path (max |diff| "
+                                 f"{(lm - le).abs().max().item():.3g})")
+        live = torch.nonzero(active.cpu()).flatten().tolist()
+        if name == "decode_requests":
+            for s in live:
+                out[s].append(int(le[s].argmax()))
+        else:
+            picks = le.argmax(-1)
+            acc = [next((j for j in range(tokens.shape[1] - 1)
+                         if tokens[s, j + 1] != picks[s, j]), tokens.shape[1] - 1) + 1
+                   for s in live]
+            c = min(acc)
+            for s in live:
+                out[s].extend(picks[s, :c].tolist())
+            cache["pos"] = pos_after - tokens.shape[1] + c
+        n_calls += 1
+    for r in done:
+        if r.output != out[r.rid][:len(r.output)]:
+            raise AssertionError(f"{cfg.name} req {r.rid}: served tokens are not the "
+                                 "verify passes' greedy")
+    log(f"  bursty through the engine: 4 requests x {MOE_NEW} tokens, prompt "
+        f"{PROMPT_LEN}, resident self-speculation k {SPEC_K}, retier {applied}: "
+        f"{len(log_calls)} engine calls replayed through the model's kernel path, logits "
+        f"bit-equal at every call, every served token its verify pass's greedy; launches "
+        f"(mq, decode, mq prefill, decode hopper, mq verify) {counts}; TTFT p50 "
+        f"{rep.ttft_p50_s * 1e3:.2f} ms, {1e3 / rep.decode_tok_s_p50:.3f} ms/token p50, "
+        f"serve {wall:.1f} s [{card}]")
+    st = eng.seed_cache(eng.init_state(params), eng.prefill(toks)[1])
+    tok = torch.from_numpy(np.array([[r.output[0]] for r in done])).cuda()
+    passes = sorted(timed_s(lambda: eng.decode_step(st, tok)) for _ in range(3))
+    eng.rollback(st, PROMPT_LEN)
+    copy_s = streamed / (rate * 1e9)
+    log(f"  decode pass (B 4, {L - n_res} of {L} layers streamed): median of 3 "
+        f"{passes[1] * 1e3:.2f} ms (min {passes[0] * 1e3:.2f}) against the streamed bytes' "
+        f"copy {copy_s * 1e3:.2f} ms at {rate:.2f} GB/s and the cost model's T_total "
+        f"{plan.t_total * 1e3:.2f} ms ({(plan.t_total - passes[1]) / passes[1]:+.1%}) "
+        f"[{card}]")
+    pass_profile(eng, st, st["pos"], lambda: eng.decode_step(st, tok), card,
+                 f"folded {cfg.name} decode")
+    host_mem("before 3g's engine is closed")
+    eng.close()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"mq_decode_attention": counts[0], "decode_attention": counts[1],
+            "mq_decode_attention@prefill": counts[2], "decode_attention@hopper": counts[3],
+            "mq_decode_attention@verify": counts[4]}
+
+
+def kimi_check(card):
+    """(c): Kimi-K2 at full width, depth cut to KIMI_LAYERS of 61 (its dense
+    layer 0 and one MoE layer of 384 routed top-8 experts, 33.8 GB): the
+    bursty batch (4 x 512, MOE_NEW tokens) on the single-device path with
+    exact launch counts of kernels 2 and 1, then the reference's re-serve
+    fed through both impls (compare_greedy within MOE_LOGIT_REL_TOL) with
+    the routes that differ per layer. Returns the launches."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.serving import summarize
+    full = get_config(KIMI_ARCH)
+    cfg = dataclasses.replace(full, n_layers=KIMI_LAYERS)
+    t0 = time.monotonic()
+    params = moe_params(cfg, seed=0)
+    n_par = sum(t.numel() for t in _leaves(params))
+    log(f"phase 3g(c): {cfg.name} at full width (d_model {cfg.d_model}, {cfg.n_heads} "
+        f"heads, {cfg.n_kv_heads} kv heads x {cfg.head_dim}, {cfg.n_experts} routed "
+        f"experts top-{cfg.top_k} + {cfg.n_shared_experts} shared of d_ff {cfg.moe_d_ff}, "
+        f"vocab {cfg.vocab_size}), DEPTH CUT to {cfg.n_layers} of {full.n_layers} layers "
+        f"(the dense layer 0 and one MoE layer): {n_par / 1e9:.2f} B params "
+        f"({n_par * 2 / 1e9:.1f} GB) in {time.monotonic() - t0:.1f} s, peak HBM "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB [{card}]")
+    prompts = make_prompts(4, cfg.vocab_size, 0)
+    fa.launches = fa.hopper_launches = da.launches = da.hopper_launches = 0
+    done = serve(cfg, params, "bursty", prompts, "kernel", max_new=MOE_NEW)
+    torch.cuda.synchronize()
+    got = {"flash_attention": fa.launches, "decode_attention": da.launches,
+           "flash_attention@hopper": fa.hopper_launches,
+           "decode_attention@hopper": da.hopper_launches}
+    L = cfg.n_layers
+    want = {"flash_attention": L, "decode_attention": L * (MOE_NEW - 1),
+            "flash_attention@hopper": L, "decode_attention@hopper": L * (MOE_NEW - 1)}
+    if got != want:
+        raise AssertionError(f"kimi: launches {got} != {want}")
+    rep = summarize(done, pattern="bursty", backend="single-device")
+    ref = serve(cfg, params, "bursty", prompts, "ref", max_new=MOE_NEW)
+    with moe_calls() as calls:
+        n_pos, n_tie, worst = compare_greedy(cfg, params, "bursty", prompts, done, ref, 4,
+                                             MOE_LOGIT_REL_TOL, max_new=MOE_NEW)
+    half = len(calls) // 2
+    pre, dec, per_pre, per_dec = route_flips(calls[:half], calls[half:], L - 1)
+    feed = torch.tensor([r.output for r in ref]).numpy()
+    with moe_io() as io:
+        forced_logits(cfg, params, prompts, feed[:, :1], 4, "kernel")
+    layer_err = max(moe_layer_errors(cfg, io))
+    del io
+    if layer_err > MOE_LAYER_REL:
+        raise AssertionError(f"kimi: served MoE layer off moe_plain ({layer_err:.4f})")
+    log(f"  bursty: 4 requests x {MOE_NEW} tokens, prompt {PROMPT_LEN}: launches {got}; "
+        f"TTFT p50 {rep.ttft_p50_s * 1e3:.2f} ms, {1e3 / rep.decode_tok_s_p50:.3f} "
+        f"ms/token p50; against 'ref' {n_pos} positions, {n_tie} near ties, worst logit "
+        f"err {worst:.4f} of |logit| max (tol {MOE_LOGIT_REL_TOL}); routes that differ "
+        f"from 'ref' in the MoE layer: prefill {pre} of {per_pre} tokens, decode {dec} "
+        f"of {per_dec}; the MoE layer against moe_plain on its served inputs (prefill + "
+        f"1 step): worst token err {layer_err:.4f} (limit {MOE_LAYER_REL:.4f}) "
+        f"[{card}; {cfg.name}, {L} of {full.n_layers} layers]")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return got
+
+
+def moe_phase(card):
+    """Phase 3g: (a) DeepSeekMoE-16B as published at all 28 layers on the
+    single-device path (single_device_checks: bursty and sporadic serves,
+    the reference re-serve, its noise floor, route flips per layer, the
+    MoE faults at the layers' outputs, the layer-by-layer errors, and an
+    n-gram speculative serve); (c) Kimi-K2 at full width, 2 layers; (b)
+    DeepSeekMoE-16B folded through the engine (its pinned store last, so
+    3b's returns first). Returns ({kernel row: launches} at the MoE
+    shapes, the summed launches)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    shapes, launches = {}, {}
+
+    def add(got):
+        for k, n in got.items():
+            launches[k] = launches.get(k, 0) + n
+    t_lap = [time.monotonic()]
+
+    def lap(what):
+        now = time.monotonic()
+        log(f"  3g {what}: {now - t_lap[0]:.1f} s")
+        t_lap[0] = now
+    cfg = get_config(MOE_ARCH)
+    params = moe_params(cfg, seed=0)
+    n_par = sum(t.numel() for t in _leaves(params))
+    log(f"phase 3g(a): {cfg.name} as published on the single-device path, full width "
+        f"and all {cfg.n_layers} layers (dense layer 0 of d_ff {cfg.d_ff}, then "
+        f"{cfg.n_layers - cfg.first_dense_layers} MoE layers of {cfg.n_experts} routed "
+        f"top-{cfg.top_k} + {cfg.n_shared_experts} shared experts of d_ff {cfg.moe_d_ff}; "
+        f"d_model {cfg.d_model}, {cfg.n_heads} heads = {cfg.n_kv_heads} kv heads x "
+        f"{cfg.head_dim}: G 1; vocab {cfg.vocab_size}): {n_par / 1e9:.2f} B params "
+        f"({n_par * 2 / 1e9:.1f} GB) [{card}]")
+    served = {}
+    got = single_device_checks(cfg, params, card, "3g", tol=MOE_LOGIT_REL_TOL,
+                               faults=True, served=served)
+    add(got)
+    layer_errors(cfg, params, served["bursty"][0], card, cfg.name)
+    shapes["decode_attention@moe"] = got["decode_attention"]
+    shapes["flash_attention@moe"] = got["flash_attention"]
+    lap("(a) serves, reference, faults")
+    got = moe_spec_check(cfg, params, card, served["bursty"])
+    add(got)
+    shapes["mq_decode_attention@moe"] = got["mq_decode_attention"]
+    lap("(a) speculative serve")
+    del params, served
+    gc.collect()
+    torch.cuda.empty_cache()
+    add(kimi_check(card))
+    lap("(c) Kimi-K2")
+    got = moe_engine_check(card)
+    add(got)
+    shapes["mq_decode_attention@moe"] += got["mq_decode_attention"]
+    lap("(b) folded engine")
+    return shapes, launches
 
 
 # ----------------------------------------------------------------------------
@@ -4055,6 +4794,12 @@ def main() -> int:
         t = done("3b", t)
         for k, n in engine_launches.items():
             launches[k] = launches.get(k, 0) + n
+        gc.collect()
+        torch.cuda.empty_cache()
+        moe_shapes, got = moe_phase(card)
+        for k, n in got.items():
+            launches[k] = launches.get(k, 0) + n
+        t = done("3g", t)
         for k, n in alg1_phase(card, **state80).items():
             launches[k] = launches.get(k, 0) + n
         rate = state80["rate"]
@@ -4064,6 +4809,7 @@ def main() -> int:
         for k, n in got.items():
             launches[k] = launches.get(k, 0) + n
         launches.update(shapes)
+        launches.update(moe_shapes)
         done("3e", t)
 
         for name in ("decode_attention@hopper", "paged_decode_attention@hopper",
@@ -4107,7 +4853,15 @@ def main() -> int:
                 ("decode_attention@dh160", "src/repro_torch/csrc/decode_attention.cu",
                  "src/repro/kernels/decode_attention/kernel.py:88"),
                 ("flash_attention@dh160", "src/repro_torch/csrc/flash_attention.cu",
-                 "src/repro/kernels/flash_attention/kernel.py:104")):
+                 "src/repro/kernels/flash_attention/kernel.py:104"),
+                # phase 3g's shapes: DeepSeekMoE-16B (G 1, 16 heads)
+                ("decode_attention@moe", "src/repro_torch/csrc/decode_attention.cu",
+                 "src/repro/kernels/decode_attention/kernel.py:88"),
+                ("flash_attention@moe", "src/repro_torch/csrc/flash_attention.cu",
+                 "src/repro/kernels/flash_attention/kernel.py:104"),
+                ("mq_decode_attention@moe",
+                 "src/repro_torch/csrc/mq_decode_attention.cu",
+                 "src/repro/kernels/decode_attention/multiquery.py:107")):
             r = rows[name]
             if launches[name] <= 0:
                 raise AssertionError(f"{name} never launched on the main path")

@@ -12,7 +12,10 @@ Carries the architectures the port runs so far:
   embeddings before the text;
 * the recurrent families: RWKV6-3B (SSM, the WKV scan) and Hymba-1.5B
   (hybrid: sliding-window attention beside Mamba heads, the selective
-  scan).
+  scan);
+* the MoE family: DeepSeekMoE-16B (64 routed top-6 + 2 shared experts)
+  and Kimi-K2 (384 routed top-8 + 1 shared), each with a dense first
+  layer.
 """
 from __future__ import annotations
 
@@ -29,7 +32,8 @@ PAPER_MODELS: List[str] = [
 
 ARCHS: List[str] = PAPER_MODELS + [
     "internlm2-1.8b", "codeqwen1.5-7b", "stablelm-12b", "pixtral-12b",
-    "gemma3-1b", "rwkv6-3b", "hymba-1.5b"]
+    "gemma3-1b", "rwkv6-3b", "hymba-1.5b", "deepseek-moe-16b",
+    "kimi-k2-1t-a32b"]
 
 _MOD = {a: "repro_torch.configs." + a.replace("-", "_").replace(".", "_")
         for a in ARCHS}

@@ -2,8 +2,10 @@
 
 ``params_from_numpy`` takes ``repro.models.model.init_params`` output
 already converted to numpy by the caller (nested dicts of arrays) and
-returns the port's parameter tree on ``device``, in the same layout.
-bf16 leaves arrive as ``ml_dtypes.bfloat16`` arrays, which
+returns the port's parameter tree on ``device``, in the same layout (an
+MoE config's ``dense_layers`` stack beside ``layers``). Leaves keep their
+dtype: fp32 leaves (the MoE router) convert as they are; bf16 leaves
+arrive as ``ml_dtypes.bfloat16`` arrays, which
 ``torch.from_numpy`` refuses: they go through float32, which holds every
 bf16 value exactly, and back to bfloat16.
 """

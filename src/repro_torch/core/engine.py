@@ -11,15 +11,20 @@ of a chunk is fetched while the chunk's resident layers compute: the
 paper's interleave. A copy waits on the compute stream's "buffer free"
 event for its buffer, compute waits on the copy's "copy done" event.
 
-Families: dense, SSM (RWKV6) and hybrid (Hymba), each layer run by the
-model's own per-layer bodies (``M.step_layer`` in a pass,
-``M.prefill_layer`` in the prompt pass over the tiers); MoE and
-encoder-decoder are not ported, and the VLM (whose patch embeddings only
-M.prefill takes) is refused as the JAX engine's paths refuse it.
+Families: dense, MoE, SSM (RWKV6) and hybrid (Hymba), each layer run by
+the model's own per-layer bodies (``M.step_layer`` in a pass,
+``M.prefill_layer`` in the prompt pass over the tiers); encoder-decoder is
+not ported, and the VLM (whose patch embeddings only M.prefill takes) is
+refused as the JAX engine's paths refuse it. An MoE stack must be
+homogeneous, as the JAX engine asserts: a config with dense first layers
+is refused, and runs folded (``dataclasses.replace(cfg,
+first_dense_layers=0)``: every layer an MoE layer). Each MoE layer routes
+the mb rows of a pass (mb · q_len in a verify round) as one batch of
+tokens, finished slots included, as the JAX engine's micro-batch does.
 Chunked prefill, verification and the resident self-draft need pure-KV
-per-layer state (the dense family), as in the JAX package; the recurrent
-families prefill through ``prefill`` (the prompt pass over the tiers)
-and ``seed_cache``.
+per-layer state (the dense and MoE families), as in the JAX package; the
+recurrent families prefill through ``prefill`` (the prompt pass over the
+tiers) and ``seed_cache``.
 
 Of the JAX package's two streaming designs this is fetch_mode="slot"
 (each streamed layer fetched when its chunk runs) on one stage; the
@@ -37,7 +42,9 @@ it does not (Alg. 1's 39 resident layers over 41 segments), the JAX grid
 rounds every chunk up to ceil(resident / n_seg) residents; the port lays
 out exactly the plan's resident count, one more in the first chunks, so
 the engine runs the plan the cost model priced. Resident layers live in HBM,
-one flat bf16 tensor each; streamed layers in a pinned host store of
+one flat bf16 tensor each (a leaf of another dtype, the MoE router's fp32,
+packed bit for bit as a view of the same bytes); streamed layers in a
+pinned host store of
 n_seg x (retier_headroom + k_off) one-layer slots. Pinned memory is plain
 host memory registered with cudaHostRegister: PyTorch's pinned allocator
 rounds each block up to a power of two (a 1.71 GB layer would take 2 GiB).
@@ -68,9 +75,12 @@ from repro_torch.kvcache.pool import PagedKVConfig, PagePool
 from repro_torch.models import model as M
 from repro_torch.models.modules import rms_norm, round_up, unembed
 
-# the families whose layers the engine streams; of them only the dense
-# family has pure-KV per-layer state (chunked prefill, verify, draft)
-FAMILIES = (Family.DENSE, Family.SSM, Family.HYBRID)
+# the families whose layers the engine streams; of them the dense and MoE
+# families have pure-KV per-layer state (chunked prefill, verify, draft)
+FAMILIES = (Family.DENSE, Family.MOE, Family.SSM, Family.HYBRID)
+# the JAX engine's words for a stack that is not homogeneous
+HOMOGENEOUS = ("engine expects a homogeneous stack; fold dense layers via "
+               "configs with first_dense_layers=0 or pad (see tests)")
 
 
 def UniformPlan(n_stage: int, n_seg: int, k_res: int,
@@ -121,15 +131,20 @@ def weight_budget(cfg: ModelConfig, *, batch: int, max_len: int,
     return free_bytes - state - 2 * packed_layer_bytes(cfg) - shared
 
 
-def _layer_slots(cfg: ModelConfig) -> Tuple[List[Tuple[Tuple[str, ...], tuple,
-                                                      int]], int]:
+Slot = Tuple[Tuple[str, ...], tuple, torch.dtype, int]
+
+
+def _layer_slots(cfg: ModelConfig) -> Tuple[List[Slot], int]:
     """The flat packing of one layer of cfg's family: every leaf at a
     256-byte aligned offset of one bf16 tensor (one H2D copy per streamed
-    layer). Returns ([(path, shape, offset)], numel)."""
+    layer), a leaf of a wider dtype (the MoE router's fp32) taking as many
+    bf16 elements as its bytes fill. Returns ([(path, shape, dtype,
+    offset)], numel), offsets and numel in bf16 elements."""
     slots, off = [], 0
-    for path, shape in _leaves(M._LAYER_SPECS[cfg.family](cfg)):
-        slots.append((path, shape, off))
-        off += -(-math.prod(shape) // 128) * 128
+    for path, shape, dtype in _leaves(M._LAYER_SPECS[cfg.family](cfg)):
+        slots.append((path, shape, dtype, off))
+        units = math.prod(shape) * dtype.itemsize // 2
+        off += -(-units // 128) * 128
     return slots, off
 
 
@@ -137,8 +152,8 @@ def packed_layer_bytes(cfg: ModelConfig) -> int:
     """Bytes of one packed layer: what a resident layer holds in HBM and a
     streamed one copies per pass. cfg.layer_params() (the reference's
     count, which plan_for and the cost model price) misjudges the
-    recurrent layers: an RWKV6-3B layer packs 85.6 M parameters against
-    its 81.9 M."""
+    recurrent layers (an RWKV6-3B layer packs 85.6 M parameters against
+    its 81.9 M) and counts an MoE layer's fp32 router at bf16's width."""
     return _layer_slots(cfg)[1] * 2
 
 
@@ -208,7 +223,7 @@ def _leaves(specs: dict, prefix=()):
         if isinstance(v, dict):
             yield from _leaves(v, prefix + (k,))
         else:
-            yield prefix + (k,), tuple(v.shape)
+            yield prefix + (k,), tuple(v.shape), v.dtype
 
 
 def _mem_available_bytes() -> Optional[int]:
@@ -300,8 +315,10 @@ class InterleavedEngine:
                 "run shows more than one card")
         if cfg.family not in FAMILIES:
             raise NotImplementedError(
-                f"the port's engine runs the dense, SSM and hybrid families, "
-                f"not {cfg.family}")
+                f"the port's engine runs the dense, MoE, SSM and hybrid "
+                f"families, not {cfg.family}")
+        if M.n_dense_first(cfg):
+            raise ValueError(HOMOGENEOUS)
         self.cfg, self.plan = cfg, plan
         self.mb = mb
         self.max_len = max_len
@@ -368,25 +385,31 @@ class InterleavedEngine:
                           if self._real(l)]
         return order
 
+    @staticmethod
+    def _leaf_view(flat: torch.Tensor, shape: tuple, dtype: torch.dtype,
+                   off: int) -> torch.Tensor:
+        units = math.prod(shape) * dtype.itemsize // 2
+        return flat[off:off + units].view(dtype).view(shape)
+
     def _views(self, flat: torch.Tensor) -> dict:
         tree: dict = {}
-        for path, shape, off in self._slots:
+        for path, shape, dtype, off in self._slots:
             node = tree
             for k in path[:-1]:
                 node = node.setdefault(k, {})
-            node[path[-1]] = flat[off:off + math.prod(shape)].view(shape)
+            node[path[-1]] = self._leaf_view(flat, shape, dtype, off)
         return tree
 
     def _pack(self, p: dict, flat: torch.Tensor) -> None:
-        for path, shape, off in self._slots:
+        for path, shape, dtype, off in self._slots:
             leaf = p
             for k in path:
                 leaf = leaf[k]
-            if tuple(leaf.shape) != shape or leaf.dtype != torch.bfloat16:
+            if tuple(leaf.shape) != shape or leaf.dtype != dtype:
                 raise ValueError(f"layer leaf {'/'.join(path)}: "
                                  f"{tuple(leaf.shape)} {leaf.dtype}, want "
-                                 f"{shape} bfloat16")
-            flat[off:off + math.prod(shape)].view(shape).copy_(leaf)
+                                 f"{shape} {dtype}")
+            self._leaf_view(flat, shape, dtype, off).copy_(leaf)
 
     @property
     def store(self) -> Optional[PinnedStore]:
@@ -445,6 +468,8 @@ class InterleavedEngine:
         this params object is already loaded, and return a fresh state:
         an empty cache (K/V, recurrent states) for mb sequences at pos
         0."""
+        if "dense_layers" in params:
+            raise ValueError(HOMOGENEOUS)
         if self._loaded_from is not params:
             self._load(params)
         return M.init_cache(self.cfg, self.mb, self.max_len, self.long_mode,
@@ -572,8 +597,9 @@ class InterleavedEngine:
         tokens: (mb, q_len), column 0 the last committed token, the rest
         drafted. Returns (logits (mb, q_len, PV), state) with pos advanced
         by q_len and all q_len K/V written; rollback() commits a prefix.
-        Dense family only (a recurrent state cannot roll back)."""
-        if self.cfg.family != Family.DENSE:
+        Dense and MoE families only (a recurrent state cannot roll
+        back)."""
+        if self.cfg.family not in M.PURE_KV:
             raise NotImplementedError(
                 f"speculative verification needs pure-KV per-layer state "
                 f"(DENSE/MOE), not {self.cfg.family}")
@@ -593,7 +619,7 @@ class InterleavedEngine:
         pass overwrites every layer's rows at the drafted positions before
         reading them, so drafting leaks nothing into the verified stream.
         It never touches the page accounting (note_committed does)."""
-        if self.cfg.family != Family.DENSE:
+        if self.cfg.family not in M.PURE_KV:
             raise NotImplementedError(
                 f"resident self-draft needs pure-KV per-layer state "
                 f"(DENSE/MOE), not {self.cfg.family}")
@@ -612,9 +638,9 @@ class InterleavedEngine:
         the engine itself: ceil(T / chunk) verify rounds, each one pass
         (one weight stream) over `chunk` positions. Returns (the last
         round's logits (mb, q, PV), state) with pos advanced by T. Dense
-        family only; paged: the slot tables are rebuilt at the prefilled
-        span (released, then extended)."""
-        if self.cfg.family != Family.DENSE:
+        and MoE families only; paged: the slot tables are rebuilt at the
+        prefilled span (released, then extended)."""
+        if self.cfg.family not in M.PURE_KV:
             raise NotImplementedError(
                 "partial-context prefill rides the multi-query verify "
                 "step (pure-KV families only)")

@@ -26,6 +26,20 @@ an OnlinePlanner that retiers the live engine as KV pages grow.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \\
       --smoke --layers 4 --device cpu --hbm-bytes 4e6 --pattern bursty
 
+  # the MoE family (DeepSeekMoE-16B; kimi-k2-1t-a32b likewise) on the
+  # single-device path, smoke-sized on the CPU, and at full width on the
+  # card (32.8 GB: it fits one H100 whole):
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b \\
+      --smoke --device cpu --pattern bursty --requests 4 --max-new 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b \\
+      --pattern bursty --requests 4 --prompt-len 512 --max-len 1024
+
+  # ... and through the engine, which streams a homogeneous stack only:
+  # --fold-dense makes the dense first layer an MoE layer (widths kept)
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b \\
+      --smoke --layers 4 --fold-dense --device cpu --hbm-bytes 4e6 \\
+      --spec --spec-draft resident --spec-k 3 --pattern bursty
+
   # the engine with resident self-speculation on the CPU: a forced weight
   # budget streams half of the layers (plain versions of the kernels):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.3-70b \\
@@ -127,6 +141,10 @@ def main(argv=None):
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--layers", type=int, default=0,
                     help="depth cut (0: the config's own)")
+    ap.add_argument("--fold-dense", action="store_true",
+                    help="MoE: run the dense first layers as MoE layers "
+                         "(first_dense_layers=0, widths kept), the "
+                         "homogeneous stack the engine streams")
     ap.add_argument("--pattern", choices=("sporadic", "bursty", "poisson",
                                           "shared_prefix", "multiturn"),
                     default="sporadic")
@@ -201,6 +219,8 @@ def main(argv=None):
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    if args.fold_dense:
+        cfg = dataclasses.replace(cfg, first_dense_layers=0)
     width = 1 if args.pattern == "sporadic" else 4
     hbm = args.hbm_bytes
     if hbm is None and dev.type == "cuda":
@@ -232,10 +252,14 @@ def main(argv=None):
                         hbm_bytes=hbm * min(counted / packed, 1.0))
     engine = planner = None
     if plan is not None and plan.k_off > 0:
-        engine = InterleavedEngine(
-            cfg, plan, mb=width, max_len=args.max_len,
-            retier_headroom=args.retier_headroom if args.adapt else 0,
-            device=dev)
+        try:
+            engine = InterleavedEngine(
+                cfg, plan, mb=width, max_len=args.max_len,
+                retier_headroom=args.retier_headroom if args.adapt else 0,
+                device=dev)
+        except ValueError as e:          # a stack that is not homogeneous
+            raise SystemExit(f"the engine refuses {cfg.name}: {e} "
+                             f"(--fold-dense)")
         n_res = len(engine.resident_layer_ids())
         # residency by the bytes a resident layer really holds: the
         # engine's packed layer, which cfg.layer_params() (what Alg. 1

@@ -1,9 +1,11 @@
 """Decoder models (counterpart of ``repro.models.model``): the dense
 family (with StableLM-2's parallel blocks: attention and MLP on one
 pre-norm, no second norm), the VLM family (the dense backbone, prefilled
-with patch embeddings before the text), the SSM family (RWKV6) and the
-hybrid family (Hymba: attention and Mamba heads side by side in each
-block).
+with patch embeddings before the text), the MoE family (attention, then
+routed and shared experts, ``models/moe.py``; DeepSeekMoE and Kimi-K2
+put ``first_dense_layers`` dense layers first, stacked apart as
+``"dense_layers"``), the SSM family (RWKV6) and the hybrid family (Hymba:
+attention and Mamba heads side by side in each block).
 
 * ``build_param_specs(cfg)`` / ``init_params(cfg, generator, device)`` —
   the parameter tree in the JAX package's layout, layers stacked on a
@@ -22,8 +24,8 @@ block).
   recurrent families advance their states by one step
 * ``verify_step`` — q_len tokens in one pass (speculative verification
   and the engine's chunked prefill), written contiguously from slot
-  ``pos % S_c``; dense only (a recurrent state cannot roll back by
-  masking; the VLM is refused as the reference refuses it)
+  ``pos % S_c``; dense and MoE only (a recurrent state cannot roll back
+  by masking; the VLM is refused as the reference refuses it)
 * ``step_layer`` / ``prefill_layer`` — the one per-layer body of a
   decode (or verify) step and of a prompt pass, by family, that the
   model and the interleaved engine both run (``decode_layer`` is the dense
@@ -46,6 +48,7 @@ import torch
 
 from repro_torch.configs.base import AttnKind, Family, ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import spec as pspec
 from repro_torch.models.attention import (IMPLS, attention_specs, attn_decode,
                                           attn_decode_multi, attn_forward)
@@ -58,23 +61,26 @@ from repro_torch.models.ssm import (mamba_forward, mamba_head_specs,
 GLOBAL_WINDOW = 2 ** 30   # sentinel: effectively unwindowed
 
 
-FAMILIES = (Family.DENSE, Family.VLM, Family.SSM, Family.HYBRID)
+FAMILIES = (Family.DENSE, Family.VLM, Family.MOE, Family.SSM, Family.HYBRID)
+# the families whose per-layer decode state is K/V alone (a verify pass
+# rolls back by masking), as the reference's verify_step admits
+PURE_KV = (Family.DENSE, Family.MOE)
 
 
 def _check(cfg: ModelConfig, impl: str) -> None:
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"the port runs the dense, VLM, SSM and hybrid families so far, "
-            f"not {cfg.family}")
+            f"the port runs the dense, VLM, MoE, SSM and hybrid families so "
+            f"far, not {cfg.family}")
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, not {impl!r}")
 
 
-def _check_dense(cfg: ModelConfig, what: str) -> None:
-    if cfg.family != Family.DENSE:
+def _check_pure_kv(cfg: ModelConfig, what: str) -> None:
+    if cfg.family not in PURE_KV:
         raise NotImplementedError(
-            f"{what} needs pure-KV per-layer state (the dense family), not "
-            f"{cfg.family}")
+            f"{what} needs pure-KV per-layer state (the dense family or "
+            f"MoE), not {cfg.family}")
 
 
 # ============================================================================
@@ -90,6 +96,18 @@ def _dense_layer_specs(cfg: ModelConfig) -> dict:
         s["ln2"] = rms_norm_spec(cfg.d_model)
     s["mlp"] = mlp_specs(cfg.d_model, cfg.d_ff)
     return s
+
+
+def _moe_layer_specs(cfg: ModelConfig) -> dict:
+    return {
+        "ln1": rms_norm_spec(cfg.d_model),
+        "attn": attention_specs(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                                cfg.head_dim),
+        "ln2": rms_norm_spec(cfg.d_model),
+        "moe": moe_mod.moe_specs(cfg.d_model, cfg.n_experts,
+                                 cfg.moe_d_ff or cfg.d_ff,
+                                 cfg.n_shared_experts),
+    }
 
 
 def _rwkv_layer_specs(cfg: ModelConfig) -> dict:
@@ -117,14 +135,34 @@ def _hymba_layer_specs(cfg: ModelConfig) -> dict:
 
 
 _LAYER_SPECS = {Family.DENSE: _dense_layer_specs, Family.VLM: _dense_layer_specs,
-                Family.SSM: _rwkv_layer_specs, Family.HYBRID: _hymba_layer_specs}
+                Family.MOE: _moe_layer_specs, Family.SSM: _rwkv_layer_specs,
+                Family.HYBRID: _hymba_layer_specs}
+
+
+def n_dense_first(cfg: ModelConfig) -> int:
+    """The MoE family's leading dense layers (0 for every other family)."""
+    return cfg.first_dense_layers if cfg.family == Family.MOE else 0
+
+
+def layer_specs(cfg: ModelConfig, l: int) -> dict:
+    """Layer l's (unstacked) parameter specs: a dense layer below
+    first_dense_layers of an MoE config, else the family's layer."""
+    if l < n_dense_first(cfg):
+        return _dense_layer_specs(cfg)
+    return _LAYER_SPECS[cfg.family](cfg)
 
 
 def build_param_specs(cfg: ModelConfig) -> dict:
+    """The reference's tree: an MoE config's dense first layers stacked
+    as "dense_layers", the rest as "layers"."""
     _check(cfg, "ref")
     specs = dict(embed_specs(cfg.vocab_size, cfg.d_model, cfg.tie_embeddings))
     specs["final_norm"] = rms_norm_spec(cfg.d_model)
-    specs["layers"] = pspec.stack(_LAYER_SPECS[cfg.family](cfg), cfg.n_layers)
+    nd = n_dense_first(cfg)
+    if nd:
+        specs["dense_layers"] = pspec.stack(_dense_layer_specs(cfg), nd)
+    specs["layers"] = pspec.stack(_LAYER_SPECS[cfg.family](cfg),
+                                  cfg.n_layers - nd)
     return specs
 
 
@@ -142,8 +180,9 @@ def init_params_by_layer(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     """Shared weights (embedding, lm_head, final norm) drawn now, and
     ``"layers"`` a source ``l -> layer l's parameter dict`` that draws
     each layer from its own seed when asked, with init_params'
-    distributions (layer weights scaled 1/sqrt(n_layers), the stacked
-    fan-in quirk), for any family ``_LAYER_SPECS`` names. The values
+    distributions (layer weights scaled 1/sqrt(n) for a stack of n, the
+    stacked fan-in quirk: an MoE config's dense first layers at their own
+    stack's scale), for any family ``_LAYER_SPECS`` names. The values
     differ from init_params' (other random streams); the interleaved
     engine builds its tiers from such a source so the whole model never
     sits on the card at once."""
@@ -153,32 +192,44 @@ def init_params_by_layer(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     shared["final_norm"] = rms_norm_spec(cfg.d_model)
     params = pspec.init(shared, torch.Generator(device=dev).manual_seed(seed),
                         dev)
-    scale = cfg.n_layers ** -0.5
+    nd = n_dense_first(cfg)
 
-    def quirk(t):
-        return {k: quirk(v) for k, v in t.items()} if isinstance(t, dict) \
-            else dataclasses.replace(t, scale=scale)
-    layer_specs = quirk(_LAYER_SPECS[cfg.family](cfg))
+    def quirk(t, scale):
+        return {k: quirk(v, scale) for k, v in t.items()} \
+            if isinstance(t, dict) else dataclasses.replace(t, scale=scale)
 
     def source(l: int) -> dict:
         gen = torch.Generator(device=dev).manual_seed(
             (seed + 1) * 1_000_003 + l)
-        return pspec.init(layer_specs, gen, dev)
+        stack = nd if l < nd else cfg.n_layers - nd
+        return pspec.init(quirk(layer_specs(cfg, l), stack ** -0.5), gen, dev)
     params["layers"] = source
     return params
 
 
 def layer_params(params: dict, l: int) -> dict:
-    """Layer l's parameters: a view of the stacked tree, or what the
-    layer source of init_params_by_layer draws."""
+    """Layer l's parameters: a view of the stacked tree (an MoE config's
+    "dense_layers" first, then "layers"), or what the layer source of
+    init_params_by_layer draws."""
     layers = params["layers"]
     if callable(layers):
         return layers(l)
+    if "dense_layers" in params:
+        nd = next(_tensors(params["dense_layers"])).shape[0]
+        if l < nd:
+            layers = params["dense_layers"]
+        else:
+            l -= nd
 
     def take(t):
         return {k: take(v) for k, v in t.items()} if isinstance(t, dict) \
             else t[l]
     return take(layers)
+
+
+def _tensors(t):
+    for v in t.values():
+        yield from (_tensors(v) if isinstance(v, dict) else (v,))
 
 
 # ============================================================================
@@ -272,13 +323,19 @@ def _hymba_rest(cfg: ModelConfig, p: dict, x: torch.Tensor, xn: torch.Tensor,
 
 def dense_rest(cfg: ModelConfig, p: dict, x: torch.Tensor, xn: torch.Tensor,
                a_out: torch.Tensor) -> torch.Tensor:
-    """The rest of a dense layer once its attention a_out over the normed
-    xn is known: the MLP after the residual add, on its own pre-norm; or,
-    for a parallel block (StableLM-2), the MLP on the attention's pre-norm
-    xn, both added to the residual."""
+    """The rest of a dense or MoE layer once its attention a_out over the
+    normed xn is known: the MLP (an MoE layer's experts, over the B·S rows
+    of x as one batch of tokens: the reference's capacity) after the
+    residual add, on its own pre-norm; or, for a parallel block
+    (StableLM-2), the MLP on the attention's pre-norm xn, both added to
+    the residual. The MoE layer's aux loss is not computed (serving)."""
     if cfg.parallel_block:
         return x + a_out + mlp(p["mlp"], xn)
     x = x + a_out
+    if "moe" in p:
+        m_out, _ = moe_mod.moe_forward(
+            p["moe"], rms_norm(x, p["ln2"], cfg.norm_eps), cfg=cfg, aux=False)
+        return x + m_out
     return x + mlp(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps))
 
 
@@ -413,7 +470,7 @@ def _hymba_decode_layer(cfg: ModelConfig, p: dict, x: torch.Tensor,
 def step_layer(cfg: ModelConfig, p: dict, x: torch.Tensor, cache: dict,
                l: int, slot: int, window: int, *, impl: str,
                multi: bool = False) -> torch.Tensor:
-    """Layer l of a decode step (or, dense only, a verify pass: multi)
+    """Layer l of a decode step (or, dense and MoE only, a verify pass: multi)
     with weights p, by family: RWKV6 advances its states by one step
     (slot and window unused), Hymba and the dense family write their K/V
     at `slot`. The one per-layer body of _step and of the interleaved
@@ -430,7 +487,7 @@ def step_layer(cfg: ModelConfig, p: dict, x: torch.Tensor, cache: dict,
 def _step(cfg, params, cache, tokens, *, impl, multi, long_mode=False):
     _check(cfg, impl)
     if multi:
-        _check_dense(cfg, "speculative verification")
+        _check_pure_kv(cfg, "speculative verification")
     pos = cache["pos"]
     x = embed(params, tokens).to(torch.bfloat16)
     slot = new_positions(cache, tokens.shape[1]) if "pos_ids" in cache else 0
@@ -461,8 +518,10 @@ def verify_step(cfg: ModelConfig, params: dict, cache: dict,
     (logits (B, q_len, PV), cache) with all q_len K/V written and pos
     advanced by q_len. Rolling back rejected positions is resetting
     cache["pos"]: their entries carry pos_ids > pos, invisible to every
-    later read until decoding reaches them again. Dense family only: a
-    recurrent state cannot roll back by masking (the reference refuses
-    the same families)."""
+    later read until decoding reaches them again. Dense and MoE families
+    only: a recurrent state cannot roll back by masking (the reference
+    refuses the same families). An MoE layer routes the B·q_len rows of
+    the pass as one batch, so its capacity, and with it a verify pass's
+    logits, differ from q_len decode steps' (as in the reference)."""
     return _step(cfg, params, cache, tokens, impl=impl, multi=True,
                  long_mode=long_mode)

@@ -19,8 +19,8 @@ The protocol the scheduler drives (duck-typed, as in the JAX package):
 Without an engine the backend runs the model's own prefill and
 decode_step on one device. With an InterleavedEngine (weights larger than
 HBM) it prefills through the engine's chunked multi-query rounds
-(prefill_partial) where the family is dense and the prompt fits the
-cache ring, else through the engine's prompt pass over its tiers
+(prefill_partial) where the family is dense or MoE and the prompt fits
+the cache ring, else through the engine's prompt pass over its tiers
 (prefill) adopted by seed_cache (the recurrent families; a prompt longer
 than a window-sized ring), and decodes through its interleaved passes.
 A paged engine (InterleavedEngine(paged=True)) keeps its own page
@@ -62,7 +62,6 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import Family
 from repro_torch.device import resolve_device
 from repro_torch.kvcache.allocator import BlockTable
 from repro_torch.kvcache.paged_decode import PagedDecodeCache
@@ -150,11 +149,11 @@ class EngineBackend:
                                  and engine is not None)
         self._depth = None
         if spec is not None:
-            if cfg.family != Family.DENSE:
+            if cfg.family not in M.PURE_KV:
                 raise ValueError(
                     f"speculative decoding needs pure-KV per-layer state "
-                    f"(the dense family), not {cfg.family}: a recurrent "
-                    f"state cannot roll rejected drafts back")
+                    f"(the dense family or MoE), not {cfg.family}: a "
+                    f"recurrent state cannot roll rejected drafts back")
             if self._resident_engine and engine.k_res_cap == 0:
                 raise ValueError("draft='resident' needs a resident tier; "
                                  "this plan streams every layer")
@@ -583,11 +582,11 @@ class EngineBackend:
             self.engine.free_slot(slot)
 
     def _engine_can_chunk(self, T: int) -> bool:
-        """Chunked prefill rounds through the engine: the dense family
-        (pure-KV state), rounds shorter than the ring, and a prompt that
-        fits it (a round must not wrap the ring)."""
+        """Chunked prefill rounds through the engine: the dense and MoE
+        families (pure-KV state), rounds shorter than the ring, and a
+        prompt that fits it (a round must not wrap the ring)."""
         chunk = min(self.chunk or T, T)
-        return self.cfg.family == Family.DENSE and chunk < self.engine.S_c \
+        return self.cfg.family in M.PURE_KV and chunk < self.engine.S_c \
             and T <= self.engine.S_c
 
     # -- radix prefix cache over the real paged pool ---------------------------

@@ -94,7 +94,8 @@ def assert_same_or_near_tie(cfg, jp, pp, prompts, got, ref, max_len,
 
 def assert_converts_leaf_for_leaf(cfg):
     """A JAX init_params tree converts leaf for leaf into the tree the port
-    declares for the same config: same keys, shapes, dtypes and values."""
+    declares for the same config: same keys, shapes, dtypes (bf16, or the
+    spec's own: the MoE router's fp32) and values."""
     _, npt, pp = jax_params(cfg)
 
     def walk(s, n, p):
@@ -104,7 +105,8 @@ def assert_converts_leaf_for_leaf(cfg):
                 walk(s[k], n[k], p[k])
                 continue
             assert tuple(s[k].shape) == n[k].shape == tuple(p[k].shape)
-            assert p[k].dtype == s[k].dtype == torch.bfloat16
+            assert p[k].dtype == s[k].dtype
+            assert n[k].dtype.name == str(s[k].dtype).split(".")[-1]
             np.testing.assert_array_equal(f32(p[k]), n[k].astype(np.float32))
     walk(PM.build_param_specs(port_cfg(cfg)), npt, pp)
 

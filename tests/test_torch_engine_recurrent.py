@@ -214,8 +214,8 @@ def test_refusals_are_jax_words():
     """Verification, the resident self-draft and chunked prefill need
     pure-KV per-layer state: the port's engine refuses the recurrent
     families with the JAX engine's own messages (its engine built on one
-    CPU device, nothing run). The families the port has not ported (MoE,
-    encoder-decoder) and the VLM are refused at construction."""
+    CPU device, nothing run). The VLM is refused at construction (the
+    MoE family's refusal of a dense first layer: test_torch_moe.py)."""
     mesh = jax.make_mesh((1,), ("data",))
     for arch in RECURRENT:
         cfg = _cfg(arch)

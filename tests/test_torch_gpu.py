@@ -1110,3 +1110,80 @@ def test_mq_mma_body(case, aligned, cuda_device):
     assert rel_err(out, ref) <= BF16_REL
     if kind == "masked":
         assert torch.count_nonzero(out) == 0
+
+
+# ----------------------------------------------------------------------------
+# the MoE family on the card (models/moe.py has no kernel of its own: its
+# router, grouping and batched expert products are torch ops)
+# ----------------------------------------------------------------------------
+def test_moe_layer_on_card_routes_as_on_cpu(cuda_device):
+    """The MoE layer of the smoke DeepSeekMoE config on the card, with TF32
+    switched on around it: the router's product stays full fp32 (the
+    routes equal the CPU's, which takes no TF32), the capacity drops fall
+    on the same slots, each token's output within 2^-6 of its largest
+    value, aux equal."""
+    from repro_torch.models import moe
+    cfg = get_smoke_config("deepseek-moe-16b")
+    spec = moe.moe_specs(cfg.d_model, 16, cfg.moe_d_ff, cfg.n_shared_experts)
+    cfg = dataclasses.replace(cfg, n_experts=16, top_k=6)
+    gen = torch.Generator().manual_seed(3)
+    from repro_torch.models import spec as pspec
+    p_cpu = pspec.init(spec, gen, torch.device("cpu"))
+    p_cpu["router"] = p_cpu["router"] * 20     # spread the router's logits
+    x = torch.randn((4, 32, cfg.d_model), generator=gen).to(torch.bfloat16)
+    ref, aux_ref = moe.moe_forward(p_cpu, x, cfg=cfg)
+    p_gpu = {k: ({n: t.to(cuda_device) for n, t in v.items()}
+                 if isinstance(v, dict) else v.to(cuda_device))
+             for k, v in p_cpu.items()}
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        out, aux = moe.moe_forward(p_gpu, x.to(cuda_device), cfg=cfg)
+        _, ids, _ = moe._route(p_gpu["router"], x.to(cuda_device).reshape(
+            -1, cfg.d_model), cfg.top_k)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    _, ids_ref, _ = moe._route(p_cpu["router"], x.reshape(-1, cfg.d_model),
+                               cfg.top_k)
+    assert torch.equal(ids.cpu(), ids_ref)
+    cap = moe.capacity(128, 6, 16, 1.25)
+    assert not moe._group_tokens(ids_ref, cap, 16)[2].all()     # drops
+    out, ref = out.float().cpu().reshape(128, -1), ref.float().reshape(128, -1)
+    assert ((out - ref).abs().amax(-1) / ref.abs().amax(-1)).max() <= BF16_REL
+    assert abs(aux.item() - aux_ref.item()) <= 1e-5 * abs(aux_ref.item())
+
+
+def test_moe_folded_engine_matches_model_on_card(cuda_device):
+    """The folded smoke DeepSeekMoE stack (4 MoE layers, 2 of them
+    streamed) through the engine on the card: chunked prefill, decode and
+    verify bit-equal to the model on the same weights, the streamed fp32
+    routers read back bit for bit."""
+    cfg = dataclasses.replace(get_smoke_config("deepseek-moe-16b"), n_layers=4,
+                              first_dense_layers=0)
+    params = M.init_params(cfg, device=cuda_device)
+    eng = InterleavedEngine(cfg, UniformPlan(1, 2, 1, 1), mb=2, max_len=64,
+                            device=cuda_device)
+    st = eng.init_state(params)
+    for l in range(cfg.n_layers):
+        views = eng._res_views.get(l)
+        if views is None:
+            s, h = np.argwhere(eng._off_ids[:, 0] == l)[0]
+            views = eng._views(eng._store.data[s, h].to(cuda_device))
+        assert views["moe"]["router"].dtype == torch.float32
+        assert torch.equal(views["moe"]["router"],
+                           params["layers"]["moe"]["router"][l])
+    toks = torch.randint(1, cfg.vocab_size, (2, 12), device=cuda_device,
+                         generator=torch.Generator(cuda_device).manual_seed(0))
+    mc = M.init_cache(cfg, 2, 64, device=cuda_device)
+    el, st = eng.prefill_partial(st, toks, chunk=6)
+    for off in (0, 6):
+        ml, mc = M.verify_step(cfg, params, mc, toks[:, off:off + 6], impl="kernel")
+    assert torch.equal(el, ml)
+    tok = ml[:, -1, :cfg.vocab_size].argmax(-1, keepdim=True)
+    el, st = eng.decode_step(st, tok)
+    ml, mc = M.decode_step(cfg, params, mc, tok, impl="kernel")
+    assert torch.equal(el, ml[:, 0])
+    mat = torch.cat([tok, toks[:, :3]], 1)
+    el, st = eng.verify_step(st, mat)
+    ml, mc = M.verify_step(cfg, params, mc, mat, impl="kernel")
+    assert torch.equal(el, ml)
+    eng.close()
