@@ -24,7 +24,12 @@ Phases; any failure exits non-zero without the final ``ok`` line:
    phase 3e's: kernels 1 and 4 at LLaMA-2-13B's G 1 / 40 KV heads, the
    verify pass and the prefill round; kernels 1, 2 and 4 at StableLM-2-
    12B's head_dim 160, on the bodies that are not the Hopper ones; phase
-   3g's: kernels 1, 2 and 4's verify at DeepSeekMoE-16B's G 1 / 16 heads)
+   3g's: kernels 1, 2 and 4's verify at DeepSeekMoE-16B's G 1 / 16 heads;
+   phase 3h's: kernel 2 bidirectional and kernel 1 over 512 encoder
+   frames at SeamlessM4T-medium's G 1 / 16 heads / dh 64, with the keys
+   at the first and last frames aligned with the query so that the
+   kernel's window arithmetic at the reference's pos 2^30, which drops
+   frame 0, and a dropped last frame are rejected faults)
    and at ring-buffer / window / unaligned / offset cases,
    within a tolerance relative to the reference's size that is shown to
    reject planted off-by-one faults;
@@ -100,8 +105,8 @@ Phases; any failure exits non-zero without the final ``ok`` line:
    prefill.
 3c. the recurrent families on the single-device path, after phase 2's
    weights are freed: RWKV6-3B, then Hymba-1.5B, each at full width, depth
-   cut to RECURRENT_LAYERS (8) of their 32 layers so the script keeps its
-   time limit, random weights from seed 0, served bursty and sporadic
+   cut to RECURRENT_LAYERS (4) of their 32 layers so the script keeps its
+   time limit (3f runs all 32 through the engine), random weights from seed 0, served bursty and sporadic
    through LimeServer; every scheduler step launches exactly what it
    implies (RWKV6: a WKV kernel per layer per prefill and decode step; Hymba:
    a flash and a scan kernel per layer per prefill, a decode-attention and
@@ -177,8 +182,8 @@ Phases; any failure exits non-zero without the final ``ok`` line:
    T_total beside the measured decode and verify pass times.
 3e. the paper's other Tab. III models and the rest of the dense configs,
    after 3d's store is closed, random weights from seed 0: LLaMA-2-13B
-   (MHA: G 1, 40 KV heads) at full width and all 40 layers on the
-   single-device path, as phase 2 (exact launch counts, every call on the
+   (MHA: G 1, 40 KV heads) at full width, depth cut to TAB3_SINGLE (20) of
+   its 40 layers, on the single-device path, as phase 2 (exact launch counts, every call on the
    Hopper bodies, a profiled serve, the reference re-serve within
    TAB3_LOGIT_REL_TOL; the reference's own noise floor read and held under
    TAB3_NOISE_FLOOR_MAX, planted prefill faults rejected); LLaMA-2-13B and
@@ -198,9 +203,9 @@ Phases; any failure exits non-zero without the final ``ok`` line:
    kernel path against impl="ref" on one prefill and one decode step,
    accumulated and each layer's own (layer_errors).
 3g. the MoE family, after 3b's engine is closed (before 3d): (a)
-   DeepSeekMoE-16B as published (dense layer 0, then 27 MoE layers of 64
-   routed top-6 + 2 shared experts) at full width and all 28 layers on
-   the single-device path, as phase 2 (exact launch counts of kernels 2
+   DeepSeekMoE-16B as published (dense layer 0, then MoE layers of 64
+   routed top-6 + 2 shared experts) at full width, depth cut to MOE_SINGLE
+   (14) of its 28 layers, on the single-device path, as phase 2 (exact launch counts of kernels 2
    and 1, a profiled serve, the reference re-serve within
    MOE_LOGIT_REL_TOL, its noise floor under MOE_NOISE_FLOOR_MAX), the
    routes that differ from "ref" per MoE layer, every MoE call of the
@@ -219,6 +224,32 @@ Phases; any failure exits non-zero without the final ``ok`` line:
    call replayed through the model's kernel path bit for bit and every
    served token its verify pass's greedy; a decode pass against the copy
    of its streamed bytes, the cost model's T_total and Alg. 1's plan.
+3h. the encoder-decoder family, after 3g (before 3d, absorbing part of
+   3d's wait for the host to take back 3b's and 3g's pinned stores):
+   SeamlessM4T-medium at full width and all 12 encoder + 12 decoder
+   layers, random weights from seed 0, frame embeddings (4, 512, 1024)
+   and 4 prompts of 512 tokens from numpy seeds, max_len 1024. (a) the
+   model path (encode -> seed_cross_kv -> prefill(enc_out=) ->
+   decode_step(enc_len=512)) under impl="kernel", 32 greedy positions,
+   exact launch counts (12 bidirectional flash launches in the encoder,
+   24 in the prompt pass: causal self and non-causal cross-attention; 24
+   of kernel 1 a decode step, self and cross; all on the Hopper bodies,
+   nothing else); impl="ref"'s greedy tokens fed through the kernel path,
+   every pick the reference's or a near tie, logits within
+   ENCDEC_LOGIT_REL_TOL of |logit| max, the reference's own noise floor
+   under ENCDEC_NOISE_FLOOR_MAX, planted faults (the encoder causal, each
+   layer's cross K/V from the next layer's weights, rope on the
+   cross-attention's q) above the limit; encode time, TTFT, and profiles
+   of the prompt and of 8 decode steps; (b) the interleaved engine at a
+   --hbm-bytes budget that streams 6 of the 12 decoder layers
+   (half_streamed_plan, retier headroom 1): its encoder, prompt pass over
+   the tiers and 31 decode steps on the reference's tokens, across a
+   retier +1 and -1, bit-equal to the model's kernel path; a streamed
+   layer reading the next layer's cross K/V breaks that; a paged engine
+   (page 64) gives the kernel path's greedy tokens, pages as reckoned; a
+   decode pass against the copy of its streamed bytes and the cost
+   model's T_total; (c) the serving backend refuses the family before a
+   weight is drawn (the JAX package's serving route fails on it).
 Every flash launch of phases 2, 2b, 2c, 3c and 3f, every prefill round of
 kernel 5 (2b, 2c) and of kernel 4 (3a, 3b) must run the Hopper mainloop,
 every verify pass of kernels 4 (2c, 3a, 3b) and 5 (2c) the verify body,
@@ -471,6 +502,11 @@ def kernel_phase():
          bf16, [("diagonal dropped: q_offset - 1", dict(q_offset=-1)),
                 ("last 64-row kv tile dropped", dict(kv_keep=448)),
                 ("row // G off by one", dict(head_shift=1))]),
+        # phase 3h's SeamlessM4T-medium encoder (and cross-attention prefill,
+        # 512 prompt rows over 512 frames): bidirectional, G 1, dh 64
+        ("encdec B4 S512 H16 KV16 dh64 bidirectional", 4, 512, 512, 16, 16, 64, False,
+         None, 0, bf16, [("causal mask applied", dict(causal=True)),
+                         ("last 64-row kv tile dropped", dict(kv_keep=448))]),
     ]
     for name, B, Sq, Skv, H, KV, dh, causal, window, q_off, dt, planted in fl_cases:
         q = randn((B, Sq, H, dh), dt, gen)
@@ -491,19 +527,21 @@ def kernel_phase():
                 fa.flash_attention_plain, bad.pop("head_shift", 0), q,
                 k[:, :n_kv], v[:, :n_kv], **bad)))
         err = check(name, out, ref, BF16_REL if dt == bf16 else F32_REL, faults)
-        if name.startswith(("main", "hymba", "stablelm", "moe")):
+        if name.startswith(("main", "hymba", "stablelm", "moe", "encdec")):
             # window 1024 >= S: causal alone decides, as for SDPA's is_causal
             ms = time_ms(lambda: fa.flash_attention(q, k, v, **kw))
             plain = time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), reps=10)
             lib = library_time_ms(lambda: F.scaled_dot_product_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                is_causal=True, enable_gqa=True))
-            pairs = Sq * (Sq + 1) // 2                  # visible (i, j) pairs
+                is_causal=causal, enable_gqa=True))
+            # visible (i, j) pairs
+            pairs = Sq * (Sq + 1) // 2 if causal else Sq * Skv
             flops = 2 * 2 * B * H * pairs * dh
             byts = nbytes(q, k, v) + nbytes(q)
             rows["flash_attention" if name.startswith("main") else
                  "flash_attention@hymba" if name.startswith("hymba") else
-                 "flash_attention@moe" if name.startswith("moe")
+                 "flash_attention@moe" if name.startswith("moe") else
+                 "flash_attention@encdec" if name.startswith("encdec")
                  else "flash_attention@dh160"] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
                 bytes=byts, flops=flops, bytes_bound_ms=byts / HBM_BYTES_PER_S * 1e3,
@@ -538,7 +576,20 @@ DECODE_TIMED = (
     ("decode_attention@dh160", 4, 1024, 32, 8, 160, 1023, None, DECODE_FAULTS),
     # phase 3g's DeepSeekMoE-16B decode: G 1, 16 KV heads
     ("decode_attention@moe", 4, 1024, 16, 16, 128, 1023, None, DECODE_FAULTS),
+    # phase 3h's SeamlessM4T-medium cross-attention decode: 512 frames, all
+    # visible at pos 511 (the kernel route's position), the keys at frames 0
+    # and 511 aligned with the query (ENCDEC_ALIGNED) so that dropping
+    # either shows
+    ("decode_attention@encdec", 4, 512, 16, 16, 64, 511, None,
+     [("frame 0 dropped: the reference's pos 2^30 in the kernel's window "
+       "arithmetic", dict(pos=2 ** 30, window=2 ** 30)),
+      ("last frame dropped: pos - 1", dict(pos=510))]),
 )
+# the keys planted at the first and last frames of the @encdec decode row:
+# 0.75 x the query head, a score of ~6 against N(0, 1) for the other 510
+# frames (q . k / sqrt(64) with |q|^2 ~ 64): about a quarter of the
+# softmax weight each
+ENCDEC_ALIGNED = 0.75
 
 
 def pass_split(fn, reps=10):
@@ -581,6 +632,8 @@ def decode_timed(gen, rows):
         q = randn((B, 1, H, dh), bf16, gen)
         k = randn((B, S_c, KV, dh), bf16, gen)
         v = randn((B, S_c, KV, dh), bf16, gen)
+        if key.endswith("@encdec"):                       # G 1: head h is KV head h
+            k[:, 0] = k[:, -1] = (q[:, 0].float() * ENCDEC_ALIGNED).to(bf16)
         ids = linear_ids(S_c, pos)
 
         def fn():
@@ -2499,14 +2552,17 @@ def engine_check_phase(cfg, params, card):
 
 
 # ----------------------------------------------------------------------------
-# phase 3c: the recurrent families, full width, 8 of 32 layers
+# phase 3c: the recurrent families, full width, 4 of 32 layers
 # ----------------------------------------------------------------------------
 RECURRENT_ARCHS = ("rwkv6-3b", "hymba-1.5b")
 # depth cut: at all 32 layers this phase took 250-443 s of the
 # script's time, host-bound, at 16 layers 167-178 s; with phase 3e the
-# script took 924 s at 16, so 8 layers keep it inside 900 s beside the
-# 80-layer engine's serves, phase 3d and phase 3e
-RECURRENT_LAYERS = 8
+# script took 924 s at 16, so 8 layers kept it inside 900 s beside the
+# 80-layer engine's serves, phase 3d and phase 3e; with phases 3f, 3g and
+# 3h the script took 1307 s at 8 on an H100 80GB HBM3 (700 W) whose host
+# ran every phase 15-40% slower than usual (3c 137.7 s), over its 1200 s
+# limit, so 4 (phase 3f serves both at all 32 layers through the engine)
+RECURRENT_LAYERS = 4
 # Depth amplifies rounding on random weights: one bf16 ulp that flips in
 # layer 0 (0.6% of the hidden state's largest |value|) grows to 4-6% by
 # layer 16 on the H100, whatever flipped it (the kernel path against the
@@ -2918,12 +2974,12 @@ def engine_forced_logits(eng, params, prompts, feed, after_prefill=None, steps=N
     return torch.stack(out)
 
 
-def recurrent_engine_plan(cfg):
+def half_streamed_plan(cfg):
     """(budget, plan) of a --hbm-bytes budget whose plan_for plan streams
     half of cfg's layers (2 segments of L/4 resident + L/4 streamed) and
     whose resident layers fit its share by their packed bytes (the
     config's layer_params() count misjudges them: RWKV6 above, Hymba
-    below)."""
+    below, an encoder-decoder layer by its third norm)."""
     from repro_torch.core.engine import packed_layer_bytes, plan_for
     from repro_torch.launch.serve import HBM_FRAC
     L = cfg.n_layers
@@ -2938,7 +2994,7 @@ def recurrent_engine_plan(cfg):
 
 def recurrent_engine_serve(arch, card):
     """One recurrent config at full width and all its layers through the
-    InterleavedEngine (half of them streamed, recurrent_engine_plan), random
+    InterleavedEngine (half of them streamed, half_streamed_plan), random
     weights from seed 0: a bursty batch served through LimeServer with exact
     launch counts; the engine's logits bit-equal to the model's kernel path
     (M.prefill + M.decode_step) on the same weights and tokens, and within
@@ -2968,7 +3024,7 @@ def recurrent_engine_serve(arch, card):
         t_lap[0] = now
 
     params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
-    budget, plan = recurrent_engine_plan(cfg)
+    budget, plan = half_streamed_plan(cfg)
     eng = InterleavedEngine(cfg, plan, mb=4, max_len=MAX_LEN)
     eng.init_state(params)
     torch.cuda.synchronize()
@@ -3344,14 +3400,17 @@ def pass_profile(eng, st, P, fn, card, label):
     """Device time by class over one engine pass under torch.profiler:
     GEMMs, the port's attention kernels, H2D copies (the copy engine,
     concurrent with compute), other kernels; and the compute stream's idle
-    share of the pass's wall time."""
+    share of the pass's wall time. The pass fn() leaves the engine's state
+    st at position P (eng None: fn is the model path's, nothing to roll
+    back)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     by = {"gemm": 0.0, "attention": 0.0, "memcpy_h2d": 0.0, "other": 0.0}
     kern = {}                                    # csrc/ kernel: [µs, launches]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall = timed_s(fn)
-    eng.rollback(st, P)
+    if eng is not None:
+        eng.rollback(st, P)
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -3789,6 +3848,10 @@ def _leaves(t):
 # 28 (27.3 GB pinned)
 TAB3_BUDGETS = (("llama2-13b", 22e9), ("qwen3-32b", 40e9))
 TAB3_CUT = 8               # StableLM-2-12B and Pixtral-12B: 8 of 40 layers
+# LLaMA-2-13B on the single-device path: 20 of 40 layers (all 40 took
+# ~125 s of 3e's 259.6 s when the script took 1307 s on the slow host of
+# RECURRENT_LAYERS' note; Alg. 1's engine below serves all 40)
+TAB3_SINGLE = 20
 # LLaMA-2-13B's 40 layers on the single-device path: depth carries one
 # flipped bf16 ulp on to a large share of |logit| max on random weights.
 # On the H100 the kernel path read 0.167 of |logit| max against the
@@ -3808,9 +3871,10 @@ PIXTRAL_PATCHES, PIXTRAL_TEXT, PIXTRAL_STEPS = 256, 256, 16
 
 
 def tab3_phase(card, rate):
-    """Phase 3e: LLaMA-2-13B at all 40 layers on the single-device path;
-    LLaMA-2-13B and Qwen3-32B (all 64 layers) through Alg. 1's engine at
-    TAB3_BUDGETS (H2D rate `rate` for the planning, phase 3b's);
+    """Phase 3e: LLaMA-2-13B at TAB3_SINGLE of its 40 layers on the
+    single-device path; LLaMA-2-13B (all 40 layers) and Qwen3-32B (all
+    64) through Alg. 1's engine at TAB3_BUDGETS (H2D rate `rate` for the
+    planning, phase 3b's);
     StableLM-2-12B (parallel blocks, head_dim 160) at 8 layers on the
     single-device path; Pixtral-12B's patch prefill at 8 layers. Returns
     {row key: launches} of kernels 1, 2 and 4 at these shapes (the keys
@@ -3830,12 +3894,13 @@ def tab3_phase(card, rate):
         for k, n in got.items():
             launches[k] = launches.get(k, 0) + n
 
-    cfg = get_config("llama2-13b")
+    cfg = dataclasses.replace(get_config("llama2-13b"), n_layers=TAB3_SINGLE)
     t0 = time.monotonic()
     params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
-    log(f"phase 3e: {cfg.name} (Tab. III row 1) on the single-device path at full width "
-        f"and all {cfg.n_layers} layers (d_model {cfg.d_model}, {cfg.n_heads} heads, "
+    log(f"phase 3e: {cfg.name} (Tab. III row 1) on the single-device path at full width, "
+        f"DEPTH CUT to {cfg.n_layers} of {get_full_layers(cfg)} layers (d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads, "
         f"{cfg.n_kv_heads} kv heads: G 1, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}): "
         f"{sum(t.numel() for t in _leaves(params)) / 1e9:.2f} B params in "
         f"{time.monotonic() - t0:.1f} s [{card}]")
@@ -3943,6 +4008,10 @@ def pixtral_check(card):
 # phase 3g: the MoE family (DeepSeekMoE-16B, Kimi-K2)
 # ----------------------------------------------------------------------------
 MOE_ARCH, KIMI_ARCH = "deepseek-moe-16b", "kimi-k2-1t-a32b"
+# DeepSeekMoE-16B on the single-device path: 14 of 28 layers (all 28 took
+# ~98 s of 3g's 147.7 s when the script took 1307 s on the slow host of
+# RECURRENT_LAYERS' note; the folded engine serves all 28)
+MOE_SINGLE = 14
 KIMI_LAYERS = 2           # Kimi-K2: its dense layer 0 and one MoE layer of 61
 MOE_NEW = 8               # tokens per request in the folded engine's and Kimi's serves
 # the folded engine's --hbm-bytes: plan_for keeps 12 of the 28 packed layers
@@ -4560,8 +4629,9 @@ def kimi_check(card):
 
 
 def moe_phase(card):
-    """Phase 3g: (a) DeepSeekMoE-16B as published at all 28 layers on the
-    single-device path (single_device_checks: bursty and sporadic serves,
+    """Phase 3g: (a) DeepSeekMoE-16B as published at MOE_SINGLE of its 28
+    layers on the single-device path (single_device_checks: bursty and
+    sporadic serves,
     the reference re-serve, its noise floor, route flips per layer, the
     MoE faults at the layers' outputs, the layer-by-layer errors, and an
     n-gram speculative serve); (c) Kimi-K2 at full width, 2 layers; (b)
@@ -4582,11 +4652,12 @@ def moe_phase(card):
         now = time.monotonic()
         log(f"  3g {what}: {now - t_lap[0]:.1f} s")
         t_lap[0] = now
-    cfg = get_config(MOE_ARCH)
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_SINGLE)
     params = moe_params(cfg, seed=0)
     n_par = sum(t.numel() for t in _leaves(params))
-    log(f"phase 3g(a): {cfg.name} as published on the single-device path, full width "
-        f"and all {cfg.n_layers} layers (dense layer 0 of d_ff {cfg.d_ff}, then "
+    log(f"phase 3g(a): {cfg.name} as published on the single-device path, full width, "
+        f"DEPTH CUT to {cfg.n_layers} of {get_full_layers(cfg)} layers (dense layer 0 "
+        f"of d_ff {cfg.d_ff}, then "
         f"{cfg.n_layers - cfg.first_dense_layers} MoE layers of {cfg.n_experts} routed "
         f"top-{cfg.top_k} + {cfg.n_shared_experts} shared experts of d_ff {cfg.moe_d_ff}; "
         f"d_model {cfg.d_model}, {cfg.n_heads} heads = {cfg.n_kv_heads} kv heads x "
@@ -4614,6 +4685,414 @@ def moe_phase(card):
     shapes["mq_decode_attention@moe"] += got["mq_decode_attention"]
     lap("(b) folded engine")
     return shapes, launches
+
+
+# ----------------------------------------------------------------------------
+# phase 3h: the encoder-decoder family
+# ----------------------------------------------------------------------------
+ENCDEC_ARCH = "seamless-m4t-medium"
+ENCDEC_NEW = 32           # positions per request on the model path (prefill + 31 steps)
+ENCDEC_PROFILE = 8        # decode tokens in the profiled run
+ENCDEC_ENGINE_NEW = 8     # positions per request in the paged engine run
+ENCDEC_RETIER_AT = ((2, +1), (4, -1))    # (after decode step, delta), engine run
+# The kernel path against impl="ref" at 12 + 12 layers, and the reference
+# against itself (each request alone against the 4-wide batch): fixed
+# before the first chip call from CPU runs of the port at full width and
+# depth on encdec_params' weights (the CPU's kernel route runs the plain
+# versions): the kernel path read 0.0375 of |logit| max (B 2, 128 frames,
+# prompt 128, 8 positions) and 0.0308 (512 frames, prompt 512, 16
+# positions), the floor 0.0245 and 0.0284, the planted faults 0.37-0.99.
+# The limits are 2.7x and 2.8x the largest readings; the faults read 3.7x
+# the logit limit or more.
+ENCDEC_LOGIT_REL_TOL = 0.10
+ENCDEC_NOISE_FLOOR_MAX = 0.08
+
+
+def encdec_params(cfg, seed=0):
+    """init_params from a seed, every stacked matrix of the decoder and the
+    encoder then scaled to std 1/sqrt(d_model). The stacked fan-in quirk
+    (std 1/sqrt(L), kept by init_params so that both packages build the
+    same model) is 9x that at d_model 1024 over 12 layers: attention scores
+    of std ~90, every softmax one-hot, and each near tie among 512 keys
+    (about one a row in 30) flips its row between any two roundings. Over
+    24 such layers the kernel path read 0.95 of |logit| max against
+    impl="ref" on the CPU at full width, the planted faults 1.46-1.55: no
+    limit tells them apart. At 1/sqrt(d_model) scores have std ~1."""
+    import torch
+
+    from repro_torch.models import model as M
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed))
+    for stack in ("layers", "encoder"):
+        n = cfg.n_layers if stack == "layers" else cfg.n_encoder_layers
+        for t in _leaves(params[stack]):
+            if t.dim() >= 3:
+                t.mul_((n / cfg.d_model) ** 0.5)
+    return params
+
+
+def encdec_inputs(cfg, n=4):
+    """Frame embeddings (n, frontend_tokens, d_model) fp32 and prompts (n,
+    PROMPT_LEN) from numpy seeds, on the card (the reference's modality
+    stub: frames stand for the audio frontend's output)."""
+    import numpy as np
+    import torch
+    fe = np.random.default_rng(7).standard_normal(
+        (n, cfg.frontend_tokens, cfg.d_model)).astype(np.float32)
+    toks = np.stack(make_prompts(n, cfg.vocab_size, 0))
+    return torch.from_numpy(fe).cuda(), torch.from_numpy(toks).long().cuda()
+
+
+def encdec_run(cfg, params, fe, toks, impl, feed=None, steps=None, seed=None,
+               box=None, counts=False):
+    """The reference's flow on the model path (its dryrun): encode ->
+    seed_cross_kv -> prefill -> decode_step(enc_len=S_enc), `steps`
+    positions in all (ENCDEC_NEW by default). Each step is fed feed[:, t]
+    (B, steps - 1) where
+    given, else the previous position's greedy pick. seed(cfg, params,
+    cache, enc), where given, fills the cross K/V in place of
+    M.seed_cross_kv (a planted fault); box, where given, receives the
+    cache. counts: the encoder must launch kernel 2 once a layer, the
+    prompt pass twice a layer (self and cross), every step kernel 1 twice
+    a layer, all on the Hopper bodies and nothing else. Returns (logits
+    (steps, B, V) fp32, their argmaxes (B, steps))."""
+    import torch
+
+    from repro_torch.models import model as M
+    V, L, S_enc = cfg.vocab_size, cfg.n_layers, fe.shape[1]
+    steps = ENCDEC_NEW if steps is None else steps
+
+    def expect(c0, **want):
+        if not counts:
+            return
+        torch.cuda.synchronize()
+        got = {k: v - c0[k] for k, v in read_counts().items()}
+        full = dict.fromkeys(got, 0)
+        for k, n in want.items():
+            full[k] = full[k + "@hopper"] = n
+        if got != full:
+            raise AssertionError(f"{cfg.name}: launched {got}, expected {full}")
+    c0 = read_counts()
+    enc = M.encode(cfg, params, fe, impl=impl)
+    expect(c0, flash_attention=cfg.n_encoder_layers)
+    c0 = read_counts()
+    cache = M.init_cache(cfg, fe.shape[0], MAX_LEN, enc_out=enc)
+    if box is not None:
+        box.append(cache)
+    (seed or M.seed_cross_kv)(cfg, params, cache, enc)
+    lg, cache = M.prefill(cfg, params, toks, cache, impl=impl)
+    expect(c0, flash_attention=2 * L)
+    out = [lg[:, -1, :V].float()]
+    for t in range(steps - 1):
+        tok = feed[:, t:t + 1] if feed is not None else out[-1].argmax(-1, keepdim=True)
+        c0 = read_counts()
+        lg, cache = M.decode_step(cfg, params, cache, tok, impl=impl, enc_len=S_enc)
+        expect(c0, decode_attention=2 * L)
+        out.append(lg[:, -1, :V].float())
+    logits = torch.stack(out)
+    return logits, logits.argmax(-1).T
+
+
+def encdec_faults(cfg, params):
+    """Planted faults of the model path, each a context that plants it:
+    [(label, context, seed)]: the encoder run causal (every flash launch of
+    attn_forward causal: the decoder's self-attention is causal anyway);
+    each decoder layer's cross K/V projected with the next layer's weights
+    (seed); rope applied to the cross-attention's q (at positions 0 .. S - 1
+    in the prompt pass, at the step's position in a decode step)."""
+    import torch
+
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models import attention as A
+    from repro_torch.models import model as M
+    from repro_torch.models.modules import apply_rope
+    real = M.attn_forward
+    L = cfg.n_layers
+    box = []
+
+    def causal(*a, **kw):
+        return real(*a, **{**kw, "causal": True})
+
+    def next_layer(cfg_, params_, cache, enc):
+        for l in range(L):
+            cache["xk"][l], cache["xv"][l] = M.cross_kv_layer(
+                M.layer_params(params_, (l + 1) % L), enc)
+
+    def roped_q(params_, x, start):
+        pos = start + torch.arange(x.shape[1], device=x.device)[None, :]
+        return apply_rope(A._proj(x, params_["wq"]), pos, cfg.rope_theta)
+
+    def roped_prefill(params_, x, ck, cv, *, impl):
+        out = fa.flash_attention(roped_q(params_, x, 0), ck, cv, causal=False)
+        return A._out_proj(out, params_["wo"])
+
+    def roped_decode(params_, x, ck, cv, enc_len, *, impl):
+        ids = A.cross_pos_ids(ck.shape[1], int(enc_len), ck.device)
+        out = da.decode_attention(roped_q(params_, x, box[-1]["pos"]), ck, cv, ids,
+                                  ck.shape[1] - 1)
+        return A._out_proj(out, params_["wo"])
+
+    @contextlib.contextmanager
+    def both_roped():
+        with _patched(M, "cross_attn_prefill", roped_prefill), \
+                _patched(M, "cross_attn_decode", roped_decode):
+            yield
+    return [("the encoder run causal", _patched(M, "attn_forward", causal), None, None),
+            ("each layer's cross K/V from the next layer's weights",
+             contextlib.nullcontext(), next_layer, None),
+            ("rope applied to the cross-attention's q", both_roped(), None, box)]
+
+
+def logit_err(got, ref):
+    """The largest err / |logit| max of logits got (T', B, V) against the
+    first T' positions of ref (T, B, V)."""
+    return ((got - ref[:got.shape[0]]).abs().amax(-1)
+            / ref[:got.shape[0]].abs().amax(-1)).max().item()
+
+
+def encdec_model_check(cfg, params, fe, toks, card):
+    """(a): the model path under impl="kernel" (exact launch counts), its
+    greedy serve against impl="ref"'s: the reference's tokens fed through
+    the kernel path, every pick the reference's or a near tie, logits
+    within ENCDEC_LOGIT_REL_TOL, the reference's noise floor under
+    ENCDEC_NOISE_FLOOR_MAX, the planted faults above the limit; times and
+    a profile. Returns (main-path launches, reference tokens, the kernel
+    path's forced logits, the kernel path's greedy tokens)."""
+    import torch
+
+    from repro_torch.models import model as M
+    n, T = fe.shape[0], ENCDEC_NEW
+    zero_counts()
+    t0 = time.monotonic()
+    lg_k, got = encdec_run(cfg, params, fe, toks, "kernel", counts=True)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    wall = time.monotonic() - t0
+    t_enc = timed_s(lambda: M.encode(cfg, params, fe, impl="kernel"))
+    t_ttft = timed_s(lambda: encdec_run(cfg, params, fe, toks, "kernel", steps=1))
+    lg_r, ref = encdec_run(cfg, params, fe, toks, "ref")
+    feed = ref[:, :-1]
+    lk, _ = encdec_run(cfg, params, fe, toks, "kernel", feed=feed)
+    if not torch.equal(lk[0], lg_k[0]):
+        raise AssertionError(f"{cfg.name}: two kernel-path prefills differ")
+    err = (lk - lg_r).abs().amax(-1)
+    scale = lg_r.abs().amax(-1)
+    worst = (err / scale).max().item()
+    ties = argmax_or_tie(f"{cfg.name} kernel vs impl='ref'", lk.flatten(0, 1),
+                         lg_r.flatten(0, 1), err.flatten())
+    t_div = [next((t for t in range(T) if got[i, t] != ref[i, t]), T) for i in range(n)]
+    for i, d in enumerate(t_div):
+        upto = min(d + 1, T)
+        if not torch.equal(got[i, :upto], lk.argmax(-1).T[i, :upto]):
+            raise AssertionError(f"{cfg.name} req {i}: the kernel serve's tokens are "
+                                 "not the kernel path's argmaxes")
+    log(f"  (a) model path, B {n}, {fe.shape[1]} frames, prompt {toks.shape[1]}, {T} "
+        f"greedy positions: launches {launches['flash_attention']} flash (12 encoder, "
+        f"12 self, 12 cross; all on the Hopper mainloop), "
+        f"{launches['decode_attention'] // (T - 1)} decode-attention a step (all on the "
+        f"Hopper body), none of kernels 3-7; encode {t_enc * 1e3:.2f} ms, TTFT (encode "
+        f"+ cross K/V + prefill) {t_ttft * 1e3:.2f} ms, the greedy run "
+        f"{wall * 1e3:.1f} ms ({(wall - t_ttft) / (T - 1) * 1e3:.3f} ms/token with "
+        f"the counters' syncs) [{card}]")
+    log(f"  the kernel path vs impl='ref' on the reference's tokens: worst logit err "
+        f"{worst:.4f} of |logit| max (tol {ENCDEC_LOGIT_REL_TOL}), {ties} near ties of "
+        f"{T * n} picks; the kernel serve's tokens agree with the reference's up to "
+        f"{t_div}")
+    if worst > ENCDEC_LOGIT_REL_TOL:
+        raise AssertionError(f"{cfg.name}: kernel logits off the reference")
+    alone = torch.stack([encdec_run(cfg, params, fe[i:i + 1], toks[i:i + 1], "ref",
+                                    feed=feed[i:i + 1])[0][:, 0] for i in range(n)], 1)
+    floor = ((alone - lg_r).abs().amax(-1) / scale).max().item()
+    log(f"  the reference's own noise floor (each request alone against the 4-wide "
+        f"batch): {floor:.4f} of |logit| max (at most {ENCDEC_NOISE_FLOOR_MAX})")
+    if floor > ENCDEC_NOISE_FLOOR_MAX:
+        raise AssertionError(f"{cfg.name}: the reference's noise floor {floor:.4f}")
+    faults = []
+    for label, ctx, seed, fbox in encdec_faults(cfg, params):
+        with ctx:
+            lf, _ = encdec_run(cfg, params, fe, toks, "kernel", feed=feed, steps=4,
+                               seed=seed, box=fbox)
+        faults.append((label, logit_err(lf, lg_r)))
+    log("  planted faults, logit err / |logit| max over the prefill and 3 steps: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in faults))
+    missed = [k for k, v in faults if v <= ENCDEC_LOGIT_REL_TOL]
+    if missed:
+        raise AssertionError(f"{cfg.name}: the limit cannot see {missed}")
+    enc = M.encode(cfg, params, fe, impl="kernel")
+    cache = M.seed_cross_kv(cfg, params, M.init_cache(cfg, n, MAX_LEN, enc_out=enc), enc)
+    _, cache = M.prefill(cfg, params, toks, cache, impl="kernel")
+
+    def steps():
+        c = dict(cache)
+        c["k"], c["v"], c["pos_ids"] = (cache[k].clone() for k in ("k", "v", "pos_ids"))
+        for t in range(ENCDEC_PROFILE):
+            M.decode_step(cfg, params, c, got[:, t + 1:t + 2], impl="kernel",
+                          enc_len=fe.shape[1])
+    t_dec = timed_s(steps)
+    log(f"  {ENCDEC_PROFILE} decode steps on the kernel path, no counters: "
+        f"{t_dec / ENCDEC_PROFILE * 1e3:.3f} ms/token (B {n}) [{card}]")
+    pass_profile(None, None, None, lambda: encdec_run(cfg, params, fe, toks, "kernel",
+                                                      steps=1), card,
+                 f"{cfg.name} encode + cross K/V + prefill")
+    pass_profile(None, None, None, steps, card, f"{cfg.name} {ENCDEC_PROFILE} decode "
+                 "steps")
+    return launches, ref, lk, got
+
+
+def encdec_engine_check(cfg, params, fe, toks, ref, lk, got, card):
+    """(b): the engine at a --hbm-bytes budget that streams half the
+    decoder layers: its encoder, prompt pass over the tiers (each layer's
+    cross K/V from its own weights) and decode steps fed the reference's
+    tokens, across a retier +1 and -1, bit-equal to the model's kernel path
+    (lk); a streamed layer reading the next layer's cross K/V breaks that;
+    a paged engine (page 64) gives the kernel path's greedy tokens with the
+    pages reckoned; a decode pass timed against the copy of its streamed
+    bytes and the cost model's T_total."""
+    import torch
+
+    from repro_torch.core.engine import InterleavedEngine
+    from repro_torch.launch.serve import HBM_FRAC, cost_env, measure_h2d
+    from repro_torch.models import model as M
+    n, V, L, S_enc = fe.shape[0], cfg.vocab_size, cfg.n_layers, fe.shape[1]
+    feed = ref[:, :-1]
+    budget, plan = half_streamed_plan(cfg)
+    eng = InterleavedEngine(cfg, plan, mb=n, max_len=MAX_LEN, retier_headroom=1,
+                            enc_len=S_enc)
+    eng.init_state(params)
+    torch.cuda.synchronize()
+    n_res = len(eng.resident_layer_ids())
+    streamed = (L - n_res) * eng.layer_bytes
+    rate = measure_h2d(eng.store.data.flatten(0, 1)) / 1e9
+    env = cost_env(cfg, budget, width=n, prompt_len=PROMPT_LEN, load_bw=rate * 1e9)
+    env.evaluate(plan)
+    log(f"  (b) the engine: --hbm-bytes {budget / 1e9:.3f} GB (x {HBM_FRAC}), plan_for "
+        f"n_seg {plan.n_seg}, k_res {plan.k_res}, k_off {plan.k_off}: resident "
+        f"{eng.resident_layer_ids()}, packed layer {eng.layer_bytes / 1e6:.2f} MB (the "
+        f"config's count {cfg.layer_params() * 2 / 1e6:.2f} MB), {streamed / 1e6:.1f} MB "
+        f"streamed a pass from {eng.store.nbytes / 1e6:.1f} MB pinned (retier headroom "
+        f"1); H2D {rate:.2f} GB/s, the streamed bytes' copy {streamed / rate / 1e6:.3f} "
+        f"ms; cost model T_total {plan.t_total * 1e3:.3f} ms (T_comp "
+        f"{plan.t_comp * 1e3:.3f}, T_uncover {plan.t_uncover * 1e3:.3f}) [{card}]")
+
+    def engine_logits(e, steps, retier=(), after_prefill=None):
+        enc = e.encode(fe)
+        lg, cache = e.prefill(toks, enc_out=enc)
+        if after_prefill is not None:
+            after_prefill(cache)
+        st = e.seed_cache(e.init_state(params), cache)
+        out = [lg[:, -1, :V].float()]
+        for t in range(steps - 1):
+            lg, st = e.decode_step(st, feed[:, t:t + 1])
+            out.append(lg[:, :V].float())
+            for at, d in retier:
+                if at == t:
+                    e.retier(st, 0, d)
+        return torch.stack(out), enc
+    le, enc = engine_logits(eng, ENCDEC_NEW, ENCDEC_RETIER_AT)
+    same_enc = torch.equal(enc, M.encode(cfg, params, fe, impl="kernel"))
+    same = torch.equal(le, lk)
+    log(f"  engine vs the model's kernel path on the reference's tokens "
+        f"({ENCDEC_NEW} positions, a retier +1 after step {ENCDEC_RETIER_AT[0][0]} and "
+        f"-1 after step {ENCDEC_RETIER_AT[1][0]}): encoder output "
+        f"{'bit-equal' if same_enc else 'DIFFERS'}, logits "
+        f"{'bit-equal' if same else 'DIFFER'} (max |diff| "
+        f"{(le - lk).abs().max().item():.3g}); resident after {eng.resident_layer_ids()}")
+    if not (same and same_enc) or len(eng.resident_layer_ids()) != n_res:
+        raise AssertionError(f"{cfg.name}: the engine is not the model's kernel path")
+    first = int(eng._off_ids[eng._off_ids < L].min())      # the first streamed layer
+
+    def wrong_cross(cache):
+        for k in ("xk", "xv"):
+            cache[k][first] = cache[k][first + 1].clone()
+    lf, _ = engine_logits(eng, 3, after_prefill=wrong_cross)
+    log(f"  planted engine fault, streamed layer {first} reading layer {first + 1}'s "
+        f"cross K/V: logit err / |logit| max "
+        f"{logit_err(lf, lk):.4f}, "
+        f"{'REJECTED' if not torch.equal(lf, lk[:3]) else 'NOT REJECTED'} by the "
+        "bit-equality")
+    if torch.equal(lf, lk[:3]):
+        raise AssertionError(f"{cfg.name}: the planted engine fault passes")
+    st = eng.seed_cache(eng.init_state(params), eng.prefill(toks, enc_out=enc)[1])
+    tok = feed[:, :1]
+    passes = sorted(timed_s(lambda: eng.decode_step(st, tok)) for _ in range(3))
+    log(f"  decode pass (B {n}, {L - n_res} of {L} layers streamed): median of 3 "
+        f"{passes[1] * 1e3:.3f} ms (min {passes[0] * 1e3:.3f}) against the streamed "
+        f"bytes' copy {streamed / (rate * 1e9) * 1e3:.3f} ms and the cost model's "
+        f"T_total {plan.t_total * 1e3:.3f} ms [{card}]")
+    eng.close()
+    engp = InterleavedEngine(cfg, plan, mb=n, max_len=MAX_LEN, paged=True,
+                             page_size=ENGINE_PAGE, enc_len=S_enc)
+    engp.init_state(params)
+    lg, cache = engp.prefill(toks, enc_out=engp.encode(fe))
+    st = engp.seed_cache(engp.init_state(params), cache)
+    pages = [engp.paged_stats()["pages_in_use"]]
+    tok = lg[:, -1, :V].argmax(-1, keepdim=True)
+    picks = [tok]
+    for _ in range(ENCDEC_ENGINE_NEW - 1):
+        lg, st = engp.decode_requests(st, tok, [True] * n)
+        tok = lg[:, :V].argmax(-1, keepdim=True)
+        picks.append(tok)
+        pages.append(engp.paged_stats()["pages_in_use"])
+    for s in range(n):
+        engp.free_slot(s)
+    pages.append(engp.paged_stats()["pages_in_use"])
+    picks = torch.cat(picks, 1)
+    want = [n * -(-min(PROMPT_LEN + t, engp.S_c) // ENGINE_PAGE)
+            for t in range(ENCDEC_ENGINE_NEW)] + [0]
+    same = torch.equal(picks, got[:, :ENCDEC_ENGINE_NEW])
+    log(f"  a paged engine (page {ENGINE_PAGE}, cross K/V contiguous): "
+        f"{ENCDEC_ENGINE_NEW} greedy positions {'equal to' if same else 'DIFFER from'} "
+        f"the kernel path's; pages in use after the seed, each step and the release "
+        f"{pages} (reckoned {want})")
+    if not same or pages != want:
+        raise AssertionError(f"{cfg.name}: the paged engine run is off")
+    engp.close()
+
+
+def encdec_phase(card):
+    """Phase 3h: SeamlessM4T-medium at full width and 12 + 12 layers,
+    random weights from seed 0 (encdec_params): (a) the model path (encdec_model_check),
+    (b) the engine (encdec_engine_check), (c) the serving backend's
+    refusal before any weight is drawn. Returns (the main path's
+    launches: the kernel path's greedy run, {kernel row: launches})."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.serving import EngineBackend
+    cfg = get_config(ENCDEC_ARCH)
+    t_lap = [time.monotonic()]
+
+    def lap(what):
+        now = time.monotonic()
+        log(f"  3h {what}: {now - t_lap[0]:.1f} s")
+        t_lap[0] = now
+    try:
+        EngineBackend(cfg, None)
+        raise AssertionError(f"{cfg.name}: the serving backend took the family")
+    except NotImplementedError as e:
+        log(f"phase 3h(c): EngineBackend refuses {cfg.name} before any weight is "
+            f"drawn: {e}")
+    params = encdec_params(cfg)
+    torch.cuda.synchronize()
+    n_par = sum(t.numel() for t in _leaves(params))
+    fe, toks = encdec_inputs(cfg)
+    log(f"phase 3h: {cfg.name} at full width and depth ({cfg.n_encoder_layers} encoder "
+        f"+ {cfg.n_layers} decoder layers, d_model {cfg.d_model}, {cfg.n_heads} heads = "
+        f"{cfg.n_kv_heads} kv heads x {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}): {n_par / 1e9:.3f} B params ({n_par * 2 / 1e9:.2f} GB); "
+        f"frames {tuple(fe.shape)}, prompts {tuple(toks.shape)}, max_len {MAX_LEN} "
+        f"[{card}]")
+    lap("weights")
+    launches, ref, lk, got = encdec_model_check(cfg, params, fe, toks, card)
+    lap("(a) model path, reference, faults, profile")
+    encdec_engine_check(cfg, params, fe, toks, ref, lk, got, card)
+    lap("(b) engine")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, {"flash_attention@encdec": launches["flash_attention"],
+                      "decode_attention@encdec": launches["decode_attention"]}
 
 
 # ----------------------------------------------------------------------------
@@ -4800,6 +5279,10 @@ def main() -> int:
         for k, n in got.items():
             launches[k] = launches.get(k, 0) + n
         t = done("3g", t)
+        got, encdec_shapes = encdec_phase(card)
+        for k, n in got.items():
+            launches[k] = launches.get(k, 0) + n
+        t = done("3h", t)
         for k, n in alg1_phase(card, **state80).items():
             launches[k] = launches.get(k, 0) + n
         rate = state80["rate"]
@@ -4810,6 +5293,7 @@ def main() -> int:
             launches[k] = launches.get(k, 0) + n
         launches.update(shapes)
         launches.update(moe_shapes)
+        launches.update(encdec_shapes)
         done("3e", t)
 
         for name in ("decode_attention@hopper", "paged_decode_attention@hopper",
@@ -4861,7 +5345,13 @@ def main() -> int:
                  "src/repro/kernels/flash_attention/kernel.py:104"),
                 ("mq_decode_attention@moe",
                  "src/repro_torch/csrc/mq_decode_attention.cu",
-                 "src/repro/kernels/decode_attention/multiquery.py:107")):
+                 "src/repro/kernels/decode_attention/multiquery.py:107"),
+                # phase 3h's shapes: SeamlessM4T-medium's bidirectional encoder
+                # (and cross prefill) and its cross-attention decode
+                ("flash_attention@encdec", "src/repro_torch/csrc/flash_attention.cu",
+                 "src/repro/kernels/flash_attention/kernel.py:104"),
+                ("decode_attention@encdec", "src/repro_torch/csrc/decode_attention.cu",
+                 "src/repro/kernels/decode_attention/kernel.py:88")):
             r = rows[name]
             if launches[name] <= 0:
                 raise AssertionError(f"{name} never launched on the main path")

@@ -15,7 +15,10 @@ Carries the architectures the port runs so far:
   scan);
 * the MoE family: DeepSeekMoE-16B (64 routed top-6 + 2 shared experts)
   and Kimi-K2 (384 routed top-8 + 1 shared), each with a dense first
-  layer.
+  layer;
+* the encoder-decoder family: SeamlessM4T-medium (12 bidirectional
+  encoder layers over frame embeddings, 12 decoder layers with
+  cross-attention to the encoder's output).
 """
 from __future__ import annotations
 
@@ -33,7 +36,7 @@ PAPER_MODELS: List[str] = [
 ARCHS: List[str] = PAPER_MODELS + [
     "internlm2-1.8b", "codeqwen1.5-7b", "stablelm-12b", "pixtral-12b",
     "gemma3-1b", "rwkv6-3b", "hymba-1.5b", "deepseek-moe-16b",
-    "kimi-k2-1t-a32b"]
+    "kimi-k2-1t-a32b", "seamless-m4t-medium"]
 
 _MOD = {a: "repro_torch.configs." + a.replace("-", "_").replace(".", "_")
         for a in ARCHS}

@@ -11,11 +11,16 @@ of a chunk is fetched while the chunk's resident layers compute: the
 paper's interleave. A copy waits on the compute stream's "buffer free"
 event for its buffer, compute waits on the copy's "copy done" event.
 
-Families: dense, MoE, SSM (RWKV6) and hybrid (Hymba), each layer run by
-the model's own per-layer bodies (``M.step_layer`` in a pass,
-``M.prefill_layer`` in the prompt pass over the tiers); encoder-decoder is
-not ported, and the VLM (whose patch embeddings only M.prefill takes) is
-refused as the JAX engine's paths refuse it. An MoE stack must be
+Families: dense, MoE, SSM (RWKV6), hybrid (Hymba) and encoder-decoder
+(SeamlessM4T), each layer run by the model's own per-layer bodies
+(``M.step_layer`` in a pass, ``M.prefill_layer`` in the prompt pass over
+the tiers); the VLM (whose patch embeddings only M.prefill takes) is
+refused as the JAX engine's paths refuse it. The encoder-decoder family's
+encoder runs outside the tiers, as in the JAX engine (``enc_len``): its
+weights are shared and resident (``encode``); each decoder layer's cross
+K/V (``xk`` / ``xv``, state beside K/V) come from that layer's own
+weights in the prompt pass (``prefill(tokens, enc_out=)``), and every
+pass cross-attends to the first enc_len frames. An MoE stack must be
 homogeneous, as the JAX engine asserts: a config with dense first layers
 is refused, and runs folded (``dataclasses.replace(cfg,
 first_dense_layers=0)``: every layer an MoE layer). Each MoE layer routes
@@ -23,8 +28,8 @@ the mb rows of a pass (mb · q_len in a verify round) as one batch of
 tokens, finished slots included, as the JAX engine's micro-batch does.
 Chunked prefill, verification and the resident self-draft need pure-KV
 per-layer state (the dense and MoE families), as in the JAX package; the
-recurrent families prefill through ``prefill`` (the prompt pass over the
-tiers) and ``seed_cache``.
+recurrent and encoder-decoder families prefill through ``prefill`` (the
+prompt pass over the tiers) and ``seed_cache``.
 
 Of the JAX package's two streaming designs this is fetch_mode="slot"
 (each streamed layer fetched when its chunk runs) on one stage; the
@@ -33,8 +38,9 @@ layer restored once a step: on one stage that would hold them all in HBM)
 are not ported. Also ported: ``long_mode`` (windowed globals, a
 window-sized ring) and the paged slot accounting (``paged=``: block tables
 over a PagePool, ``seed_cache`` moving K/V through the pages, extended per
-decode step and per committed spec round, freed on release). One position
-is shared by every slot, as in the JAX engine.
+decode step and per committed spec round, freed on release; the cross
+K/V stay contiguous). One position is shared by every slot, as in the JAX
+engine.
 
 Placement: ``plan_layout`` / ``split_layer_stack`` give the JAX package's
 index maps for every plan whose resident count divides its segments. Where
@@ -50,7 +56,8 @@ host memory registered with cudaHostRegister: PyTorch's pinned allocator
 rounds each block up to a power of two (a 1.71 GB layer would take 2 GiB).
 
 The cache stays in HBM in the model's layout (K/V (L, B, S_c, KV, dh),
-the recurrent states (L, B, ...)), indexed by real layer id whichever tier
+the recurrent states (L, B, ...), the cross K/V (L, B, S_enc, KV, dh)),
+indexed by real layer id whichever tier
 holds the layer, so ``retier`` moves weights only: unlike the JAX
 package's per-stage grid (where a demoted layer's cache rows move with
 it) no cache row moves. The engine state *is* the model's cache dict, so
@@ -77,7 +84,8 @@ from repro_torch.models.modules import rms_norm, round_up, unembed
 
 # the families whose layers the engine streams; of them the dense and MoE
 # families have pure-KV per-layer state (chunked prefill, verify, draft)
-FAMILIES = (Family.DENSE, Family.MOE, Family.SSM, Family.HYBRID)
+FAMILIES = (Family.DENSE, Family.MOE, Family.SSM, Family.HYBRID,
+            Family.ENCDEC)
 # the JAX engine's words for a stack that is not homogeneous
 HOMOGENEOUS = ("engine expects a homogeneous stack; fold dense layers via "
                "configs with first_dense_layers=0 or pad (see tests)")
@@ -226,6 +234,13 @@ def _leaves(specs: dict, prefix=()):
             yield prefix + (k,), tuple(v.shape), v.dtype
 
 
+def _to(dev: torch.device, t):
+    """A tree of tensors (the shared weights, an encoder stack among them)
+    on dev."""
+    return {k: _to(dev, v) for k, v in t.items()} if isinstance(t, dict) \
+        else t.to(dev)
+
+
 def _mem_available_bytes() -> Optional[int]:
     try:
         for line in pathlib.Path("/proc/meminfo").read_text().splitlines():
@@ -308,22 +323,28 @@ class InterleavedEngine:
     def __init__(self, cfg: ModelConfig, plan: ExecutionPlan, *, mb: int = 1,
                  max_len: int = 256, retier_headroom: int = 0,
                  long_mode: bool = False, paged: bool = False,
-                 page_size: int = 64, impl: str = "kernel", device=None):
+                 page_size: int = 64, impl: str = "kernel", enc_len: int = 0,
+                 device=None):
         if plan.n_stage != 1:
             raise NotImplementedError(
                 "the port runs one stage; the multi-stage ring waits until a "
                 "run shows more than one card")
         if cfg.family not in FAMILIES:
             raise NotImplementedError(
-                f"the port's engine runs the dense, MoE, SSM and hybrid "
-                f"families, not {cfg.family}")
+                f"the port's engine runs the dense, MoE, SSM, hybrid and "
+                f"encoder-decoder families, not {cfg.family}")
         if M.n_dense_first(cfg):
             raise ValueError(HOMOGENEOUS)
+        if cfg.family == Family.ENCDEC and enc_len <= 0:
+            raise ValueError("the encoder-decoder engine needs enc_len > 0, "
+                             "the encoder's frames (the encoder runs "
+                             "outside the tiers)")
         self.cfg, self.plan = cfg, plan
         self.mb = mb
         self.max_len = max_len
         self.long_mode = long_mode
         self.impl = impl
+        self.enc_len = int(enc_len) if cfg.family == Family.ENCDEC else 0
         self.device = resolve_device(device)
         self.k_res_b = plan.k_res_list
         self.k_off_b = plan.k_off_list
@@ -426,8 +447,8 @@ class InterleavedEngine:
         tree): the whole model never sits on the card."""
         self.close()
         dev = self.device
-        self._shared = {k: v.to(dev) for k, v in params.items()
-                        if k != "layers"}
+        self._shared = _to(dev, {k: v for k, v in params.items()
+                                 if k != "layers"})
         self._store = PinnedStore((self.plan.n_seg, self.k_off_cap,
                                    self.layer_numel), dev)
         self._streamer = _Streamer(self.layer_numel, dev)
@@ -466,14 +487,17 @@ class InterleavedEngine:
         """Load the weights from params (shared leaves plus "layers", a
         stacked tree or a layer source, see M.init_params_by_layer) unless
         this params object is already loaded, and return a fresh state:
-        an empty cache (K/V, recurrent states) for mb sequences at pos
-        0."""
+        an empty cache (K/V, recurrent states, zero cross K/V of enc_len
+        frames) for mb sequences at pos 0."""
         if "dense_layers" in params:
             raise ValueError(HOMOGENEOUS)
         if self._loaded_from is not params:
             self._load(params)
+        return self._empty_cache()
+
+    def _empty_cache(self) -> dict:
         return M.init_cache(self.cfg, self.mb, self.max_len, self.long_mode,
-                            device=self.device)
+                            device=self.device, enc_len=self.enc_len)
 
     # -- passes ----------------------------------------------------------------
     def _run_layers(self, x: torch.Tensor, body, resident_only: bool = False):
@@ -511,33 +535,57 @@ class InterleavedEngine:
         cfg = self.cfg
         pos = state["pos"]
         x = M.embed(self._shared, tokens).to(torch.bfloat16)
+        M.check_enc_len(cfg, state, self.enc_len)
         slot = M.new_positions(state, tokens.shape[1]) \
             if "pos_ids" in state else 0
 
         def body(p, l, x):
             return M.step_layer(cfg, p, x, state, l, slot, self.windows[l],
-                                impl=self.impl, multi=multi)
+                                impl=self.impl, multi=multi,
+                                enc_len=self.enc_len)
         x = self._run_layers(x, body, resident_only)
         state["pos"] = pos + tokens.shape[1]
         x = rms_norm(x, self._shared["final_norm"], cfg.norm_eps)
         return unembed(self._shared, x)
 
-    def prefill(self, tokens: torch.Tensor):
+    def encode(self, frame_embeds: torch.Tensor) -> torch.Tensor:
+        """The encoder-decoder family's encoder (M.encode) on the engine's
+        shared, resident encoder weights. frame_embeds: (mb, enc_len, D)."""
+        self._check_loaded()
+        return M.encode(self.cfg, self._shared, frame_embeds, impl=self.impl)
+
+    def prefill(self, tokens: torch.Tensor,
+                enc_out: Optional[torch.Tensor] = None):
         """The prompt pass of every family over the engine's own tiers (the
         counterpart of the JAX backend's M.prefill on replicated params,
         which one card cannot hold): M.prefill_layer on each layer's
         weights, resident ones from HBM, streamed ones through the load
         buffers in the interleave of a pass, into a fresh model-layout
         cache for mb sequences (long_mode's windows and ring). tokens:
-        (mb, S). Returns (last-token logits (mb, 1, PV), cache): M.prefill's
-        on the same weights, bit for bit, for seed_cache to adopt."""
+        (mb, S). The encoder-decoder family needs enc_out (mb, enc_len, D),
+        the encoder's output: each layer's cross K/V are projected from it
+        by that layer's own weights (M.cross_kv_layer) just before the
+        layer runs. Returns (last-token logits (mb, 1, PV), cache):
+        M.prefill's (after M.seed_cross_kv) on the same weights, bit for
+        bit, for seed_cache to adopt."""
         self._check_loaded()
         cfg = self.cfg
-        cache = M.init_cache(cfg, self.mb, self.max_len, self.long_mode,
-                             device=self.device)
+        if cfg.family == Family.ENCDEC:
+            if enc_out is None or tuple(enc_out.shape[:2]) != (
+                    self.mb, self.enc_len):
+                raise ValueError(
+                    f"the encoder-decoder prompt pass needs enc_out "
+                    f"({self.mb}, {self.enc_len}, {cfg.d_model}), the "
+                    f"encoder's output")
+        elif enc_out is not None:
+            raise ValueError(f"enc_out feeds the encoder-decoder family, "
+                             f"not {cfg.family}")
+        cache = self._empty_cache()
         x = M.embed(self._shared, tokens).to(torch.bfloat16)
 
         def body(p, l, x):
+            if enc_out is not None:
+                cache["xk"][l], cache["xv"][l] = M.cross_kv_layer(p, enc_out)
             return M.prefill_layer(cfg, p, x, cache, l, self.windows[l],
                                    impl=self.impl)
         x = self._run_layers(x, body)

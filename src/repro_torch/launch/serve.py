@@ -9,6 +9,10 @@ serves it. The plan comes from plan_for's budget rule (--plan uniform) or
 from the paper's Alg. 1 over the H100's CostEnv (--plan hetero);
 --adapt adds the online memory adaptation: page-granular admission and
 an OnlinePlanner that retiers the live engine as KV pages grow.
+The encoder-decoder family (seamless-m4t-medium) is refused before any
+weight is drawn: the JAX package's serving route fails on it (its
+M.prefill without enc_out raises KeyError 'xk'); it runs through the
+model's entry points and the engine.
 
   # on the card, the smoke-sized model, bursty traffic:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.3-70b \\
@@ -209,6 +213,7 @@ def main(argv=None):
                                          weight_budget)
     from repro_torch.device import resolve_device
     from repro_torch.models import model as M
+    from repro_torch.serving.backend import refuse_encdec
     from repro_torch.serving import (ContinuousBatchingScheduler, LimeServer,
                                      SamplerConfig, SchedulerConfig,
                                      cli_arrivals, requests_from_arrivals,
@@ -221,6 +226,7 @@ def main(argv=None):
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
     if args.fold_dense:
         cfg = dataclasses.replace(cfg, first_dense_layers=0)
+    refuse_encdec(cfg)                  # before any weight is drawn
     width = 1 if args.pattern == "sporadic" else 4
     hbm = args.hbm_bytes
     if hbm is None and dev.type == "cuda":

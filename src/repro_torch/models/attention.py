@@ -8,8 +8,23 @@ selects "ref" (the reference's own jnp-style math, here in PyTorch) or
 versions). Layouts are the JAX package's: q (B, S, H, dh), cache
 (B, S_c, KV, dh), paged pool (P, page_size, KV, dh), wq (D, H, dh),
 wo (H, dh, D).
+
+Cross-attention (the encoder-decoder family) attends from the decoder to
+the encoder's projected frames (B, S_enc, KV, dh), with no rope. The
+reference computes it in jnp under every impl: the prompt pass with its
+chunked attention, decode with ``decode_attention_ref`` at position
+2^30. Under impl="kernel" the port routes both through the hand-written
+kernels, which compute the same functions: the prompt pass through
+flash attention with causal=False (Sq the prompt, Skv the frames), a
+decode step through the one-token decode kernel with every frame below
+enc_len visible. That kernel keeps a slot only if pos - pos_id < window,
+and a window of None means 2^30 (GLOBAL_WINDOW), so at the reference's
+position 2^30 it would drop frame 0: the kernel route asks at position
+S_enc - 1 instead, where the pos_ids alone decide.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -22,6 +37,7 @@ from repro_torch.models.spec import ParamSpec
 
 NEG_INF = -2.0e30
 IMPLS = ("ref", "kernel")
+CROSS_POS = 2 ** 30      # the reference's cross-attention decode position
 
 
 def attention_specs(d_model: int, n_heads: int, n_kv_heads: int,
@@ -203,4 +219,51 @@ def paged_attn_decode_multi(params, x, k_pool, v_pool, page_ids, slots,
     fn = mq_ops.mq_paged_decode_attention if impl == "kernel" \
         else mq_ops.mq_paged_decode_attention_plain
     out = fn(q, k_pool, v_pool, block_tables, ctx_lens, window=window)
+    return _out_proj(out, params["wo"])
+
+
+@functools.lru_cache(maxsize=64)
+def cross_pos_ids(S_enc: int, enc_len: int, device: torch.device):
+    """(S_enc,) int32 pos_ids of the encoder's frames: frame j where
+    j < enc_len, else -1 (masked), as the reference's cross-attention
+    decode builds them. One tensor per (S_enc, enc_len, device), kept: a
+    decode step reads it in every layer."""
+    ar = torch.arange(S_enc, dtype=torch.int32, device=device)
+    return torch.where(ar < enc_len, ar, torch.full_like(ar, -1))
+
+
+def cross_kv(params, src):
+    """Cross K/V (B, S_enc, KV, dh) of the encoder's output src (B, S_enc,
+    D): src @ wk and src @ wv, no rope."""
+    return _proj(src, params["wk"]), _proj(src, params["wv"])
+
+
+def cross_attn_prefill(params, x, ck, cv, *, impl: str = "ref"):
+    """Cross-attention of a prompt pass: x (B, S, D) attends to every one
+    of the encoder's frames ck, cv (B, S_enc, KV, dh) (the reference's
+    prompt pass does not mask by enc_len), no rope on q. "ref": the
+    chunked attention, causal=False; "kernel": flash attention,
+    causal=False."""
+    q = _proj(x, params["wq"])
+    if impl == "kernel":
+        out = fa_ops.flash_attention(q, ck, cv, causal=False, window=None)
+    else:
+        out = chunked_attention(q, ck, cv, causal=False, window=None)
+    return _out_proj(out, params["wo"])
+
+
+def cross_attn_decode(params, x, ck, cv, enc_len: int, *, impl: str = "ref"):
+    """Cross-attention of a decode step against the precomputed encoder
+    K/V ck, cv (B, S_enc, KV, dh): x (B, 1, D) sees the frames below
+    enc_len, no rope on q. "ref" is the reference's own call (pos 2^30,
+    no window); "kernel" the decode kernel at pos S_enc - 1, which sees
+    the same frames (see the module docstring)."""
+    q = _proj(x, params["wq"])
+    S_enc = ck.shape[1]
+    ids = cross_pos_ids(S_enc, int(enc_len), ck.device)
+    if impl == "kernel":
+        out = da_ops.decode_attention(q, ck, cv, ids, S_enc - 1, window=None)
+    else:
+        out = da_ops.decode_attention_plain(q, ck, cv, ids, CROSS_POS,
+                                            window=None)
     return _out_proj(out, params["wo"])

@@ -4,8 +4,11 @@ pre-norm, no second norm), the VLM family (the dense backbone, prefilled
 with patch embeddings before the text), the MoE family (attention, then
 routed and shared experts, ``models/moe.py``; DeepSeekMoE and Kimi-K2
 put ``first_dense_layers`` dense layers first, stacked apart as
-``"dense_layers"``), the SSM family (RWKV6) and the hybrid family (Hymba:
-attention and Mamba heads side by side in each block).
+``"dense_layers"``), the SSM family (RWKV6), the hybrid family (Hymba:
+attention and Mamba heads side by side in each block) and the
+encoder-decoder family (SeamlessM4T: a bidirectional encoder over frame
+embeddings, stacked as ``"encoder"``; decoder layers of causal
+self-attention, cross-attention to the encoder's output, then the MLP).
 
 * ``build_param_specs(cfg)`` / ``init_params(cfg, generator, device)`` —
   the parameter tree in the JAX package's layout, layers stacked on a
@@ -13,19 +16,28 @@ attention and Mamba heads side by side in each block).
 * ``init_cache`` — per family: K/V (L, B, S_c, KV, dh), ``pos_ids`` (S_c,)
   starting at -1 (dense, hybrid); the RWKV state (L, B, H, dh, dh) fp32 and
   the two token-shift rows (L, B, D) (SSM); the conv rows (L, B, 3,
-  H_ssm·dh) and the scan state (L, B, H_ssm, N, dh) fp32 (hybrid); and
-  ``pos``
+  H_ssm·dh) and the scan state (L, B, H_ssm, N, dh) fp32 (hybrid); the
+  cross K/V ``xk`` / ``xv`` (L, B, S_enc, KV, dh) beside K/V
+  (encoder-decoder, given ``enc_out`` or ``enc_len``); and ``pos``
+* ``encode`` — the encoder-decoder family's encoder: frame embeddings
+  (B, S_enc, D) through bidirectional self-attention layers with rope
+* ``cross_kv_layer`` / ``seed_cross_kv`` — a decoder layer's cross K/V
+  projected from the encoder's output, one layer / every layer into the
+  cache
 * ``prefill`` — the prompt pass, filling the cache (K/V ring-rolled when
   the prompt outruns the cache, the recurrent states as the scans leave
   them) and returning last-token logits; ``frontend_embeds`` (B, n_patch,
   d_model) go in front of the prompt's embeddings and take its first
-  positions
+  positions (the encoder-decoder family: they feed the encoder, and
+  ``enc_out`` seeds the cross K/V)
 * ``decode_step`` — one token, written at slot ``pos % S_c``; the
-  recurrent families advance their states by one step
+  recurrent families advance their states by one step; the
+  encoder-decoder family sees the encoder's frames below ``enc_len``
 * ``verify_step`` — q_len tokens in one pass (speculative verification
   and the engine's chunked prefill), written contiguously from slot
   ``pos % S_c``; dense and MoE only (a recurrent state cannot roll back
-  by masking; the VLM is refused as the reference refuses it)
+  by masking; the VLM and the encoder-decoder family are refused as the
+  reference refuses them)
 * ``step_layer`` / ``prefill_layer`` — the one per-layer body of a
   decode (or verify) step and of a prompt pass, by family, that the
   model and the interleaved engine both run (``decode_layer`` is the dense
@@ -42,6 +54,7 @@ device-to-host sync in every layer.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -51,7 +64,9 @@ from repro_torch.device import resolve_device
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import spec as pspec
 from repro_torch.models.attention import (IMPLS, attention_specs, attn_decode,
-                                          attn_decode_multi, attn_forward)
+                                          attn_decode_multi, attn_forward,
+                                          cross_attn_decode,
+                                          cross_attn_prefill, cross_kv)
 from repro_torch.models.modules import (embed, embed_specs, mlp, mlp_specs,
                                         rms_norm, rms_norm_spec, unembed)
 from repro_torch.models.ssm import (mamba_forward, mamba_head_specs,
@@ -61,7 +76,8 @@ from repro_torch.models.ssm import (mamba_forward, mamba_head_specs,
 GLOBAL_WINDOW = 2 ** 30   # sentinel: effectively unwindowed
 
 
-FAMILIES = (Family.DENSE, Family.VLM, Family.MOE, Family.SSM, Family.HYBRID)
+FAMILIES = (Family.DENSE, Family.VLM, Family.MOE, Family.SSM, Family.HYBRID,
+            Family.ENCDEC)
 # the families whose per-layer decode state is K/V alone (a verify pass
 # rolls back by masking), as the reference's verify_step admits
 PURE_KV = (Family.DENSE, Family.MOE)
@@ -70,8 +86,8 @@ PURE_KV = (Family.DENSE, Family.MOE)
 def _check(cfg: ModelConfig, impl: str) -> None:
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"the port runs the dense, VLM, MoE, SSM and hybrid families so "
-            f"far, not {cfg.family}")
+            f"the port runs the dense, VLM, MoE, SSM, hybrid and "
+            f"encoder-decoder families, not {cfg.family}")
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, not {impl!r}")
 
@@ -134,9 +150,23 @@ def _hymba_layer_specs(cfg: ModelConfig) -> dict:
     }
 
 
+def _encdec_decoder_layer_specs(cfg: ModelConfig) -> dict:
+    return {
+        "ln1": rms_norm_spec(cfg.d_model),
+        "attn": attention_specs(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                                cfg.head_dim),
+        "ln_x": rms_norm_spec(cfg.d_model),
+        "xattn": attention_specs(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                                 cfg.head_dim),
+        "ln2": rms_norm_spec(cfg.d_model),
+        "mlp": mlp_specs(cfg.d_model, cfg.d_ff),
+    }
+
+
 _LAYER_SPECS = {Family.DENSE: _dense_layer_specs, Family.VLM: _dense_layer_specs,
                 Family.MOE: _moe_layer_specs, Family.SSM: _rwkv_layer_specs,
-                Family.HYBRID: _hymba_layer_specs}
+                Family.HYBRID: _hymba_layer_specs,
+                Family.ENCDEC: _encdec_decoder_layer_specs}
 
 
 def n_dense_first(cfg: ModelConfig) -> int:
@@ -152,12 +182,25 @@ def layer_specs(cfg: ModelConfig, l: int) -> dict:
     return _LAYER_SPECS[cfg.family](cfg)
 
 
-def build_param_specs(cfg: ModelConfig) -> dict:
-    """The reference's tree: an MoE config's dense first layers stacked
-    as "dense_layers", the rest as "layers"."""
-    _check(cfg, "ref")
+def _shared_specs(cfg: ModelConfig) -> dict:
+    """The weights outside the decoder stack: embedding, lm_head, final
+    norm, and an encoder-decoder config's encoder stack (dense layers) and
+    its final norm."""
     specs = dict(embed_specs(cfg.vocab_size, cfg.d_model, cfg.tie_embeddings))
     specs["final_norm"] = rms_norm_spec(cfg.d_model)
+    if cfg.family == Family.ENCDEC:
+        specs["encoder"] = pspec.stack(_dense_layer_specs(cfg),
+                                       cfg.n_encoder_layers)
+        specs["enc_final_norm"] = rms_norm_spec(cfg.d_model)
+    return specs
+
+
+def build_param_specs(cfg: ModelConfig) -> dict:
+    """The reference's tree: an MoE config's dense first layers stacked
+    as "dense_layers", the rest as "layers"; an encoder-decoder config's
+    encoder as "encoder" beside "enc_final_norm"."""
+    _check(cfg, "ref")
+    specs = _shared_specs(cfg)
     nd = n_dense_first(cfg)
     if nd:
         specs["dense_layers"] = pspec.stack(_dense_layer_specs(cfg), nd)
@@ -177,21 +220,21 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 
 
 def init_params_by_layer(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
-    """Shared weights (embedding, lm_head, final norm) drawn now, and
-    ``"layers"`` a source ``l -> layer l's parameter dict`` that draws
-    each layer from its own seed when asked, with init_params'
-    distributions (layer weights scaled 1/sqrt(n) for a stack of n, the
-    stacked fan-in quirk: an MoE config's dense first layers at their own
-    stack's scale), for any family ``_LAYER_SPECS`` names. The values
+    """Shared weights (embedding, lm_head, final norm; an encoder-decoder
+    config's encoder stack, at its own stack's scale, and its final norm)
+    drawn now, and ``"layers"`` a source ``l -> layer l's parameter
+    dict`` that draws each decoder layer from its own seed when asked,
+    with init_params' distributions (layer weights scaled 1/sqrt(n) for a
+    stack of n, the stacked fan-in quirk: an MoE config's dense first
+    layers at their own stack's scale), for any family ``_LAYER_SPECS``
+    names. The values
     differ from init_params' (other random streams); the interleaved
     engine builds its tiers from such a source so the whole model never
     sits on the card at once."""
     _check(cfg, "ref")
     dev = resolve_device(device)
-    shared = dict(embed_specs(cfg.vocab_size, cfg.d_model, cfg.tie_embeddings))
-    shared["final_norm"] = rms_norm_spec(cfg.d_model)
-    params = pspec.init(shared, torch.Generator(device=dev).manual_seed(seed),
-                        dev)
+    params = pspec.init(_shared_specs(cfg),
+                        torch.Generator(device=dev).manual_seed(seed), dev)
     nd = n_dense_first(cfg)
 
     def quirk(t, scale):
@@ -207,6 +250,12 @@ def init_params_by_layer(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     return params
 
 
+def _take(t: dict, l: int) -> dict:
+    """Entry l of every leaf of a stacked tree (views)."""
+    return {k: _take(v, l) for k, v in t.items()} if isinstance(t, dict) \
+        else t[l]
+
+
 def layer_params(params: dict, l: int) -> dict:
     """Layer l's parameters: a view of the stacked tree (an MoE config's
     "dense_layers" first, then "layers"), or what the layer source of
@@ -220,11 +269,7 @@ def layer_params(params: dict, l: int) -> dict:
             layers = params["dense_layers"]
         else:
             l -= nd
-
-    def take(t):
-        return {k: take(v) for k, v in t.items()} if isinstance(t, dict) \
-            else t[l]
-    return take(layers)
+    return _take(layers, l)
 
 
 def _tensors(t):
@@ -259,7 +304,14 @@ def kv_cache_len(cfg: ModelConfig, max_len: int, long_mode: bool = False) -> int
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               long_mode: bool = False, device=None) -> dict:
+               long_mode: bool = False, device=None, *,
+               enc_out: Optional[torch.Tensor] = None,
+               enc_len: int = 0) -> dict:
+    """An empty cache for `batch` sequences of up to max_len positions.
+    An encoder-decoder config given the encoder's output enc_out (B,
+    S_enc, D), or its length enc_len, also holds zero cross K/V ``xk`` /
+    ``xv`` (L, B, S_enc, KV, dh) bf16, as the reference's cache_specs;
+    seed_cross_kv fills them."""
     _check(cfg, "ref")
     dev = resolve_device(device)
     L = cfg.n_layers
@@ -285,6 +337,57 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
         cache["ssm_state"] = torch.zeros(
             (L, batch, cfg.ssm_heads, cfg.ssm_state_size, cfg.head_dim),
             dtype=torch.float32, device=dev)
+    if enc_out is not None:
+        enc_len = enc_out.shape[1]
+    if cfg.family == Family.ENCDEC and enc_len:
+        xkv = (L, batch, enc_len, cfg.n_kv_heads, cfg.head_dim)
+        cache["xk"] = torch.zeros(xkv, dtype=torch.bfloat16, device=dev)
+        cache["xv"] = torch.zeros(xkv, dtype=torch.bfloat16, device=dev)
+    return cache
+
+
+# ============================================================================
+# Encoder and cross K/V (encoder-decoder family)
+# ============================================================================
+def encode(cfg: ModelConfig, params: dict, frame_embeds: torch.Tensor, *,
+           impl: str = "ref") -> torch.Tensor:
+    """The encoder pass: frame embeddings (B, S_enc, D), cast to bf16,
+    through the encoder's dense layers with bidirectional self-attention
+    (rope, no window; flash attention with causal=False under impl
+    "kernel"), then its final norm. Returns (B, S_enc, D)."""
+    _check(cfg, impl)
+    x = frame_embeds.to(torch.bfloat16)
+    enc = params["encoder"]
+    for l in range(cfg.n_encoder_layers):
+        p = _take(enc, l)
+        xn = rms_norm(x, p["ln1"], cfg.norm_eps)
+        a_out, _ = attn_forward(p["attn"], xn, rope_theta=cfg.rope_theta,
+                                causal=False, window=None, impl=impl)
+        x = dense_rest(cfg, p, x, xn, a_out)
+    return rms_norm(x, params["enc_final_norm"], cfg.norm_eps)
+
+
+def cross_kv_layer(p: dict, enc_out: torch.Tensor):
+    """A decoder layer's cross K/V (B, S_enc, KV, dh): the encoder's output
+    through that layer's own xattn.wk / wv. The one body of seed_cross_kv
+    and of the interleaved engine's prompt pass."""
+    return cross_kv(p["xattn"], enc_out.to(p["xattn"]["wk"].dtype))
+
+
+def seed_cross_kv(cfg: ModelConfig, params: dict, cache: dict,
+                  enc_out: torch.Tensor) -> dict:
+    """Every decoder layer's cross K/V of the encoder's output enc_out
+    (B, S_enc, D) into the cache's ``xk`` / ``xv`` (allocated where the
+    cache holds none of that length), in place; returns the cache."""
+    L, (B, S_enc, _) = cfg.n_layers, enc_out.shape
+    shape = (L, B, S_enc, cfg.n_kv_heads, cfg.head_dim)
+    if "xk" not in cache or tuple(cache["xk"].shape) != shape:
+        for key in ("xk", "xv"):
+            cache[key] = torch.zeros(shape, dtype=torch.bfloat16,
+                                     device=enc_out.device)
+    for l in range(L):
+        cache["xk"][l], cache["xv"][l] = cross_kv_layer(
+            layer_params(params, l), enc_out)
     return cache
 
 
@@ -319,6 +422,29 @@ def _hymba_rest(cfg: ModelConfig, p: dict, x: torch.Tensor, xn: torch.Tensor,
     fused = 0.5 * (rms_norm(a_out, p["ln_attn"], cfg.norm_eps)
                    + rms_norm(m_out, p["ln_ssm"], cfg.norm_eps))
     return dense_rest(cfg, p, x, xn, fused @ p["w_fuse"])
+
+
+def _encdec_rest(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                 a_out: torch.Tensor, cache: dict, l: int,
+                 cross) -> torch.Tensor:
+    """The rest of an encoder-decoder layer once its self-attention a_out
+    is known: the residual add, cross-attention on its own pre-norm
+    (ln_x) against layer l's cross K/V, then the MLP on ln2.
+    cross(params, xn, ck, cv) is a prompt pass's or a step's
+    cross-attention."""
+    x = x + a_out
+    xn = rms_norm(x, p["ln_x"], cfg.norm_eps)
+    x = x + cross(p["xattn"], xn, cache["xk"][l], cache["xv"][l])
+    return x + mlp(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps))
+
+
+def _check_cross(cache: dict) -> None:
+    if "xk" not in cache:
+        raise ValueError(
+            "an encoder-decoder cache needs its cross K/V: prefill with "
+            "enc_out= (or frontend_embeds=, which feed the encoder), or "
+            "seed_cross_kv (the reference's serving route, M.prefill "
+            "without enc_out, fails here with KeyError 'xk')")
 
 
 def dense_rest(cfg: ModelConfig, p: dict, x: torch.Tensor, xn: torch.Tensor,
@@ -370,8 +496,10 @@ def prefill_layer(cfg: ModelConfig, p: dict, x: torch.Tensor, cache: dict,
                   l: int, window: int, *, impl: str) -> torch.Tensor:
     """Layer l of a prompt pass over x (B, S, D) with weights p: its K/V
     written into layer l's cache rows (ring-rolled past S_c), its
-    recurrent states advanced over the S steps, in place. The one body of
-    prefill and of the interleaved engine's prefill over its tiers."""
+    recurrent states advanced over the S steps, in place (an
+    encoder-decoder layer reads its cross K/V, already in the cache). The
+    one body of prefill and of the interleaved engine's prefill over its
+    tiers."""
     if cfg.family == Family.SSM:
         return _rwkv_layer(cfg, p, x, cache, l, impl=impl)
     xn = rms_norm(x, p["ln1"], cfg.norm_eps)
@@ -380,6 +508,9 @@ def prefill_layer(cfg: ModelConfig, p: dict, x: torch.Tensor, cache: dict,
     _write_kv(cache, l, k, v)
     if cfg.family == Family.HYBRID:
         return _hymba_rest(cfg, p, x, xn, a_out, cache, l, impl=impl)
+    if cfg.family == Family.ENCDEC:
+        return _encdec_rest(cfg, p, x, a_out, cache, l, functools.partial(
+            cross_attn_prefill, impl=impl))
     return dense_rest(cfg, p, x, xn, a_out)
 
 
@@ -396,15 +527,32 @@ def prefill_positions(cache: dict, S: int) -> None:
 
 def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor, cache: dict,
             *, frontend_embeds: Optional[torch.Tensor] = None,
-            impl: str = "ref"):
+            impl: str = "ref", enc_out: Optional[torch.Tensor] = None):
     """Run the prompt, fill the cache in place, return (last-token logits
     (B, 1, PV), cache). tokens: (B, S) int. The SSM family continues from
     the cache's states and position (as the reference's _ssm_prefill);
     the attention families start from an empty cache. frontend_embeds
     (B, n_patch, d_model), where given (the VLM's patch embeddings), are
     cast to bf16 and run in front of the tokens: they take positions
-    0 .. n_patch - 1 and the cache counts them."""
+    0 .. n_patch - 1 and the cache counts them. The encoder-decoder
+    family: enc_out (B, S_enc, D), the encoder's output, seeds the cross
+    K/V first (seed_cross_kv); frontend_embeds (its frame embeddings) go
+    through encode to give it, never in front of the tokens; with
+    neither, the cache must hold seeded cross K/V."""
     _check(cfg, impl)
+    if cfg.family == Family.ENCDEC:
+        if frontend_embeds is not None:
+            if enc_out is not None:
+                raise ValueError("frontend_embeds feed the encoder: give "
+                                 "them or enc_out, not both")
+            enc_out = encode(cfg, params, frontend_embeds, impl=impl)
+            frontend_embeds = None
+        if enc_out is not None:
+            seed_cross_kv(cfg, params, cache, enc_out)
+        _check_cross(cache)
+    elif enc_out is not None:
+        raise ValueError(f"enc_out feeds the encoder-decoder family, not "
+                         f"{cfg.family}")
     x = embed(params, tokens).to(torch.bfloat16)
     if frontend_embeds is not None:
         if cfg.family == Family.SSM:
@@ -467,47 +615,85 @@ def _hymba_decode_layer(cfg: ModelConfig, p: dict, x: torch.Tensor,
     return _hymba_rest(cfg, p, x, xn, a_out, cache, l, impl=impl)
 
 
+def _encdec_decode_layer(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                         cache: dict, l: int, slot: int, window: int, *,
+                         impl: str, enc_len: int) -> torch.Tensor:
+    """One encoder-decoder layer over one token x (B, 1, D): its K/V
+    written at `slot`, its cross-attention over the frames below
+    enc_len."""
+    xn = rms_norm(x, p["ln1"], cfg.norm_eps)
+    a_out = attn_decode(p["attn"], xn, cache["k"][l], cache["v"][l],
+                        cache["pos_ids"], cache["pos"], slot,
+                        rope_theta=cfg.rope_theta, window=window, impl=impl)
+    return _encdec_rest(cfg, p, x, a_out, cache, l, functools.partial(
+        cross_attn_decode, enc_len=enc_len, impl=impl))
+
+
 def step_layer(cfg: ModelConfig, p: dict, x: torch.Tensor, cache: dict,
                l: int, slot: int, window: int, *, impl: str,
-               multi: bool = False) -> torch.Tensor:
+               multi: bool = False, enc_len: int = 0) -> torch.Tensor:
     """Layer l of a decode step (or, dense and MoE only, a verify pass: multi)
     with weights p, by family: RWKV6 advances its states by one step
-    (slot and window unused), Hymba and the dense family write their K/V
-    at `slot`. The one per-layer body of _step and of the interleaved
-    engine's passes."""
+    (slot and window unused), Hymba, the dense and the encoder-decoder
+    families write their K/V at `slot` (the last cross-attending to the
+    encoder's frames below enc_len). The one per-layer body of _step and
+    of the interleaved engine's passes."""
     if cfg.family == Family.SSM:
         return _rwkv_layer(cfg, p, x, cache, l, impl=impl)
     if cfg.family == Family.HYBRID:
         return _hymba_decode_layer(cfg, p, x, cache, l, slot, window,
                                    impl=impl)
+    if cfg.family == Family.ENCDEC:
+        return _encdec_decode_layer(cfg, p, x, cache, l, slot, window,
+                                    impl=impl, enc_len=enc_len)
     return decode_layer(cfg, p, x, cache, l, slot, window, impl=impl,
                         multi=multi)
 
 
-def _step(cfg, params, cache, tokens, *, impl, multi, long_mode=False):
+def check_enc_len(cfg: ModelConfig, cache: dict, enc_len: int) -> None:
+    """An encoder-decoder decode step needs seeded cross K/V and enc_len >
+    0: at enc_len 0 the reference masks every frame and its softmax over
+    all-masked scores averages every frame's V alike, which the port's
+    kernels (a row that sees no slot outputs 0) do not compute."""
+    if cfg.family != Family.ENCDEC:
+        return
+    _check_cross(cache)
+    if int(enc_len) <= 0:
+        raise ValueError(
+            "an encoder-decoder decode step needs enc_len > 0, the "
+            "encoder's frames it sees (at 0 the reference averages every "
+            "frame's V alike, which the port does not compute)")
+
+
+def _step(cfg, params, cache, tokens, *, impl, multi, long_mode=False,
+          enc_len=0):
     _check(cfg, impl)
     if multi:
         _check_pure_kv(cfg, "speculative verification")
+    check_enc_len(cfg, cache, enc_len)
     pos = cache["pos"]
     x = embed(params, tokens).to(torch.bfloat16)
     slot = new_positions(cache, tokens.shape[1]) if "pos_ids" in cache else 0
     for l, window in enumerate(layer_windows(cfg, cfg.n_layers, long_mode)):
         x = step_layer(cfg, layer_params(params, l), x, cache, l, slot,
-                       window, impl=impl, multi=multi)
+                       window, impl=impl, multi=multi, enc_len=enc_len)
     cache["pos"] = pos + tokens.shape[1]
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return unembed(params, x), cache
 
 
 def decode_step(cfg: ModelConfig, params: dict, cache: dict,
-                token: torch.Tensor, *, impl: str = "ref", long_mode: bool = False):
+                token: torch.Tensor, *, impl: str = "ref", long_mode: bool = False,
+                enc_len: int = 0):
     """token: (B, 1) int -> (logits (B, 1, PV), cache), cache updated in
     place and pos advanced by one. The recurrent families launch their
     scan kernel once per layer at S = 1 under impl="kernel" (the
     reference pins its jnp scan there for an old-XLA partitioner fault of
-    the TPU engine, which has no counterpart on the card)."""
+    the TPU engine, which has no counterpart on the card). The
+    encoder-decoder family cross-attends to the encoder's frames below
+    enc_len, which must be > 0 (check_enc_len)."""
     return _step(cfg, params, cache, token, impl=impl, multi=False,
-                 long_mode=long_mode)
+                 long_mode=long_mode, enc_len=enc_len)
 
 
 def verify_step(cfg: ModelConfig, params: dict, cache: dict,

@@ -62,6 +62,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.configs.base import Family
 from repro_torch.device import resolve_device
 from repro_torch.kvcache.allocator import BlockTable
 from repro_torch.kvcache.paged_decode import PagedDecodeCache
@@ -69,6 +70,23 @@ from repro_torch.kvcache.pool import PagedKVConfig, PagePool
 from repro_torch.models import model as M
 from repro_torch.prefixcache import RadixPrefixCache
 from repro_torch.serving.sampling import SamplerConfig, sample
+
+
+# the JAX package's serving route on the encoder-decoder family:
+# jax.jit(partial(M.prefill, cfg)) on M.init_cache(...) with no enc_out
+ENCDEC_REFUSAL = (
+    "the serving route does not run the encoder-decoder family: the JAX "
+    "package's own route fails on it (its M.prefill without enc_out raises "
+    "KeyError: 'xk'). Drive it through the model (encode, seed_cross_kv, "
+    "prefill(enc_out=), decode_step(enc_len=)) or "
+    "InterleavedEngine(enc_len=)")
+
+
+def refuse_encdec(cfg) -> None:
+    """Raise NotImplementedError for an encoder-decoder config (before any
+    weight is drawn, where the caller checks first)."""
+    if cfg.family == Family.ENCDEC:
+        raise NotImplementedError(ENCDEC_REFUSAL)
 
 
 class EngineBackend:
@@ -100,6 +118,7 @@ class EngineBackend:
                  prefill_chunk_tokens: int = 0, paged: bool = False,
                  prefix_cache: bool = False, page_size: int = 64,
                  cache_pages: int = 0, planner=None, device=None):
+        refuse_encdec(cfg)
         self.cfg = cfg
         self.params = params
         self.engine = engine

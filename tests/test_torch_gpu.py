@@ -1187,3 +1187,124 @@ def test_moe_folded_engine_matches_model_on_card(cuda_device):
     ml, mc = M.verify_step(cfg, params, mc, mat, impl="kernel")
     assert torch.equal(el, ml)
     eng.close()
+
+
+# ----------------------------------------------------------------------------
+# the encoder-decoder family (SeamlessM4T-medium) on the card
+# ----------------------------------------------------------------------------
+def _encdec(n_layers, n_encoder_layers, device):
+    """SeamlessM4T-medium at full width, depth cut, its stacked matrices at
+    std 1/sqrt(d_model) (at the stacked fan-in quirk's 1/sqrt(L) every
+    softmax is one-hot and any two roundings part: chip_smoke.py's
+    encdec_params)."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("seamless-m4t-medium"), n_layers=n_layers,
+                              n_encoder_layers=n_encoder_layers)
+    params = M.init_params(cfg, torch.Generator(device).manual_seed(0))
+    for stack, n in (("layers", n_layers), ("encoder", n_encoder_layers)):
+        for t in M._tensors(params[stack]):
+            if t.dim() >= 3:
+                t.mul_((n / cfg.d_model) ** 0.5)
+    return cfg, params
+
+
+@pytest.mark.parametrize("kernel", ["flash bidirectional", "decode cross"])
+def test_encdec_kernel_shapes_vs_plain(kernel, cuda_device):
+    """Phase 3h's shapes (B 4, 512 frames, 16 heads = 16 KV heads x 64):
+    kernel 2 with causal=False (the encoder and the cross prefill), and
+    kernel 1 through the cross-attention's kernel route (pos 511, every
+    frame visible), with a key at frame 0 aligned with the query: within
+    BF16_REL of the plain versions; the reference's pos 2^30 in the
+    kernel's window arithmetic (frame 0 dropped) is not."""
+    from repro_torch.models import attention as A
+    g = torch.Generator(cuda_device).manual_seed(5)
+    B, S, H, dh = 4, 512, 16, 64
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=cuda_device).to(torch.bfloat16)
+    if kernel.startswith("flash"):
+        q, k, v = rnd(B, S, H, dh), rnd(B, S, H, dh), rnd(B, S, H, dh)
+        h0 = fa.hopper_launches
+        out = fa.flash_attention(q, k, v, causal=False)
+        torch.cuda.synchronize()
+        assert fa.hopper_launches == h0 + 1
+        ref = fa.flash_attention_plain(q, k, v, causal=False)
+        assert rel_err(out, ref) <= BF16_REL
+        assert rel_err(fa.flash_attention_plain(q, k, v, causal=True), ref) > BF16_REL
+        return
+    q, k, v = rnd(B, 1, H, dh), rnd(B, S, H, dh), rnd(B, S, H, dh)
+    k[:, 0] = (q[:, 0].float() * 0.75).to(torch.bfloat16)
+    ids = A.cross_pos_ids(S, S, q.device)
+    h0 = da.hopper_launches
+    out = da.decode_attention(q, k, v, ids, S - 1)
+    torch.cuda.synchronize()
+    assert da.hopper_launches == h0 + 1
+    ref = da.decode_attention_plain(q, k, v, ids, A.CROSS_POS)   # the reference's call
+    assert rel_err(out, ref) <= BF16_REL
+    dropped = da.decode_attention_plain(q, k, v, ids, A.CROSS_POS,
+                                        window=da.GLOBAL_WINDOW)
+    assert rel_err(dropped, ref) > BF16_REL
+
+
+def test_encdec_model_kernel_path_vs_reference(cuda_device):
+    """SeamlessM4T-medium at full width cut to 2 + 2 layers: encode ->
+    seed_cross_kv -> prefill -> 6 decode steps, the kernel path fed the
+    reference's picks: exact launches (flash 2 in the encoder, 4 in the
+    prompt pass; kernel 1 4 a step, all on the Hopper bodies) and logits
+    within 5% of |logit| max."""
+    cfg, params = _encdec(2, 2, cuda_device)
+    g = torch.Generator(cuda_device).manual_seed(1)
+    fe = torch.randn((2, 128, cfg.d_model), generator=g, device=cuda_device)
+    toks = torch.randint(1, cfg.vocab_size, (2, 64), generator=g, device=cuda_device)
+    out, fed = {}, []
+    for impl in ("ref", "kernel"):
+        f0, d0, h0 = fa.launches, da.launches, fa.hopper_launches + da.hopper_launches
+        enc = M.encode(cfg, params, fe, impl=impl)
+        cache = M.seed_cross_kv(cfg, params, M.init_cache(cfg, 2, 128, enc_out=enc), enc)
+        lg, cache = M.prefill(cfg, params, toks, cache, impl=impl)
+        steps = [lg[:, -1, :cfg.vocab_size].float()]
+        for i in range(6):
+            if impl == "ref":
+                fed.append(steps[-1].argmax(-1, keepdim=True))
+            lg, cache = M.decode_step(cfg, params, cache, fed[i], impl=impl,
+                                      enc_len=128)
+            steps.append(lg[:, -1, :cfg.vocab_size].float())
+        torch.cuda.synchronize()
+        out[impl] = torch.stack(steps)
+        launched = (fa.launches - f0, da.launches - d0,
+                    fa.hopper_launches + da.hopper_launches - h0)
+        assert launched == ((6, 24, 30) if impl == "kernel" else (0, 0, 0))
+    err = (out["kernel"] - out["ref"]).abs().max().item()
+    assert err <= 0.05 * out["ref"].abs().max().item()
+
+
+def test_encdec_engine_matches_model_on_card(cuda_device):
+    """SeamlessM4T-medium at full width, 4 decoder layers (2 streamed from
+    pinned memory) and 2 encoder layers: the engine's encoder, prompt pass
+    over the tiers and decode steps, across a retier round trip, equal
+    the model's kernel path bit for bit."""
+    cfg, params = _encdec(4, 2, cuda_device)
+    g = torch.Generator(cuda_device).manual_seed(2)
+    fe = torch.randn((2, 128, cfg.d_model), generator=g, device=cuda_device)
+    toks = torch.randint(1, cfg.vocab_size, (2, 64), generator=g, device=cuda_device)
+    eng = InterleavedEngine(cfg, UniformPlan(1, 2, 1, 1), mb=2, max_len=128,
+                            retier_headroom=1, enc_len=128)
+    st = eng.init_state(params)
+    assert eng._store.registered
+    enc = eng.encode(fe)
+    assert torch.equal(enc, M.encode(cfg, params, fe, impl="kernel"))
+    el, cache = eng.prefill(toks, enc_out=enc)
+    mc = M.seed_cross_kv(cfg, params, M.init_cache(cfg, 2, 128, enc_out=enc), enc)
+    ml, mc = M.prefill(cfg, params, toks, mc, impl="kernel")
+    assert torch.equal(el, ml)
+    assert all(torch.equal(cache[k], mc[k]) for k in ("k", "v", "xk", "xv"))
+    st = eng.seed_cache(st, cache)
+    tok = ml[:, -1, :cfg.vocab_size].argmax(-1, keepdim=True)
+    for step in range(4):
+        if step in (1, 3):
+            eng.retier(st, 0, +1 if step == 1 else -1)
+        el, st = eng.decode_step(st, tok)
+        ml, mc = M.decode_step(cfg, params, mc, tok, impl="kernel", enc_len=128)
+        assert torch.equal(el, ml[:, 0])
+        tok = el[:, :cfg.vocab_size].argmax(-1, keepdim=True)
+    eng.close()
