@@ -97,6 +97,21 @@ Phases; any failure exits non-zero without the final ``ok`` line:
    commits one token past a correction is rejected; the sampled serve's
    counts are exact. Printed: acceptance, committed tokens per round, TTFT,
    ms/token, and kernel 5's verify µs per call in a profiled serve.
+2d. captured steps: phase 2's serves (bursty and sporadic), 2b's
+   paged and prefix-cache paths and 2c's n-gram, model and resident
+   drafts on phase 2's weights and prompts, each on an eager backend
+   (EngineBackend(capture=False)) and a captured one (the default: every
+   decode and verify step, and each draft's step, a replayed CUDA graph,
+   one per shape, the counterpart of the JAX package's jax.jit), after a
+   short warm-up serve on each (which captures): every step's logits
+   (the target's and the drafts') bit-equal, tokens identical, the launch
+   counters equal with replays counted. Printed per serve: TTFT and
+   ms/token p50, a profiled serve's device idle share, eager against
+   captured; graphs, capture time, graph-pool bytes. Phases 3b (the
+   80-layer engine's resident draft step), 3c (RWKV6, Hymba), 3g
+   (DeepSeekMoE-16B) and 3h (SeamlessM4T-medium's decode step) check
+   PAIR_STEPS steps captured against eager the same way (step_pair) and
+   print both paces; every serve of every phase runs captured.
 3a. the interleaved engine against the model on phase 2's weights, in a
    plan forced to stream (2 chunks of 2 resident + 2 streamed layers):
    decode and verify logits bit-equal to the model's kernel path (every
@@ -635,9 +650,10 @@ def decode_timed(gen, rows):
         if key.endswith("@encdec"):                       # G 1: head h is KV head h
             k[:, 0] = k[:, -1] = (q[:, 0].float() * ENCDEC_ALIGNED).to(bf16)
         ids = linear_ids(S_c, pos)
+        pos_t = kernel_pos(pos)
 
         def fn():
-            return da.decode_attention(q, k, v, ids, pos, window=window)
+            return da.decode_attention(q, k, v, ids, pos_t, window=window)
         h0 = da.hopper_launches
         out = fn()
         torch.cuda.synchronize()
@@ -668,6 +684,19 @@ def decode_timed(gen, rows):
                          ops_bound_ms=flops / FP32_SIMT_FLOPS * 1e3)
         log(f"    {key}: {ms:.4f} ms; sdpa on the visible prefix {lib} ms; split over "
             f"kernels (µs per call, launches per call) {split}")
+
+
+def kernel_pos(pos):
+    """The position argument of kernels 1 and 4 as the serving steps pass
+    it, for the timed calls: a 0-d int32 tensor on the card (a host int
+    would add a fill kernel to every call); a host int where the imported
+    wrappers take only that (an older checkout timed by tools/time_*.py)."""
+    import torch
+
+    from repro_torch.kernels import _launch
+    if not hasattr(_launch, "device_position"):
+        return pos
+    return torch.full((), pos, dtype=torch.int32, device="cuda")
 
 
 def mq_ids(S_c, pos, Q, kind):
@@ -778,8 +807,10 @@ def mq_phase(gen, rows):
         vis = mq_visible(ids, pos, Q, window)
         mask = vis.clone()
 
+        pos_t = kernel_pos(pos)
+
         def fn():
-            return mq.mq_decode_attention(q, k, v, ids, pos)
+            return mq.mq_decode_attention(q, k, v, ids, pos_t)
         ms = time_ms(fn)
         plain = time_ms(lambda: mq.mq_decode_attention_plain(q, k, v, ids, pos),
                         reps=10)
@@ -2437,6 +2468,258 @@ def spec_phase(cfg, params, card, base):
 
 
 # ----------------------------------------------------------------------------
+# phase 2d: captured steps (CUDA graphs) against eager ones, 8 layers
+# ----------------------------------------------------------------------------
+# phase 2d's serves are short: on a slow host its fourteen serves, their
+# warm-ups and profiles took 100 s at 32 / 16 / 6 tokens
+CAPTURE_NEW = 16          # tokens per request in 2d's plain serves
+CAPTURE_SPEC_NEW = 8      # ... in its speculative serves
+CAPTURE_PROFILE_NEW = 4   # ... in the profiled serves (idle share)
+CAPTURE_SERVES = (
+    # label, EngineBackend keywords, pattern, requests, tokens a request
+    ("dense", {}, "bursty", 4, CAPTURE_NEW),
+    ("dense", {}, "sporadic", 2, CAPTURE_NEW),
+    ("paged", dict(paged=True, page_size=PAGE), "bursty", 4, CAPTURE_NEW),
+    ("paged + prefix cache", dict(prefix_cache=True, page_size=PAGE,
+                                  prefill_chunk_tokens=PREFIX_CHUNK),
+     "bursty", 4, CAPTURE_NEW),
+    ("spec, n-gram draft", dict(spec=dict(draft="ngram")), "bursty", 4,
+     CAPTURE_SPEC_NEW),
+    ("spec, paged + prefix cache, gemma3-1b model draft",
+     dict(spec=dict(draft="model", draft_arch="gemma3-1b"), prefix_cache=True,
+          page_size=PAGE, prefill_chunk_tokens=PREFIX_CHUNK), "bursty", 4,
+     CAPTURE_SPEC_NEW),
+    ("spec, resident draft over all 8 layers", dict(spec=_WHOLE), "bursty", 4,
+     CAPTURE_SPEC_NEW),
+)
+
+
+@contextlib.contextmanager
+def recorded_logits(rec):
+    """Every step's logits appended to rec (a copy): M.decode_step and
+    M.verify_step (the target's and the drafts' steps), the paged cache's
+    step and verify (its prefill rounds too)."""
+    from repro_torch.kvcache.paged_decode import PagedDecodeCache
+    from repro_torch.models import model as M
+
+    def wrap(fn, pick):
+        def f(*a, **kw):
+            out = fn(*a, **kw)
+            rec.append(pick(out).clone())
+            return out
+        return f
+    with _patched(M, "decode_step", wrap(M.decode_step, lambda o: o[0])), \
+            _patched(M, "verify_step", wrap(M.verify_step, lambda o: o[0])), \
+            _patched(PagedDecodeCache, "step", wrap(PagedDecodeCache.step,
+                                                    lambda o: o)), \
+            _patched(PagedDecodeCache, "verify", wrap(PagedDecodeCache.verify,
+                                                      lambda o: o)):
+        yield rec
+
+
+def serve_on(be, prompts, pattern, max_new):
+    """The requests through the scheduler on backend `be` (arrivals as the
+    launcher's pattern places them); returns them by rid."""
+    from repro_torch.serving import (ContinuousBatchingScheduler, Request,
+                                     SchedulerConfig, cli_arrivals)
+    base = be.now()
+    arrivals = cli_arrivals(pattern, len(prompts), prompt_len=len(prompts[0]),
+                            max_new_tokens=max_new, burst_size=be.n_slots)
+    reqs = [Request(i, p, max_new, arrival_s=base + ev.time_s)
+            for i, (ev, p) in enumerate(zip(arrivals, prompts))]
+    done = ContinuousBatchingScheduler(be, SchedulerConfig()).serve(reqs)
+    return sorted(done, key=lambda r: r.rid)
+
+
+def idle_share(fn):
+    """(busy ms, wall ms, device kernels seen) of fn() under the profiler:
+    the device's own time of every kernel and copy it ran, against the
+    wall time."""
+    import torch
+    prof, wall_us = profiled(fn, "repro")
+    busy = n = 0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        busy += e.self_cuda_time_total if us is None else us
+        n += e.count
+    return busy / 1e3, wall_us / 1e3, n
+
+
+def capture_phase(cfg, params, card, base):
+    """Phase 2d: the single-device serves of phases 2, 2b and 2c on phase
+    2's weights and prompts, each eagerly (EngineBackend(capture=False))
+    and captured (the default: every decode and verify step, and the
+    drafts' steps, a replayed CUDA graph). Each backend serves a short
+    warm-up first (on the captured one it captures the graphs), then the
+    measured serve: every step's logits bit-equal between the two, tokens
+    identical, the launch counters equal (replays counted); then a
+    profiled serve for the device's idle share. Printed per serve: TTFT
+    and ms/token p50, idle share, eager against captured; graphs, capture
+    seconds, graph-pool bytes. Returns the captured serves' launches."""
+    import torch
+    from repro_torch.serving import EngineBackend, summarize
+    from repro_torch.specdec import SpecConfig
+    prompts = base[0]
+    log(f"phase 2d: captured steps (CUDA graphs) against eager ones, {cfg.name}, "
+        f"{cfg.n_layers} layers, phase 2's prompts ({PROMPT_LEN} tokens)")
+    launches = dict.fromkeys(kernel_counters(), 0)
+    for label, kw, pattern, n_req, max_new in CAPTURE_SERVES:
+        kw = dict(kw)
+        if "spec" in kw:
+            kw["spec"] = SpecConfig(k=SPEC_K, **kw["spec"])
+        ps = prompts[:n_req]
+        runs = {}
+        for capture in (False, True):
+            be = EngineBackend(cfg, params, n_slots=4 if pattern == "bursty" else 1,
+                               max_len=MAX_LEN, capture=capture, **kw)
+            # warm-up: the first serve captures the graphs, and a capture
+            # empties the allocator's cache, which the second fills again
+            serve_on(be, ps, pattern, 4)
+            serve_on(be, ps, pattern, 2)
+            rec = []
+            torch.cuda.synchronize()
+            zero_counts()
+            t0 = time.monotonic()
+            with recorded_logits(rec):
+                done = serve_on(be, ps, pattern, max_new)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            got = read_counts()
+            rep = summarize(done, pattern=pattern, backend="single-device")
+            busy, pwall, n_dev = idle_share(
+                lambda: serve_on(be, ps, pattern, CAPTURE_PROFILE_NEW))
+            runs[capture] = dict(rec=rec, out=[r.output for r in done], got=got,
+                                 rep=rep, wall=wall, idle=1 - busy / pwall,
+                                 busy=busy, pwall=pwall, n_dev=n_dev,
+                                 graphs=be.graph_stats)
+        e, c = runs[False], runs[True]
+        diff = [i for i, (a, b) in enumerate(zip(e["rec"], c["rec"]))
+                if not torch.equal(a, b)]
+        g = c["graphs"]
+        log(f"  {label}, {pattern} ({n_req} x {max_new} tokens): {len(c['rec'])} step "
+            f"logits, {len(diff)} not bit-equal; tokens "
+            f"{'identical' if e['out'] == c['out'] else 'DIFFERENT'}; launches "
+            f"{'equal' if e['got'] == c['got'] else 'DIFFERENT'} "
+            f"({ {k: v for k, v in c['got'].items() if v} }); TTFT p50 "
+            f"{e['rep'].ttft_p50_s * 1e3:.2f} eager / {c['rep'].ttft_p50_s * 1e3:.2f} "
+            f"captured ms; decode {1e3 / e['rep'].decode_tok_s_p50:.3f} / "
+            f"{1e3 / c['rep'].decode_tok_s_p50:.3f} ms/token (p50); serve {e['wall']:.2f} "
+            f"/ {c['wall']:.2f} s; idle share {e['idle']:.1%} / {c['idle']:.1%} (device "
+            f"{e['busy']:.1f} / {c['busy']:.1f} ms of {e['pwall']:.1f} / "
+            f"{c['pwall']:.1f} ms wall, {e['n_dev']} / {c['n_dev']} device events, "
+            f"{CAPTURE_PROFILE_NEW} tokens a request); graphs {g['graphs']} "
+            f"({g['captures']} captured in {g['capture_s'] * 1e3:.0f} ms, "
+            f"{g['replays']} replays), the drafts' {g['draft_graphs']} "
+            f"({g['draft_captures']} in {g['draft_capture_s'] * 1e3:.0f} ms, "
+            f"{g['draft_replays']} replays), graph pool "
+            f"{g['pool_bytes'] / 2**20:.1f} MiB [{card}; {cfg.n_layers} layers]")
+        if len(e["rec"]) != len(c["rec"]) or diff:
+            raise AssertionError(f"2d {label}: captured step logits differ from the "
+                                 f"eager ones at {diff[:8]} ({len(e['rec'])} / "
+                                 f"{len(c['rec'])} steps)")
+        if e["out"] != c["out"] or e["got"] != c["got"]:
+            raise AssertionError(f"2d {label}: tokens or launches differ")
+        if g["replays"] <= 0 or c["n_dev"] <= 0:
+            raise AssertionError(f"2d {label}: no replay ({g}) or no device event "
+                                 "in the captured profile")
+        for k, v in c["got"].items():
+            launches[k] += v
+    return launches
+
+
+PAIR_STEPS = 5            # steps of a captured-vs-eager pair check
+
+
+def step_pair(label, step, tok, card, save, restore, n=PAIR_STEPS, steps=None):
+    """n steps of step(tok, steps) (steps None: eager; a CapturedStep:
+    replayed), each run eagerly, then with the state put back as the eager
+    step found it (save() -> restore(saved)) through the graph: logits bit
+    for bit and the launch counters' advance equal; the next token the
+    eager step's greedy pick. Prints both paces (the median step; the
+    first captured step captures). `steps`: the CapturedStep whose graph
+    pool is reported (a new one by default). Returns (eager ms, captured
+    ms)."""
+    import torch
+    from repro_torch.core.capture import CapturedStep
+    steps = CapturedStep("cuda") if steps is None else steps
+    times = {False: [], True: []}
+    for _ in range(n):
+        saved = save()
+        out = {}
+        for cap in (False, True):
+            if cap:
+                restore(saved)
+            c0 = read_counts()
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            lg = step(tok, steps if cap else None)
+            torch.cuda.synchronize()
+            times[cap].append(time.monotonic() - t0)
+            out[cap] = (lg, {k: v - c0[k] for k, v in read_counts().items() if v != c0[k]})
+        if not torch.equal(out[False][0], out[True][0]):
+            raise AssertionError(f"{label}: a captured step's logits differ from the "
+                                 "eager step's")
+        if out[False][1] != out[True][1] or not out[False][1]:
+            raise AssertionError(f"{label}: launches {out[False][1]} eager, "
+                                 f"{out[True][1]} captured")
+        lg = out[False][0]
+        tok = lg.reshape(lg.shape[0], -1, lg.shape[-1])[:, -1].argmax(-1, keepdim=True)
+    me, mc = (statistics.median(times[c]) * 1e3 for c in (False, True))
+    log(f"  {label}: {n} steps captured against eager, logits bit-equal, launches "
+        f"equal ({out[True][1]} a step); {me:.3f} ms eager, {mc:.3f} ms captured a step "
+        f"(median; capture {times[True][0] * 1e3:.1f} ms, graph pool "
+        f"{steps.pool_bytes() / 2**20:.1f} MiB) [{card}]")
+    return me, mc
+
+
+def model_step_pair(label, cfg, params, cache, tok, card, **kw):
+    """step_pair over M.decode_step on a model cache (kw: impl, enc_len),
+    the whole cache saved and put back in place around each eager step."""
+    from repro_torch.models import model as M
+
+    def save():
+        return {k: v.clone() if hasattr(v, "clone") else v for k, v in cache.items()}
+
+    def restore(saved):
+        for k, v in saved.items():
+            if hasattr(v, "clone"):
+                cache[k].copy_(v)
+            else:
+                cache[k] = v
+    return step_pair(label, lambda t, steps: M.decode_step(
+        cfg, params, cache, t, steps=steps, **kw)[0], tok, card, save, restore)
+
+
+def engine_draft_pair(eng, st, tok, card, what, steps):
+    """step_pair over the engine's resident-only draft step (`steps`, a
+    CapturedStep, for the captured run): pure-KV, so putting the state back
+    is rolling its position back. The state ends where it began."""
+    P = st["pos"]
+    step_pair(f"the engine's draft step ({what}, B {eng.mb})",
+              lambda t, s: eng.draft_step(st, t, steps=s)[0], tok, card,
+              lambda: st["pos"], lambda p: eng.rollback(st, p), steps=steps)
+    eng.rollback(st, P)
+
+
+def prefilled_pair(cfg, params, prompts, card):
+    """model_step_pair on the model's decode step after a prefill of the
+    bursty batch `prompts` (impl "kernel")."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import model as M
+    toks = torch.from_numpy(np.stack(prompts)).long().cuda()
+    cache = M.init_cache(cfg, toks.shape[0], MAX_LEN)
+    lg, cache = M.prefill(cfg, params, toks, cache, impl="kernel")
+    model_step_pair(f"{cfg.name} decode step (B {toks.shape[0]}, {cfg.n_layers} "
+                    "layers)", cfg, params, cache,
+                    lg[:, -1, :cfg.vocab_size].argmax(-1, keepdim=True), card,
+                    impl="kernel")
+
+
+# ----------------------------------------------------------------------------
 # phase 3a: the engine against the model, 8 layers
 # ----------------------------------------------------------------------------
 def argmax_or_tie(name, got, ref, err):
@@ -2926,6 +3209,8 @@ def recurrent_serve(arch, card):
     lap(f"{cfg.name} planted faults")
     prefill_vs_stepwise(cfg, params, prompts, card)
     lap(f"{cfg.name} prefill vs token-by-token")
+    prefilled_pair(cfg, params, prompts, card)
+    lap(f"{cfg.name} captured against eager steps")
     recurrent_breakdown(cfg, params, card)
     lap(f"{cfg.name} profiled serve")
     return got
@@ -3449,6 +3734,7 @@ def full_model_phase(card):
     from repro_torch.configs import get_config
     from repro_torch.core.engine import (InterleavedEngine, plan_for,
                                          weight_budget)
+    from repro_torch.core.capture import CapturedStep
     from repro_torch.core.online_planner import OnlinePlanner
     from repro_torch.kernels.decode_attention import multiquery as mq
     from repro_torch.launch.serve import HBM_FRAC, cost_env, hetero_plan, measure_h2d
@@ -3562,6 +3848,7 @@ def full_model_phase(card):
         be = srv.make_backend()
         rep = summarize(done, pattern=pattern, backend="engine", stats=stats)
         spec_rounds = [c for k, c in be.rounds if k]
+        g = be.graph_stats
         log(f"  {pattern}: {rep.n_requests} requests x {MAX_NEW_80} tokens, "
             f"prompt {PROMPT_LEN}: TTFT p50 {rep.ttft_p50_s * 1e3:.1f} ms, p99 "
             f"{rep.ttft_p99_s * 1e3:.1f} ms; decode {1e3 / rep.decode_tok_s_p50:.1f} "
@@ -3569,7 +3856,15 @@ def full_model_phase(card):
             f"({rep.spec_accepted}/{rep.spec_drafted} drafts); "
             f"{len(be.rounds)} rounds, committed per round mean "
             f"{np.mean(spec_rounds):.2f}; launches mq {m} ({vf} verify body), decode {d}; retier "
-            f"{applied}; {wall:.1f} s wall [{card}; {L} layers]")
+            f"{applied}; the draft step's graphs: {g['draft_captures']} captured in "
+            f"{g['draft_capture_s'] * 1e3:.0f} ms over {1 if pattern == 'bursty' else n_req} epochs, "
+            f"{g['draft_replays']} replays, graph pool {g['pool_bytes'] / 2**20:.1f} MiB; "
+            f"{wall:.1f} s wall [{card}; {L} layers]")
+        # the engine's state is cleared in place between epochs: the draft
+        # step is captured again only where a retier moved the tiers
+        if not 1 <= g["draft_captures"] <= 1 + sum(abs(a[1]) for a in applied):
+            raise AssertionError(f"{pattern}: the draft step was captured "
+                                 f"{g['draft_captures']} times ({applied} retiers)")
         if pattern == "bursty" and not (applied and applied[0][2]):
             raise AssertionError("bursty: the retier(+1) did not land mid-serve")
         if eng.demoted(0):               # the serve ended before round 4
@@ -3637,9 +3932,12 @@ def full_model_phase(card):
     lg, st = eng.prefill_partial(st, toks, chunk=PREFILL_CHUNK)
     P = st["pos"]
     cur = lg[:, -1, :cfg.vocab_size].argmax(-1, keepdim=True)
+    draft_steps = CapturedStep(eng.device)
+    engine_draft_pair(eng, st, cur, card, f"{L} layers, {len(eng.resident_layer_ids())} "
+                      "resident", draft_steps)
     mat = torch.cat([cur, toks[:, :SPEC_K]], 1)
     times = {}
-    for label, fn in (("draft", lambda: eng.draft_step(st, cur)),
+    for label, fn in (("draft", lambda: eng.draft_step(st, cur, steps=draft_steps)),
                       ("verify q_len 5", lambda: eng.verify_step(st, mat)),
                       ("decode", lambda: eng.decode_step(st, cur))):
         times[label] = []
@@ -4202,7 +4500,9 @@ def layer_errors(cfg, params, prompts, card, label):
     for phase in ("prefill", "decode"):
         src = toks if phase == "prefill" else tok
         x = {i: M.embed(params, src).to(torch.bfloat16) for i in caches}
-        slot = {i: M.new_positions(caches[i], 1) for i in caches} \
+        pos = {i: torch.full((), caches[i]["pos"], dtype=torch.int32, device="cuda")
+               for i in caches}
+        slot = {i: M.new_positions(caches[i], 1, pos[i]) for i in caches} \
             if phase == "decode" else None
         rows = []
         for l in range(L):
@@ -4221,8 +4521,9 @@ def layer_errors(cfg, params, prompts, card, label):
                     if phase == "prefill":
                         y = M.prefill_layer(cfg, p, inp, cache, li, win[l], impl=impl)
                     else:
-                        s = slot["ref" if run == "ref" else "kernel"]
-                        y = M.step_layer(cfg, p, inp, cache, li, s, win[l], impl=impl)
+                        i = "ref" if run == "ref" else "kernel"
+                        y = M.step_layer(cfg, p, inp, cache, li, slot[i], pos[i], win[l],
+                                         impl=impl)
                 res[run] = (y, calls)
             rows.append((rel(res["kernel"][0], res["ref"][0]),
                          rel(res["kernel"][0], res["own"][0]),
@@ -4675,6 +4976,8 @@ def moe_phase(card):
     add(got)
     shapes["mq_decode_attention@moe"] = got["mq_decode_attention"]
     lap("(a) speculative serve")
+    prefilled_pair(cfg, params, served["bursty"][0], card)
+    lap("(a) captured against eager steps")
     del params, served
     gc.collect()
     torch.cuda.empty_cache()
@@ -4743,7 +5046,7 @@ def encdec_inputs(cfg, n=4):
 
 
 def encdec_run(cfg, params, fe, toks, impl, feed=None, steps=None, seed=None,
-               box=None, counts=False):
+               box=None, counts=False, capture=False):
     """The reference's flow on the model path (its dryrun): encode ->
     seed_cross_kv -> prefill -> decode_step(enc_len=S_enc), `steps`
     positions in all (ENCDEC_NEW by default). Each step is fed feed[:, t]
@@ -4753,11 +5056,14 @@ def encdec_run(cfg, params, fe, toks, impl, feed=None, steps=None, seed=None,
     M.seed_cross_kv (a planted fault); box, where given, receives the
     cache. counts: the encoder must launch kernel 2 once a layer, the
     prompt pass twice a layer (self and cross), every step kernel 1 twice
-    a layer, all on the Hopper bodies and nothing else. Returns (logits
+    a layer, all on the Hopper bodies and nothing else. capture: the
+    decode steps replay one CUDA graph (a CapturedStep). Returns (logits
     (steps, B, V) fp32, their argmaxes (B, steps))."""
     import torch
 
+    from repro_torch.core.capture import CapturedStep
     from repro_torch.models import model as M
+    graphs = CapturedStep("cuda") if capture else None
     V, L, S_enc = cfg.vocab_size, cfg.n_layers, fe.shape[1]
     steps = ENCDEC_NEW if steps is None else steps
 
@@ -4785,7 +5091,8 @@ def encdec_run(cfg, params, fe, toks, impl, feed=None, steps=None, seed=None,
     for t in range(steps - 1):
         tok = feed[:, t:t + 1] if feed is not None else out[-1].argmax(-1, keepdim=True)
         c0 = read_counts()
-        lg, cache = M.decode_step(cfg, params, cache, tok, impl=impl, enc_len=S_enc)
+        lg, cache = M.decode_step(cfg, params, cache, tok, impl=impl, enc_len=S_enc,
+                                  steps=graphs)
         expect(c0, decode_attention=2 * L)
         out.append(lg[:, -1, :V].float())
     logits = torch.stack(out)
@@ -4864,7 +5171,7 @@ def encdec_model_check(cfg, params, fe, toks, card):
     n, T = fe.shape[0], ENCDEC_NEW
     zero_counts()
     t0 = time.monotonic()
-    lg_k, got = encdec_run(cfg, params, fe, toks, "kernel", counts=True)
+    lg_k, got = encdec_run(cfg, params, fe, toks, "kernel", counts=True, capture=True)
     torch.cuda.synchronize()
     launches = read_counts()
     wall = time.monotonic() - t0
@@ -4931,6 +5238,9 @@ def encdec_model_check(cfg, params, fe, toks, card):
     t_dec = timed_s(steps)
     log(f"  {ENCDEC_PROFILE} decode steps on the kernel path, no counters: "
         f"{t_dec / ENCDEC_PROFILE * 1e3:.3f} ms/token (B {n}) [{card}]")
+    c = {k: v.clone() if k in ("k", "v", "pos_ids") else v for k, v in cache.items()}
+    model_step_pair(f"{cfg.name} decode step (B {n}, enc_len {fe.shape[1]})", cfg,
+                    params, c, got[:, 1:2], card, impl="kernel", enc_len=fe.shape[1])
     pass_profile(None, None, None, lambda: encdec_run(cfg, params, fe, toks, "kernel",
                                                       steps=1), card,
                  f"{cfg.name} encode + cross K/V + prefill")
@@ -5256,8 +5566,11 @@ def main() -> int:
         spec_launches = spec_phase(cfg8, params8, card, base)
         for k, n in spec_launches.items():
             launches[k] = launches.get(k, 0) + n
-        del base
         t = done("2c", t)
+        for k, n in capture_phase(cfg8, params8, card, base).items():
+            launches[k] = launches.get(k, 0) + n
+        del base
+        t = done("2d", t)
         engine_check_phase(cfg8, params8, card)
         t = done("3a", t)
         del params8

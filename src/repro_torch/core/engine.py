@@ -74,6 +74,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import Family, ModelConfig
+from repro_torch.core import capture
+from repro_torch.core.capture import CapturedStep
 from repro_torch.core.cost_model import ExecutionPlan
 from repro_torch.device import resolve_device
 from repro_torch.kvcache.allocator import BlockTable
@@ -377,6 +379,10 @@ class InterleavedEngine:
         self._streamer: Optional[_Streamer] = None
         self._buf_views: List[dict] = []
         self._shared: dict = {}
+        # what fixes a captured draft step's graph beside its state (the
+        # JAX engine's jitted draft program): every retier and weight load
+        # bumps it
+        self.layout_version = 0
         self._refresh_tier_inputs()
         self._build_res = self._res_ids      # the layout before any retier
 
@@ -389,6 +395,7 @@ class InterleavedEngine:
     def _refresh_tier_inputs(self) -> None:
         self._res_ids, self._off_ids = plan_layout(self.plan, self.H,
                                                    self.k_res_live)
+        self.layout_version += 1
 
     def _real(self, l) -> bool:
         return int(l) < self.cfg.n_layers
@@ -470,6 +477,7 @@ class InterleavedEngine:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         self._loaded_from = params
+        self.layout_version += 1
 
     def close(self) -> None:
         """Free the tiers (the pinned store is unregistered first)."""
@@ -477,22 +485,28 @@ class InterleavedEngine:
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             self._store.close()
+        self.layout_version += 1
         self._store = self._streamer = None
         self._res, self._res_views, self._shared = {}, {}, {}
         self._buf_views = []
         self._loaded_from = None
 
     # -- state -----------------------------------------------------------------
-    def init_state(self, params: dict) -> dict:
+    def init_state(self, params: dict, reuse: Optional[dict] = None) -> dict:
         """Load the weights from params (shared leaves plus "layers", a
         stacked tree or a layer source, see M.init_params_by_layer) unless
         this params object is already loaded, and return a fresh state:
         an empty cache (K/V, recurrent states, zero cross K/V of enc_len
-        frames) for mb sequences at pos 0."""
+        frames) for mb sequences at pos 0. `reuse`, an earlier state of
+        this engine, is cleared in place and returned instead: its tensors
+        keep their addresses, so a draft step captured over it stays
+        valid."""
         if "dense_layers" in params:
             raise ValueError(HOMOGENEOUS)
         if self._loaded_from is not params:
             self._load(params)
+        if reuse is not None:
+            return M.clear_cache(reuse)
         return self._empty_cache()
 
     def _empty_cache(self) -> dict:
@@ -530,21 +544,45 @@ class InterleavedEngine:
             raise RuntimeError("init_state(params) loads the weights first")
 
     def _pass(self, state: dict, tokens: torch.Tensor, *, multi: bool,
-              resident_only: bool = False):
+              resident_only: bool = False,
+              steps: Optional[CapturedStep] = None):
+        """One pass: the host prelude (M.step_prelude's checks), the device
+        body (_pass_body), then pos advanced. With `steps` (a resident-only
+        pass, the draft step: no streamed layer, so no side-stream copy or
+        event) the body replays its CUDA graph for the shape; a streamed
+        pass runs eagerly."""
         self._check_loaded()
+        q_len = tokens.shape[1]
+        M.step_prelude(self.cfg, state, q_len, impl=self.impl, multi=multi,
+                       enc_len=self.enc_len)
+
+        def body(tok, pos):
+            return self._pass_body(state, tok, pos, multi=multi,
+                                   resident_only=resident_only)
+        if steps is not None and not resident_only:
+            raise ValueError("a streamed pass is not captured")
+        logits = capture.run(
+            steps, ("draft", multi), body, tokens, state["pos"],
+            scope=lambda: (self.layout_version, capture.tensor_scope(state)),
+            device=self.device)
+        state["pos"] += q_len
+        return logits
+
+    def _pass_body(self, state: dict, tokens: torch.Tensor, pos: torch.Tensor,
+                   *, multi: bool, resident_only: bool) -> torch.Tensor:
+        """The device body of a pass: tokens (mb, q_len) at positions
+        pos + i (pos a 0-d int32 device tensor equal to state["pos"])
+        through the tiers, M.step_layer on each layer. Returns logits."""
         cfg = self.cfg
-        pos = state["pos"]
         x = M.embed(self._shared, tokens).to(torch.bfloat16)
-        M.check_enc_len(cfg, state, self.enc_len)
-        slot = M.new_positions(state, tokens.shape[1]) \
-            if "pos_ids" in state else 0
+        slots = M.new_positions(state, tokens.shape[1], pos) \
+            if "pos_ids" in state else None
 
         def body(p, l, x):
-            return M.step_layer(cfg, p, x, state, l, slot, self.windows[l],
-                                impl=self.impl, multi=multi,
+            return M.step_layer(cfg, p, x, state, l, slots, pos,
+                                self.windows[l], impl=self.impl, multi=multi,
                                 enc_len=self.enc_len)
         x = self._run_layers(x, body, resident_only)
-        state["pos"] = pos + tokens.shape[1]
         x = rms_norm(x, self._shared["final_norm"], cfg.norm_eps)
         return unembed(self._shared, x)
 
@@ -615,7 +653,10 @@ class InterleavedEngine:
         for key, v in cache.items():
             if self.paged and key in ("k", "v"):
                 v = self._through_pages(v, ctx)
-            state[key] = v
+            if isinstance(state.get(key), torch.Tensor):
+                state[key].copy_(v)     # in place: a captured draft step
+            else:                       # over the state stays valid
+                state[key] = v
         return state
 
     def decode_step(self, state: dict, tokens: torch.Tensor):
@@ -659,14 +700,17 @@ class InterleavedEngine:
     def verify_requests(self, state, tokens, active):
         return self.verify_step(state, self._masked(tokens, active))
 
-    def draft_step(self, state: dict, tokens: torch.Tensor):
+    def draft_step(self, state: dict, tokens: torch.Tensor, *,
+                   steps: Optional[CapturedStep] = None):
         """One decode step through only the live resident tier (nothing
         streamed), the final norm and lm_head as the early-exit draft
         head. tokens: (mb, 1) -> (logits (mb, PV), state), pos advanced by
         1. Its K/V land in resident layers only; after rollback the verify
         pass overwrites every layer's rows at the drafted positions before
         reading them, so drafting leaks nothing into the verified stream.
-        It never touches the page accounting (note_committed does)."""
+        It never touches the page accounting (note_committed does). With
+        `steps` (the caller's CapturedStep) it replays a CUDA graph, one
+        per batch shape and layout version."""
         if self.cfg.family not in M.PURE_KV:
             raise NotImplementedError(
                 f"resident self-draft needs pure-KV per-layer state "
@@ -674,11 +718,12 @@ class InterleavedEngine:
         if self.k_res_cap == 0:
             raise ValueError("resident self-draft needs a resident tier "
                              "(this plan streams every layer)")
-        return self._pass(state, tokens, multi=False,
-                          resident_only=True)[:, 0], state
+        return self._pass(state, tokens, multi=False, resident_only=True,
+                          steps=steps)[:, 0], state
 
-    def draft_requests(self, state, tokens, active):
-        return self.draft_step(state, self._masked(tokens, active))
+    def draft_requests(self, state, tokens, active, *, steps=None):
+        return self.draft_step(state, self._masked(tokens, active),
+                               steps=steps)
 
     def prefill_partial(self, state: dict, tokens: torch.Tensor, *,
                         chunk: int = 0):

@@ -26,6 +26,24 @@ def check_cuda_inputs(name: str, *tensors: torch.Tensor) -> int:
     return DTYPE_CODES[dt]
 
 
+def device_position(name: str, pos, device: torch.device) -> torch.Tensor:
+    """The position a decode kernel reads from device memory: a 0-d int32
+    tensor on `device` as it is, or a host int written into a new one. A
+    host int would be frozen into a CUDA graph under capture, so it is
+    refused while the current stream captures."""
+    if isinstance(pos, torch.Tensor):
+        if pos.shape != () or pos.dtype != torch.int32 or pos.device != device:
+            raise ValueError(f"{name}: pos must be a 0-d int32 tensor on "
+                             f"{device}, not {tuple(pos.shape)} {pos.dtype} "
+                             f"on {pos.device}")
+        return pos
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"{name}: a host int position would be frozen into "
+                           "the graph being captured; pass a 0-d int32 "
+                           "device tensor")
+    return torch.full((), pos, dtype=torch.int32, device=device)
+
+
 def stream_handle(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 

@@ -29,11 +29,11 @@ F = ctypes.c_float
 # every pointer and the stream as c_void_p: a default int would cut a
 # 64-bit pointer to 32 bits
 SIGNATURES = {
-    "repro_decode_attention": [P, P, P, P, P, I, I, I, I, I, I, I, F, I, I,
+    "repro_decode_attention": [P, P, P, P, P, I, I, I, I, I, P, I, F, I, I,
                                I, P],
     "repro_flash_attention": [P, P, P, P, I, I, I, I, I, I, I, I, I, F, I,
                               I, P],
-    "repro_mq_decode_attention": [P, P, P, P, P, I, I, I, I, I, I, I, I, F,
+    "repro_mq_decode_attention": [P, P, P, P, P, I, I, I, I, I, I, P, I, F,
                                   I, I, I, P],
     "repro_paged_decode_attention": [P, P, P, P, P, P, I, I, I, I, I, I, I, F,
                                      I, I, I, P],

@@ -121,9 +121,14 @@ def n_splits(body: str, B: int, Q: int, H: int, KV: int, S: int,
 
 def mq_decode_attention(q, k_cache, v_cache, pos_ids, pos, *, window=None):
     """q: (B, q_len, H, dh); k/v_cache: (B, S_c, KV, dh); pos_ids: (S_c,)
-    int32; pos: int, the position of query 0 -> (B, q_len, H, dh). CPU
-    tensors take the plain version; CUDA tensors launch the kernel or
-    raise (bf16 only: the kernel's products run on bf16 tensor cores)."""
+    int32; pos: the position of query 0, an int or a 0-d int32 tensor on
+    q's device (``_launch.device_position``: the kernel reads it from
+    device memory) -> (B, q_len, H, dh). CPU tensors take the plain
+    version; CUDA tensors launch the kernel or raise (bf16 only: the
+    kernel's products run on bf16 tensor cores). The prefill rounds' body
+    (mq_body "mainloop") is not captured into CUDA graphs: it encodes its
+    TMA descriptors on the host, so a call that takes it while the stream
+    captures raises."""
     global launches, hopper_launches, verify_sm90_launches
     if q.device.type == "cpu":
         return mq_decode_attention_plain(q, k_cache, v_cache, pos_ids, pos,
@@ -151,13 +156,18 @@ def mq_decode_attention(q, k_cache, v_cache, pos_ids, pos, *, window=None):
     window = GLOBAL_WINDOW if window is None else int(window)
     if window < 1:
         raise ValueError(f"mq_decode_attention: window={window} must be >= 1")
+    pos = _launch.device_position("mq_decode_attention", pos, q.device)
     vec = _launch.vector_ok(dh, q, k_cache, v_cache)
     body = mq_body(Q, H // KV, dh, vec)
+    if body == "mainloop" and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("mq_decode_attention: the prefill rounds' Hopper "
+                           "mainloop is not captured (host-built TMA "
+                           f"descriptors); q_len {Q} x G {H // KV} rows")
     n_split = n_splits(body, B, Q, H, KV, S_c, _sm_count(q.device.index))
     out = torch.empty_like(q)
     rc = build.load().repro_mq_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        pos_ids.data_ptr(), out.data_ptr(), B, Q, S_c, H, KV, dh, int(pos),
+        pos_ids.data_ptr(), out.data_ptr(), B, Q, S_c, H, KV, dh, pos.data_ptr(),
         window, float(dh) ** -0.5, n_split, vec, dtype,
         _launch.stream_handle(q.device))
     if rc:

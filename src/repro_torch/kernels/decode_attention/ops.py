@@ -6,8 +6,11 @@ kernel is ``repro_torch/csrc/decode_attention.cu``; its header says what
 bounds it on the H100 and how the design meets that.
 
 Model layout in and out: q (B, 1, H, dh), cache (B, S_c, KV, dh),
-pos_ids (S_c,) int32 with -1 for an empty slot, pos the current position.
-A slot is visible iff 0 <= pos_id <= pos and pos - pos_id < window.
+pos_ids (S_c,) int32 with -1 for an empty slot, pos the current position
+(an int, or a 0-d int32 tensor on the inputs' device: the kernel reads it
+from device memory, as the TPU kernel reads its SMEM scalar, so a captured
+CUDA graph serves every position). A slot is visible iff 0 <= pos_id <= pos
+and pos - pos_id < window.
 """
 from __future__ import annotations
 
@@ -77,8 +80,9 @@ def takes_hopper_decode(dtype, dh: int, vec: int, G: int) -> bool:
 
 def decode_attention(q, k_cache, v_cache, pos_ids, pos, *, window=None):
     """q: (B, 1, H, dh); k/v_cache: (B, S_c, KV, dh); pos_ids: (S_c,)
-    int32; pos: int -> (B, 1, H, dh). CPU tensors take the plain version;
-    CUDA tensors launch the kernel or raise."""
+    int32; pos: int or 0-d int32 tensor on q's device (``_launch.
+    device_position``) -> (B, 1, H, dh). CPU tensors take the plain
+    version; CUDA tensors launch the kernel or raise."""
     global launches, hopper_launches
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, pos_ids, pos,
@@ -99,13 +103,14 @@ def decode_attention(q, k_cache, v_cache, pos_ids, pos, *, window=None):
             or pos_ids.device != q.device or not pos_ids.is_contiguous():
         raise ValueError("decode_attention: pos_ids must be a contiguous "
                          f"({S_c},) int32 tensor on {q.device}")
+    pos = _launch.device_position("decode_attention", pos, q.device)
     window = GLOBAL_WINDOW if window is None else int(window)
     n_split = split_count(B, KV, S_c, _sm_count(q.device.index))
     vec = _launch.vector_ok(dh, q, k_cache, v_cache)
     out = torch.empty_like(q)
     rc = build.load().repro_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        pos_ids.data_ptr(), out.data_ptr(), B, S_c, H, KV, dh, int(pos),
+        pos_ids.data_ptr(), out.data_ptr(), B, S_c, H, KV, dh, pos.data_ptr(),
         window, float(dh) ** -0.5, n_split, vec, dtype,
         _launch.stream_handle(q.device))
     if rc:

@@ -19,9 +19,13 @@ full page below `pos` (matches are page-aligned and capped below the
 prompt's end), so no write of a later position can land on one.
 
 Host/device split: BlockTable + PagePool bookkeeping is host-side Python;
-the kernels read a device copy of the tables, (B, max_pages) int32,
-uploaded again only when a table changed (`bt_uploads` counts them). The
-shared position `pos` stays a host int, as in the model.
+the kernels read a device copy of the tables, one static (B, max_pages)
+int32 buffer written in place, uploaded again only when a table changed
+(`bt_uploads` counts them). The shared position `pos` stays a host int,
+as in the model; the device body of a step (`_run`) takes its positions,
+pages and ctx from a 0-d int32 device copy of it, so `step` and `verify`
+can replay a captured CUDA graph (`steps=`, a core.capture.CapturedStep)
+at every position.
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import Family, ModelConfig
+from repro_torch.core import capture
 from repro_torch.device import resolve_device
 from repro_torch.kvcache.allocator import BlockTable
 from repro_torch.kvcache.layout import scatter_to_pages
@@ -79,7 +84,11 @@ class PagedDecodeCache:
         self.k_pool = torch.zeros(shp, dtype=torch.bfloat16, device=self.device)
         self.v_pool = torch.zeros(shp, dtype=torch.bfloat16, device=self.device)
         self.pos = 0
-        self._bt_dev = None
+        # the tables on the device: one buffer for the cache's life (a
+        # captured step reads it at its address), refreshed when dirty
+        self._bt_dev = torch.full((batch, self.max_pages), -1,
+                                  dtype=torch.int32, device=self.device)
+        self._bt_dirty = True
         self._spec_len = 0
         self.bt_uploads = 0       # host -> device copies of the block table
 
@@ -89,18 +98,19 @@ class PagedDecodeCache:
 
     # -- table <-> device bridge -------------------------------------------------
     def _device_tables(self) -> torch.Tensor:
-        if self._bt_dev is None:
+        if self._bt_dirty:
             bt = np.full((self.batch, self.max_pages), -1, np.int32)
             for b, t in enumerate(self.tables):
                 bt[b, :len(t.pages)] = t.pages
-            self._bt_dev = torch.from_numpy(bt).to(self.device)
+            self._bt_dev.copy_(torch.from_numpy(bt))
+            self._bt_dirty = False
             self.bt_uploads += 1
         return self._bt_dev
 
     def _extend_all(self, n_tokens: int) -> None:
         for t in self.tables:
             if self.pool.extend_table(t, n_tokens):
-                self._bt_dev = None      # table grew: refresh device copy
+                self._bt_dirty = True    # table grew: refresh device copy
 
     # -- epoch lifecycle over a persistent pool ------------------------------------
     def reset_tables(self) -> None:
@@ -111,7 +121,7 @@ class PagedDecodeCache:
             self.pool.release_table(t)
             self.tables[i] = BlockTable(self.pool.page_size)
         self.pos = 0
-        self._bt_dev = None
+        self._bt_dirty = True
 
     def adopt_tables(self, tables: List[BlockTable], pos: int) -> None:
         """Take ownership of externally built tables (radix prefix forks:
@@ -120,7 +130,7 @@ class PagedDecodeCache:
         assert len(tables) == self.batch, (len(tables), self.batch)
         self.tables = tables
         self.pos = pos
-        self._bt_dev = None
+        self._bt_dirty = True
 
     # -- seeding from a dense prefill cache --------------------------------------
     def seed(self, cache: Dict) -> None:
@@ -137,18 +147,20 @@ class PagedDecodeCache:
         self.pos = pos
 
     # -- the stack ---------------------------------------------------------------
-    def _run(self, params, tokens: torch.Tensor, multi: bool):
-        """tokens (B, Q) at positions pos .. pos + Q - 1, their pages
-        already in the tables: every layer writes their K/V and attends
-        through the tables. Returns logits (B, Q, PV)."""
+    def _run(self, params, tokens: torch.Tensor, pos: torch.Tensor,
+             multi: bool):
+        """The device body: tokens (B, Q) at positions pos .. pos + Q - 1
+        (pos a 0-d int32 device tensor equal to self.pos), their pages
+        already in the device tables: every layer writes their K/V and
+        attends through the tables. Returns logits (B, Q, PV)."""
         cfg = self.cfg
         B, Q = tokens.shape
         ps = self.pool.page_size
-        dev = self.device
-        bt = self._device_tables()
-        qpos = torch.arange(self.pos, self.pos + Q, device=dev)
+        bt = self._bt_dev
+        qpos = pos + torch.arange(Q, device=self.device)
         page_ids = bt.index_select(1, qpos // ps).long()     # (B, Q)
-        ctx = torch.full((B,), self.pos + Q, dtype=torch.int32, device=dev)
+        rows = qpos % ps
+        ctx = (pos + Q).expand(B).contiguous()               # (B,) int32
         x = embed(params, tokens).to(torch.bfloat16)
         for l, window in enumerate(M.layer_windows(cfg, cfg.n_layers)):
             p = M.layer_params(params, l)
@@ -156,16 +168,30 @@ class PagedDecodeCache:
             if multi:
                 a_out = paged_attn_decode_multi(
                     p["attn"], xn, self.k_pool[l], self.v_pool[l], page_ids,
-                    qpos % ps, bt, ctx, self.pos, rope_theta=cfg.rope_theta,
+                    rows, bt, ctx, pos, rope_theta=cfg.rope_theta,
                     window=window, impl=self.impl)
             else:
                 a_out = paged_attn_decode(
                     p["attn"], xn, self.k_pool[l], self.v_pool[l],
-                    page_ids[:, 0], self.pos % ps, bt, ctx, self.pos,
+                    page_ids[:, 0], rows[0], bt, ctx, pos,
                     rope_theta=cfg.rope_theta, window=window, impl=self.impl)
             x = M.dense_rest(cfg, p, x, xn, a_out)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         return unembed(params, x)
+
+    def _launch(self, params, tokens: torch.Tensor, multi: bool, steps):
+        """The host side of a step around its device body: the tables
+        uploaded if they changed, then the body, eagerly or replayed."""
+        self._device_tables()
+
+        def body(tok, pos):
+            return self._run(params, tok, pos, multi)
+
+        def scope():
+            return (id(params), self.k_pool.data_ptr(),
+                    self.v_pool.data_ptr(), self._bt_dev.data_ptr())
+        return capture.run(steps, ("paged", multi, self.impl), body, tokens,
+                           self.pos, scope=scope, device=self.device)
 
     def _tokens(self, tokens) -> torch.Tensor:
         return torch.as_tensor(np.asarray(tokens) if not isinstance(
@@ -195,29 +221,31 @@ class PagedDecodeCache:
         return last
 
     # -- one decode step ---------------------------------------------------------
-    def step(self, params, token):
+    def step(self, params, token, *, steps=None):
         """token: (B, 1) int -> logits (B, 1, PV). Allocates the next page
-        of every sequence when `pos` crosses a page boundary."""
+        of every sequence when `pos` crosses a page boundary. With `steps`
+        (a CapturedStep) the body replays its CUDA graph."""
         if self.pos >= self.max_len:
             raise ValueError(f"decode past max_len ({self.max_len})")
         self._extend_all(self.pos + 1)
-        logits = self._run(params, self._tokens(token), multi=False)
+        logits = self._launch(params, self._tokens(token), False, steps)
         self.pos += 1
         return logits
 
     # -- verify / commit ---------------------------------------------------------
-    def verify(self, params, tokens):
+    def verify(self, params, tokens, *, steps=None):
         """Score q_len positions in one pass. tokens: (B, q_len) int.
         Allocates pages for all q_len positions and writes their K/V;
         returns logits (B, q_len, PV). `pos` does not advance: commit()
-        takes the accepted count."""
+        takes the accepted count. With `steps` the body replays its CUDA
+        graph for this q_len (prefill rounds run eagerly)."""
         tokens = self._tokens(tokens)
         Q = tokens.shape[1]
         if self.pos + Q > self.max_len:
             raise ValueError(f"verify past max_len ({self.pos}+{Q} > "
                              f"{self.max_len})")
         self._extend_all(self.pos + Q)
-        logits = self._run(params, tokens, multi=True)
+        logits = self._launch(params, tokens, True, steps)
         self._spec_len = Q
         return logits
 
@@ -229,14 +257,14 @@ class PagedDecodeCache:
         new_pos = self.pos + n_tokens
         for t in self.tables:
             if self.pool.truncate_table(t, new_pos):
-                self._bt_dev = None      # table shrank: refresh device copy
+                self._bt_dirty = True    # table shrank: refresh device copy
         self.pos = new_pos
         self._spec_len = 0
 
     def release(self) -> None:
         for t in self.tables:
             self.pool.release_table(t)
-        self._bt_dev = None
+        self._bt_dirty = True
 
     @property
     def pages_in_use(self) -> int:

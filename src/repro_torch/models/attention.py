@@ -117,21 +117,24 @@ def attn_forward(params, x, *, rope_theta, causal=True, window=None,
     return _out_proj(out, params["wo"]), (k, v)
 
 
-def attn_decode(params, x, cache_k, cache_v, pos_ids, pos: int, slot: int, *,
+def attn_decode(params, x, cache_k, cache_v, pos_ids, pos, slots, *,
                 rope_theta, window=None, impl: str = "ref"):
     """Single-token decode. x: (B, 1, D); cache_k/v: (B, S_c, KV, dh),
-    updated IN PLACE at `slot` before attention reads them (the JAX
+    updated IN PLACE at slots[0] before attention reads them (the JAX
     reference returns new arrays; writing in place saves a cache copy per
-    layer); pos_ids: (S_c,) already holding `pos` at `slot`."""
+    layer); pos_ids: (S_c,) already holding `pos` at that slot. pos: the
+    current position, a 0-d int32 tensor on x's device; slots: (1,) int64
+    on x's device. Both stay on the device (read there by the kernel), so
+    a captured CUDA graph of the step serves every position."""
     B = x.shape[0]
     q = _proj(x, params["wq"])
     k = _proj(x, params["wk"])
     v = _proj(x, params["wv"])
-    posb = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
+    posb = pos.expand(B, 1)
     q = apply_rope(q, posb, rope_theta)
     k = apply_rope(k, posb, rope_theta)
-    cache_k[:, slot] = k[:, 0]
-    cache_v[:, slot] = v[:, 0]
+    cache_k.index_copy_(1, slots, k)
+    cache_v.index_copy_(1, slots, v)
     if impl == "kernel":
         out = da_ops.decode_attention(q, cache_k, cache_v, pos_ids, pos,
                                       window=window)
@@ -141,26 +144,25 @@ def attn_decode(params, x, cache_k, cache_v, pos_ids, pos: int, slot: int, *,
     return _out_proj(out, params["wo"])
 
 
-def attn_decode_multi(params, x, cache_k, cache_v, pos_ids, pos: int,
-                      slot: int, *, rope_theta, window=None,
-                      impl: str = "ref"):
+def attn_decode_multi(params, x, cache_k, cache_v, pos_ids, pos, slots, *,
+                      rope_theta, window=None, impl: str = "ref"):
     """q_len-token decode (speculative verification, chunked prefill).
-    x: (B, q_len, D), query i at position pos + i. The q_len new K/V are
-    written IN PLACE at slots slot .. slot + q_len - 1 before attention
-    reads them (contiguous: callers keep the window off the ring's end);
-    pos_ids already holds pos + i at slot + i. The queries see each other
-    through the cache, and causality between them is the per-query
-    validity pos_ids <= pos + i: the arithmetic of q_len sequential
-    attn_decode steps."""
+    x: (B, q_len, D), query i at position pos + i (pos a 0-d int32 tensor
+    on x's device). The q_len new K/V are written IN PLACE at slots
+    (q_len,) int64, contiguous (callers keep the window off the ring's
+    end), before attention reads them; pos_ids already holds pos + i at
+    slots[i]. The queries see each other through the cache, and causality
+    between them is the per-query validity pos_ids <= pos + i: the
+    arithmetic of q_len sequential attn_decode steps."""
     B, Q, _ = x.shape
     q = _proj(x, params["wq"])
     k = _proj(x, params["wk"])
     v = _proj(x, params["wv"])
-    posb = pos + torch.arange(Q, device=x.device)[None, :].expand(B, Q)
+    posb = (pos + torch.arange(Q, device=x.device))[None, :].expand(B, Q)
     q = apply_rope(q, posb, rope_theta)
     k = apply_rope(k, posb, rope_theta)
-    cache_k[:, slot:slot + Q] = k
-    cache_v[:, slot:slot + Q] = v
+    cache_k.index_copy_(1, slots, k)
+    cache_v.index_copy_(1, slots, v)
     if impl == "kernel":
         out = mq_ops.mq_decode_attention(q, cache_k, cache_v, pos_ids, pos,
                                          window=window)
@@ -170,14 +172,15 @@ def attn_decode_multi(params, x, cache_k, cache_v, pos_ids, pos: int,
     return _out_proj(out, params["wo"])
 
 
-def paged_attn_decode(params, x, k_pool, v_pool, page_ids, slot: int,
-                      block_tables, ctx_lens, pos: int, *, rope_theta,
+def paged_attn_decode(params, x, k_pool, v_pool, page_ids, slot,
+                      block_tables, ctx_lens, pos, *, rope_theta,
                       window=None, impl: str = "ref"):
     """Single-token decode against a paged KV pool. x: (B, 1, D);
     k_pool/v_pool: (P, page_size, KV, dh), one layer's pages, updated IN
     PLACE at (page_ids[b], slot) before attention reads them (the JAX
     reference returns new pools); page_ids: (B,) int64 page receiving this
-    token; slot: its row inside the page (all sequences share `pos`);
+    token; slot: its row inside the page, a 0-d int64 tensor (all
+    sequences share `pos`, a 0-d int32 tensor; both on x's device);
     block_tables: (B, max_pages) int32; ctx_lens: (B,) int32 tokens live
     including this one. "ref" takes the plain page walk, "kernel" the
     paged decode kernel."""
@@ -185,11 +188,12 @@ def paged_attn_decode(params, x, k_pool, v_pool, page_ids, slot: int,
     q = _proj(x, params["wq"])
     k = _proj(x, params["wk"])
     v = _proj(x, params["wv"])
-    posb = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
+    posb = pos.expand(B, 1)
     q = apply_rope(q, posb, rope_theta)
     k = apply_rope(k, posb, rope_theta)
-    k_pool[page_ids, slot] = k[:, 0]
-    v_pool[page_ids, slot] = v[:, 0]
+    rows = slot.expand(B)
+    k_pool.index_put_((page_ids, rows), k[:, 0])
+    v_pool.index_put_((page_ids, rows), v[:, 0])
     fn = pg_ops.paged_decode_attention if impl == "kernel" \
         else pg_ops.paged_decode_attention_plain
     out = fn(q, k_pool, v_pool, block_tables, ctx_lens, window=window)
@@ -197,20 +201,21 @@ def paged_attn_decode(params, x, k_pool, v_pool, page_ids, slot: int,
 
 
 def paged_attn_decode_multi(params, x, k_pool, v_pool, page_ids, slots,
-                            block_tables, ctx_lens, pos: int, *, rope_theta,
+                            block_tables, ctx_lens, pos, *, rope_theta,
                             window=None, impl: str = "ref"):
     """q_len-token decode against a paged KV pool (verification, chunked
-    and suffix prefill). x: (B, q_len, D), query i at position pos + i;
-    page_ids: (B, q_len) int64 page of each new token; slots: (q_len,)
-    int64 rows inside those pages; ctx_lens: (B,) int32 tokens live
-    including the q_len new ones. The new K/V are written IN PLACE before
-    attention reads them; causality between the queries is the per-row
-    mask of the paged multi-query attention."""
+    and suffix prefill). x: (B, q_len, D), query i at position pos + i
+    (pos a 0-d int32 tensor on x's device); page_ids: (B, q_len) int64
+    page of each new token; slots: (q_len,) int64 rows inside those pages;
+    ctx_lens: (B,) int32 tokens live including the q_len new ones. The new
+    K/V are written IN PLACE before attention reads them; causality
+    between the queries is the per-row mask of the paged multi-query
+    attention."""
     B, Q, _ = x.shape
     q = _proj(x, params["wq"])
     k = _proj(x, params["wk"])
     v = _proj(x, params["wv"])
-    posb = pos + torch.arange(Q, device=x.device)[None, :].expand(B, Q)
+    posb = (pos + torch.arange(Q, device=x.device))[None, :].expand(B, Q)
     q = apply_rope(q, posb, rope_theta)
     k = apply_rope(k, posb, rope_theta)
     rows = slots[None, :].expand(B, Q)
@@ -222,14 +227,23 @@ def paged_attn_decode_multi(params, x, k_pool, v_pool, page_ids, slots,
     return _out_proj(out, params["wo"])
 
 
-@functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=None)
 def cross_pos_ids(S_enc: int, enc_len: int, device: torch.device):
     """(S_enc,) int32 pos_ids of the encoder's frames: frame j where
     j < enc_len, else -1 (masked), as the reference's cross-attention
-    decode builds them. One tensor per (S_enc, enc_len, device), kept: a
-    decode step reads it in every layer."""
+    decode builds them. One tensor per (S_enc, enc_len, device), kept for
+    good: a decode step reads it in every layer, and a captured step's
+    graph reads it at its address."""
     ar = torch.arange(S_enc, dtype=torch.int32, device=device)
     return torch.where(ar < enc_len, ar, torch.full_like(ar, -1))
+
+
+@functools.lru_cache(maxsize=None)
+def cross_pos(S_enc: int, device: torch.device):
+    """The kernel route's cross-attention decode position S_enc - 1 (see
+    the module docstring) as a 0-d int32 device constant, made once per
+    (S_enc, device) (seed_cross_kv makes it) and kept, as cross_pos_ids."""
+    return torch.full((), S_enc - 1, dtype=torch.int32, device=device)
 
 
 def cross_kv(params, src):
@@ -262,7 +276,8 @@ def cross_attn_decode(params, x, ck, cv, enc_len: int, *, impl: str = "ref"):
     S_enc = ck.shape[1]
     ids = cross_pos_ids(S_enc, int(enc_len), ck.device)
     if impl == "kernel":
-        out = da_ops.decode_attention(q, ck, cv, ids, S_enc - 1, window=None)
+        out = da_ops.decode_attention(q, ck, cv, ids, cross_pos(S_enc, ck.device),
+                                      window=None)
     else:
         out = da_ops.decode_attention_plain(q, ck, cv, ids, CROSS_POS,
                                             window=None)

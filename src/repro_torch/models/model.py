@@ -48,8 +48,15 @@ self-attention, cross-attention to the encoder's output, then the MLP).
 
 The cache dict is updated in place (the JAX reference returns a new one;
 PyTorch runs eagerly and copying an 8-layer 70B-width cache per token buys
-nothing). ``pos`` stays a host int: the slot arithmetic then needs no
-device-to-host sync in every layer.
+nothing). ``cache["pos"]`` stays a host int, the JAX API every caller
+reads. A step is split as the JAX package's jitted step is: a host
+prelude (the checks, the ring-wrap check of a verify window), a device
+body (``step_body``: pure tensor work that reads the position from a 0-d
+int32 device tensor mirroring ``cache["pos"]``, writes K/V and pos_ids at
+slots computed on the device, and reads no host value that changes
+between tokens) and a host epilogue (``cache["pos"] += q_len``). The
+eager step and a captured one (``steps=``, a ``core.capture.CapturedStep``
+replaying one CUDA graph per shape) run the same body.
 """
 from __future__ import annotations
 
@@ -60,13 +67,15 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import AttnKind, Family, ModelConfig
+from repro_torch.core import capture
 from repro_torch.device import resolve_device
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import spec as pspec
 from repro_torch.models.attention import (IMPLS, attention_specs, attn_decode,
                                           attn_decode_multi, attn_forward,
                                           cross_attn_decode,
-                                          cross_attn_prefill, cross_kv)
+                                          cross_attn_prefill, cross_kv,
+                                          cross_pos)
 from repro_torch.models.modules import (embed, embed_specs, mlp, mlp_specs,
                                         rms_norm, rms_norm_spec, unembed)
 from repro_torch.models.ssm import (mamba_forward, mamba_head_specs,
@@ -346,6 +355,19 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     return cache
 
 
+def clear_cache(cache: dict) -> dict:
+    """init_cache's values written into an existing cache in place (K/V
+    and states zero, pos_ids -1, pos 0): its tensors keep their addresses,
+    so a captured step's graph over them stays valid. Returns the cache."""
+    for key, t in cache.items():
+        if key == "pos_ids":
+            t.fill_(-1)
+        elif isinstance(t, torch.Tensor):
+            t.zero_()
+    cache["pos"] = 0
+    return cache
+
+
 # ============================================================================
 # Encoder and cross K/V (encoder-decoder family)
 # ============================================================================
@@ -388,6 +410,7 @@ def seed_cross_kv(cfg: ModelConfig, params: dict, cache: dict,
     for l in range(L):
         cache["xk"][l], cache["xv"][l] = cross_kv_layer(
             layer_params(params, l), enc_out)
+    cross_pos(S_enc, enc_out.device)      # the decode kernel's constant
     return cache
 
 
@@ -568,85 +591,94 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor, cache: dict,
     return unembed(params, x), cache
 
 
-def new_positions(cache: dict, q_len: int) -> int:
-    """Mark the q_len positions pos .. pos + q_len - 1 in pos_ids at their
-    slots and return the first slot. While pos < S_c, pos % S_c == pos, so
-    one rule covers contiguous caches and ring buffers alike. A window of
-    q_len > 1 is written contiguously and must not wrap the ring (the
+def check_window(cache: dict, q_len: int) -> None:
+    """Host prelude of a step: a window of q_len > 1 is written
+    contiguously from slot pos % S_c and must not wrap the cache ring (the
     serving backend caps verify rounds at the cache end)."""
-    pos, pos_ids = cache["pos"], cache["pos_ids"]
-    S_c = pos_ids.shape[0]
+    pos, S_c = cache["pos"], cache["pos_ids"].shape[0]
     slot = pos % S_c
-    if q_len == 1:
-        pos_ids[slot] = pos
-    elif slot + q_len > S_c:
+    if q_len > 1 and slot + q_len > S_c:
         raise ValueError(f"a {q_len}-token window at slot {slot} would wrap "
                          f"the {S_c}-slot cache ring")
-    else:
-        pos_ids[slot:slot + q_len] = torch.arange(
-            pos, pos + q_len, dtype=pos_ids.dtype, device=pos_ids.device)
-    return slot
+
+
+def new_positions(cache: dict, q_len: int, pos: torch.Tensor) -> torch.Tensor:
+    """Mark the q_len positions pos .. pos + q_len - 1 in pos_ids at their
+    slots (pos + i) % S_c and return the slots (q_len,) int64, all on the
+    device (pos: a 0-d int32 tensor there). While pos < S_c, pos % S_c ==
+    pos, so one rule covers contiguous caches and ring buffers alike; a
+    window of q_len > 1 does not wrap (check_window), so its slots are
+    contiguous."""
+    pos_ids = cache["pos_ids"]
+    qpos = pos + torch.arange(q_len, device=pos_ids.device)
+    slots = qpos % pos_ids.shape[0]
+    pos_ids.index_copy_(0, slots, qpos.to(pos_ids.dtype))
+    return slots
 
 
 def decode_layer(cfg: ModelConfig, p: dict, x: torch.Tensor, cache: dict,
-                 l: int, slot: int, window: int, *, impl: str,
-                 multi: bool) -> torch.Tensor:
-    """One dense decoder layer over x (B, q_len, D) at positions
-    cache["pos"] + i, writing its K/V into layer l's cache rows from
-    `slot`. multi picks the multi-query attention of verify_step (any
-    q_len) over the one-token attention of decode_step (q_len 1)."""
+                 l: int, slots: torch.Tensor, pos: torch.Tensor, window: int,
+                 *, impl: str, multi: bool) -> torch.Tensor:
+    """One dense decoder layer over x (B, q_len, D) at positions pos + i
+    (pos a 0-d int32 device tensor), writing its K/V into layer l's cache
+    rows at `slots`. multi picks the multi-query attention of verify_step
+    (any q_len) over the one-token attention of decode_step (q_len 1)."""
     attn = attn_decode_multi if multi else attn_decode
     xn = rms_norm(x, p["ln1"], cfg.norm_eps)
     a_out = attn(p["attn"], xn, cache["k"][l], cache["v"][l],
-                 cache["pos_ids"], cache["pos"], slot,
+                 cache["pos_ids"], pos, slots,
                  rope_theta=cfg.rope_theta, window=window, impl=impl)
     return dense_rest(cfg, p, x, xn, a_out)
 
 
 def _hymba_decode_layer(cfg: ModelConfig, p: dict, x: torch.Tensor,
-                        cache: dict, l: int, slot: int, window: int, *,
+                        cache: dict, l: int, slots: torch.Tensor,
+                        pos: torch.Tensor, window: int, *,
                         impl: str) -> torch.Tensor:
     """One Hymba layer over one token x (B, 1, D): its K/V written at
-    `slot`, its recurrent state advanced by one step."""
+    `slots`, its recurrent state advanced by one step."""
     xn = rms_norm(x, p["ln1"], cfg.norm_eps)
     a_out = attn_decode(p["attn"], xn, cache["k"][l], cache["v"][l],
-                        cache["pos_ids"], cache["pos"], slot,
+                        cache["pos_ids"], pos, slots,
                         rope_theta=cfg.rope_theta, window=window, impl=impl)
     return _hymba_rest(cfg, p, x, xn, a_out, cache, l, impl=impl)
 
 
 def _encdec_decode_layer(cfg: ModelConfig, p: dict, x: torch.Tensor,
-                         cache: dict, l: int, slot: int, window: int, *,
-                         impl: str, enc_len: int) -> torch.Tensor:
+                         cache: dict, l: int, slots: torch.Tensor,
+                         pos: torch.Tensor, window: int, *, impl: str,
+                         enc_len: int) -> torch.Tensor:
     """One encoder-decoder layer over one token x (B, 1, D): its K/V
-    written at `slot`, its cross-attention over the frames below
+    written at `slots`, its cross-attention over the frames below
     enc_len."""
     xn = rms_norm(x, p["ln1"], cfg.norm_eps)
     a_out = attn_decode(p["attn"], xn, cache["k"][l], cache["v"][l],
-                        cache["pos_ids"], cache["pos"], slot,
+                        cache["pos_ids"], pos, slots,
                         rope_theta=cfg.rope_theta, window=window, impl=impl)
     return _encdec_rest(cfg, p, x, a_out, cache, l, functools.partial(
         cross_attn_decode, enc_len=enc_len, impl=impl))
 
 
 def step_layer(cfg: ModelConfig, p: dict, x: torch.Tensor, cache: dict,
-               l: int, slot: int, window: int, *, impl: str,
-               multi: bool = False, enc_len: int = 0) -> torch.Tensor:
+               l: int, slots: Optional[torch.Tensor], pos: torch.Tensor,
+               window: int, *, impl: str, multi: bool = False,
+               enc_len: int = 0) -> torch.Tensor:
     """Layer l of a decode step (or, dense and MoE only, a verify pass: multi)
     with weights p, by family: RWKV6 advances its states by one step
-    (slot and window unused), Hymba, the dense and the encoder-decoder
-    families write their K/V at `slot` (the last cross-attending to the
-    encoder's frames below enc_len). The one per-layer body of _step and
-    of the interleaved engine's passes."""
+    (slots, pos and window unused), Hymba, the dense and the
+    encoder-decoder families write their K/V at `slots` (new_positions')
+    for the positions pos + i (the last cross-attending to the encoder's
+    frames below enc_len). The one per-layer body of step_body and of the
+    interleaved engine's passes."""
     if cfg.family == Family.SSM:
         return _rwkv_layer(cfg, p, x, cache, l, impl=impl)
     if cfg.family == Family.HYBRID:
-        return _hymba_decode_layer(cfg, p, x, cache, l, slot, window,
+        return _hymba_decode_layer(cfg, p, x, cache, l, slots, pos, window,
                                    impl=impl)
     if cfg.family == Family.ENCDEC:
-        return _encdec_decode_layer(cfg, p, x, cache, l, slot, window,
+        return _encdec_decode_layer(cfg, p, x, cache, l, slots, pos, window,
                                     impl=impl, enc_len=enc_len)
-    return decode_layer(cfg, p, x, cache, l, slot, window, impl=impl,
+    return decode_layer(cfg, p, x, cache, l, slots, pos, window, impl=impl,
                         multi=multi)
 
 
@@ -665,40 +697,73 @@ def check_enc_len(cfg: ModelConfig, cache: dict, enc_len: int) -> None:
             "frame's V alike, which the port does not compute)")
 
 
-def _step(cfg, params, cache, tokens, *, impl, multi, long_mode=False,
-          enc_len=0):
+def step_prelude(cfg: ModelConfig, cache: dict, q_len: int, *, impl: str,
+                 multi: bool, enc_len: int = 0) -> None:
+    """The host checks of a step, before its device body runs."""
     _check(cfg, impl)
     if multi:
         _check_pure_kv(cfg, "speculative verification")
     check_enc_len(cfg, cache, enc_len)
-    pos = cache["pos"]
+    if "pos_ids" in cache:
+        check_window(cache, q_len)
+
+
+def step_body(cfg: ModelConfig, params: dict, cache: dict,
+              tokens: torch.Tensor, pos: torch.Tensor, *, impl: str,
+              multi: bool, long_mode: bool = False,
+              enc_len: int = 0) -> torch.Tensor:
+    """The device body of a decode (or verify) step: tokens (B, q_len) at
+    positions pos + i, pos a 0-d int32 tensor on the cache's device equal
+    to cache["pos"]. Writes pos_ids, K/V and the recurrent states in place
+    and returns the logits (B, q_len, PV); reads no host value that changes
+    between tokens (cache["pos"] is the epilogue's), so one captured graph
+    serves every position."""
     x = embed(params, tokens).to(torch.bfloat16)
-    slot = new_positions(cache, tokens.shape[1]) if "pos_ids" in cache else 0
+    slots = new_positions(cache, tokens.shape[1], pos) \
+        if "pos_ids" in cache else None
     for l, window in enumerate(layer_windows(cfg, cfg.n_layers, long_mode)):
-        x = step_layer(cfg, layer_params(params, l), x, cache, l, slot,
+        x = step_layer(cfg, layer_params(params, l), x, cache, l, slots, pos,
                        window, impl=impl, multi=multi, enc_len=enc_len)
-    cache["pos"] = pos + tokens.shape[1]
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return unembed(params, x), cache
+    return unembed(params, x)
+
+
+def _step(cfg, params, cache, tokens, *, impl, multi, long_mode=False,
+          enc_len=0, steps=None):
+    q_len = tokens.shape[1]
+    step_prelude(cfg, cache, q_len, impl=impl, multi=multi, enc_len=enc_len)
+
+    def body(tok, pos):
+        return step_body(cfg, params, cache, tok, pos, impl=impl, multi=multi,
+                         long_mode=long_mode, enc_len=enc_len)
+    key = ("model", multi, long_mode, int(enc_len), impl)
+    logits = capture.run(
+        steps, key, body, tokens, cache["pos"],
+        scope=lambda: (id(params), capture.tensor_scope(cache)),
+        device=params["final_norm"].device)
+    cache["pos"] += q_len
+    return logits, cache
 
 
 def decode_step(cfg: ModelConfig, params: dict, cache: dict,
                 token: torch.Tensor, *, impl: str = "ref", long_mode: bool = False,
-                enc_len: int = 0):
+                enc_len: int = 0, steps: Optional[capture.CapturedStep] = None):
     """token: (B, 1) int -> (logits (B, 1, PV), cache), cache updated in
     place and pos advanced by one. The recurrent families launch their
     scan kernel once per layer at S = 1 under impl="kernel" (the
     reference pins its jnp scan there for an old-XLA partitioner fault of
     the TPU engine, which has no counterpart on the card). The
     encoder-decoder family cross-attends to the encoder's frames below
-    enc_len, which must be > 0 (check_enc_len)."""
+    enc_len, which must be > 0 (check_enc_len). With `steps` (a
+    CapturedStep) the body replays its CUDA graph for this shape."""
     return _step(cfg, params, cache, token, impl=impl, multi=False,
-                 long_mode=long_mode, enc_len=enc_len)
+                 long_mode=long_mode, enc_len=enc_len, steps=steps)
 
 
 def verify_step(cfg: ModelConfig, params: dict, cache: dict,
                 tokens: torch.Tensor, *, impl: str = "ref",
-                long_mode: bool = False):
+                long_mode: bool = False,
+                steps: Optional[capture.CapturedStep] = None):
     """Score q_len positions in one pass (speculative verification).
     tokens: (B, q_len) int, position pos + i holding tokens[:, i]. Returns
     (logits (B, q_len, PV), cache) with all q_len K/V written and pos
@@ -708,6 +773,7 @@ def verify_step(cfg: ModelConfig, params: dict, cache: dict,
     only: a recurrent state cannot roll back by masking (the reference
     refuses the same families). An MoE layer routes the B·q_len rows of
     the pass as one batch, so its capacity, and with it a verify pass's
-    logits, differ from q_len decode steps' (as in the reference)."""
+    logits, differ from q_len decode steps' (as in the reference). With
+    `steps` the body replays its CUDA graph for this q_len."""
     return _step(cfg, params, cache, tokens, impl=impl, multi=True,
-                 long_mode=long_mode)
+                 long_mode=long_mode, steps=steps)

@@ -53,6 +53,17 @@ prefills only the uncached suffix (in chunks of prefill_chunk_tokens),
 and a finished request donates its pages to the tree. The JAX backend
 builds its paged cache with the reference math; this one passes its own
 `impl` through, so the default runs the paged kernels.
+
+On the card every decode and verify step of the single-device path (plain,
+paged, prefix cache), the model and resident drafts' steps and an
+engine's resident draft step replay CUDA graphs (core/capture.py: the
+counterpart of the JAX backend's jax.jit of decode_step and verify_step),
+one per shape: speculation keeps one graph per q_len it meets. The
+caches they write (the dense and paged caches, the engine's state, the
+drafts' caches) are allocated once and cleared in place between epochs,
+so the graphs live as long as the backend. `capture=False` runs every
+one of these steps eagerly (for comparisons); the launcher does not
+expose it.
 """
 from __future__ import annotations
 
@@ -63,6 +74,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import Family
+from repro_torch.core.capture import CapturedStep
 from repro_torch.device import resolve_device
 from repro_torch.kvcache.allocator import BlockTable
 from repro_torch.kvcache.paged_decode import PagedDecodeCache
@@ -117,7 +129,8 @@ class EngineBackend:
                  prompt_seed: int = 0, impl: str = "kernel", spec=None,
                  prefill_chunk_tokens: int = 0, paged: bool = False,
                  prefix_cache: bool = False, page_size: int = 64,
-                 cache_pages: int = 0, planner=None, device=None):
+                 cache_pages: int = 0, planner=None, capture: bool = True,
+                 device=None):
         refuse_encdec(cfg)
         self.cfg = cfg
         self.params = params
@@ -133,6 +146,12 @@ class EngineBackend:
         self.impl = impl
         self.device = engine.device if engine is not None \
             else resolve_device(device)
+        # the captured decode and verify steps of the single-device path,
+        # and the engine's draft step, in one graph pool that the host
+        # drafts share (None: capture off, or the CPU)
+        self.steps = CapturedStep(self.device, enabled=capture)
+        self.draft_steps = CapturedStep.sharing(self.steps.pool, self.device)
+        self._dense_cache = None              # reused across epochs
         self.sampler = sampler if sampler is not None else SamplerConfig()
         self.chunk = max(int(prefill_chunk_tokens), 0)
         # radix prefix cache over the real paged pool: prompts matched
@@ -416,7 +435,7 @@ class EngineBackend:
             # so there is no prefill over all of them at once. Chunked
             # multi-query rounds where the family and the ring allow them,
             # else the prompt pass over the tiers, adopted by seed_cache
-            state = self.engine.init_state(self.params)
+            state = self.engine.init_state(self.params, reuse=self._state)
             if self._engine_can_chunk(toks.shape[1]):
                 logits, self._state = self.engine.prefill_partial(
                     state, toks_t, chunk=self.chunk)
@@ -428,13 +447,13 @@ class EngineBackend:
             if self.paged:   # pages first: their constructor refuses a
                              # family they cannot hold before any work
                 if self._paged_cache is not None:
-                    self._paged_cache.release()
-                self._paged_cache = PagedDecodeCache(
-                    self.cfg, toks.shape[0], self.max_len,
-                    page_size=self.page_size, impl=self.impl,
-                    device=self.device)
-            cache = M.init_cache(self.cfg, toks.shape[0], self.max_len,
-                                 device=self.device)
+                    self._paged_cache.reset_tables()
+                else:
+                    self._paged_cache = PagedDecodeCache(
+                        self.cfg, toks.shape[0], self.max_len,
+                        page_size=self.page_size, impl=self.impl,
+                        device=self.device)
+            cache = self._empty_cache()
             logits, cache = M.prefill(self.cfg, self.params, toks_t, cache,
                                       impl=self.impl)
             last = logits[:, -1]
@@ -452,7 +471,8 @@ class EngineBackend:
                     self.spec, self.sampler, self.cfg, self.batch_width,
                     target_params=self.params,
                     external_drafts=self._resident_engine,
-                    device=self.device, impl=self.impl)
+                    device=self.device, impl=self.impl,
+                    graph_pool=self.steps.pool)
             self._pos = int(toks.shape[1])    # left-padded prompt span
             for slot, p in enumerate(prompts):
                 # drafts see the real (unpadded) prompt + the first token
@@ -482,11 +502,12 @@ class EngineBackend:
         elif self.paged:
             if self.prefix_cache:
                 self._ensure_room(self._paged_cache, 1)
-            lg = self._paged_cache.step(self.params, self._cur)[:, 0]
+            lg = self._paged_cache.step(self.params, self._cur,
+                                        steps=self.steps)[:, 0]
         else:
             lg, self._state = M.decode_step(self.cfg, self.params,
                                             self._state, self._cur,
-                                            impl=self.impl)
+                                            impl=self.impl, steps=self.steps)
             lg = lg[:, 0]
         tok = self._sample(lg)
         self._pos += 1
@@ -530,11 +551,12 @@ class EngineBackend:
         elif self.paged:
             if self.prefix_cache:
                 self._ensure_room(self._paged_cache, 1 + k)
-            lg = self._paged_cache.verify(self.params, mat_t)
+            lg = self._paged_cache.verify(self.params, mat_t,
+                                          steps=self.steps)
         else:
             lg, self._state = M.verify_step(self.cfg, self.params,
                                             self._state, mat_t,
-                                            impl=self.impl)
+                                            impl=self.impl, steps=self.steps)
         # acceptance reads each slot's rows where they lie: an argmax, or
         # the filtered softmax of rejection sampling, on the card
         committed = {s: self._ctl.verify(lg[s].float(), *proposals[s])
@@ -580,11 +602,38 @@ class EngineBackend:
         cur = self._cur
         out = []
         for _ in range(k):
-            lg, self._state = eng.draft_requests(self._state, cur, active)
+            lg, self._state = eng.draft_requests(self._state, cur, active,
+                                                 steps=self.draft_steps)
             cur = torch.argmax(lg[:, :self.cfg.vocab_size], -1)[:, None]
             out.append(cur)
         self._state = eng.rollback(self._state, self._pos)
         return torch.cat(out, 1).cpu().numpy()
+
+    def _empty_cache(self) -> dict:
+        """The single-device path's dense cache, empty: allocated once, then
+        cleared in place each epoch (the captured steps' graphs read it at
+        its address)."""
+        if self._dense_cache is None:
+            self._dense_cache = M.init_cache(self.cfg, self.batch_width,
+                                             self.max_len, device=self.device)
+            return self._dense_cache
+        return M.clear_cache(self._dense_cache)
+
+    @property
+    def graph_stats(self):
+        """The captured steps' counts: graphs captured and replayed, capture
+        seconds, and the backend's graph pool bytes (the host drafts
+        capture into it too); the drafts' steps (the engine's resident
+        draft step, or the host model drafts') as draft_*."""
+        out = self.steps.stats()
+        if self.engine is not None:
+            drafts = [self.draft_steps]
+        else:
+            drafts = [d._steps for d in (self._ctl.drafts or [])
+                      if hasattr(d, "_steps")] if self._ctl is not None else []
+        for k in ("graphs", "captures", "replays", "capture_s"):
+            out["draft_" + k] = sum(d.stats()[k] for d in drafts)
+        return out
 
     def join(self, slot: int, req) -> Optional[int]:
         raise NotImplementedError("batches are fixed at prefill time")
@@ -652,8 +701,7 @@ class EngineBackend:
         ps = self.page_size
         lens = {len(p) for p in prompts}
         if len(lens) != 1:
-            cache = M.init_cache(self.cfg, B, self.max_len,
-                                 device=self.device)
+            cache = self._empty_cache()
             logits, cache = M.prefill(self.cfg, self.params, toks, cache,
                                       impl=self.impl)
             self._ensure_room(pc, int(cache["pos"]))

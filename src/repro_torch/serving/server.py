@@ -69,7 +69,8 @@ class LimeServer:
                  max_len: int = 512, sampler: SamplerConfig = SamplerConfig(),
                  pattern: str = "sporadic", impl: str = "kernel", spec=None,
                  prefix_cache: bool = False, prefill_chunk_tokens: int = 0,
-                 page_size: int = 64, planner=None, device=None):
+                 page_size: int = 64, planner=None, capture: bool = True,
+                 device=None):
         self.cfg = cfg
         self.params = params
         self.engine = engine
@@ -82,6 +83,7 @@ class LimeServer:
         self.prefill_chunk_tokens = prefill_chunk_tokens
         self.page_size = page_size
         self.planner = planner                # OnlinePlanner (engine only)
+        self.capture = capture                # False: eager steps
         self.device = engine.device if engine is not None \
             else resolve_device(device)
         self.queue = RequestQueue()
@@ -103,7 +105,7 @@ class LimeServer:
                 prefix_cache=self.prefix_cache and self.engine is None,
                 prefill_chunk_tokens=self.prefill_chunk_tokens,
                 page_size=self.page_size, planner=self.planner,
-                device=self.device)
+                capture=self.capture, device=self.device)
         return self._backend
 
     def serve_all(self) -> List[Request]:

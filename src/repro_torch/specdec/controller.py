@@ -87,12 +87,14 @@ class SpecDecodeController:
     def __init__(self, spec: SpecConfig, sampler: SamplerConfig,
                  target_cfg, n_slots: int, *, target_params=None,
                  external_drafts: bool = False,
-                 device=None, impl: str = "kernel"):
+                 device=None, impl: str = "kernel", graph_pool=None):
         """external_drafts: the backend proposes tokens itself (the
         engine's resident draft) and uses the controller only for
         acceptance and counters; no host providers are built and
         begin/observe do nothing. device / impl: where and through which
-        attention the model and resident drafts run."""
+        attention the model and resident drafts run; graph_pool: the
+        backend's graph pool their decode steps capture into (None:
+        eager)."""
         self.spec = spec
         self.sampler = sampler
         self.cfg = target_cfg
@@ -102,7 +104,8 @@ class SpecDecodeController:
             self.drafts = [
                 make_draft_provider(spec, target_cfg,
                                     target_params=target_params,
-                                    device=device, impl=impl)
+                                    device=device, impl=impl,
+                                    graph_pool=graph_pool)
                 for _ in range(n_slots)]
         self._rng = np.random.default_rng(spec.seed)
         self.stats = SpecStats()

@@ -17,7 +17,10 @@ losslessly, a poor draft only costs acceptance.
   SmallModelDraft autoregressive draft from a small model's own cache
                   (models/model.py prefill / decode_step on the backend's
                   device, impl "kernel": kernels 2 and 1 at the draft's
-                  shapes). The cache only ever holds committed tokens.
+                  shapes; on the card each decode step replays one
+                  captured CUDA graph over the draft's own cache, the
+                  JAX draft's jitted step). The cache only ever holds
+                  committed tokens.
 
 The port's caches are written in place (the JAX package's draft keeps an
 immutable snapshot for free), so propose() saves what its k decode steps
@@ -34,6 +37,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.capture import CapturedStep
 from repro_torch.device import resolve_device
 
 
@@ -73,11 +77,14 @@ class SmallModelDraft:
 
     The cache only ever holds committed tokens: observe() advances it by
     teacher-forcing the committed tokens through decode_step, propose()
-    decodes k steps and then restores what they overwrote."""
+    decodes k steps and then restores what they overwrite (eagerly,
+    outside the graph). The cache is allocated once and cleared in place
+    by reset(), so its one graph (decode_step through a CapturedStep in
+    the backend's graph_pool; None: eager) survives requests."""
 
     def __init__(self, cfg, params, *, max_len: int = 512,
                  temperature: float = 0.0, seed: int = 0, device=None,
-                 impl: str = "kernel"):
+                 impl: str = "kernel", graph_pool=None):
         from repro_torch.models import model as M
         self.cfg = cfg
         self.params = params
@@ -89,21 +96,31 @@ class SmallModelDraft:
         self._M = M
         self._cache = None
         self._pending: Optional[int] = None   # last token not yet in cache
+        self._steps = CapturedStep.sharing(graph_pool, self.device)
 
     def _tok(self, t: int) -> torch.Tensor:
-        return torch.tensor([[t]], dtype=torch.long, device=self.device)
+        return torch.full((1, 1), t, dtype=torch.long, device=self.device)
 
     def _decode(self, cache: dict, t: int) -> torch.Tensor:
         """One decode step of token t; returns its logits (real vocab)."""
         logits, _ = self._M.decode_step(self.cfg, self.params, cache,
-                                        self._tok(t), impl=self.impl)
+                                        self._tok(t), impl=self.impl,
+                                        steps=self._steps)
         return logits.reshape(-1)[:self.cfg.vocab_size]
+
+    def _empty_cache(self) -> dict:
+        """The draft's cache, empty: allocated once (again after a
+        ResidentDraft's retier changes its depth), then cleared in
+        place."""
+        if self._cache is not None:
+            return self._M.clear_cache(self._cache)
+        return self._M.init_cache(self.cfg, 1, self.max_len,
+                                  device=self.device)
 
     def reset(self, tokens) -> None:
         toks = [int(t) for t in tokens]
         assert toks, "reset needs at least one token"
-        cache = self._M.init_cache(self.cfg, 1, self.max_len,
-                                   device=self.device)
+        cache = self._empty_cache()
         if len(toks) > 1:
             self._M.prefill(self.cfg, self.params, torch.tensor(
                 [toks[:-1]], dtype=torch.long, device=self.device), cache,
@@ -171,8 +188,10 @@ class SmallModelDraft:
 
 
 def make_draft_provider(spec, target_cfg, *, target_params=None,
-                        device=None, impl: str = "kernel"):
-    """One provider from a SpecConfig (controller.py), on `device`.
+                        device=None, impl: str = "kernel", graph_pool=None):
+    """One provider from a SpecConfig (controller.py), on `device`; the
+    model drafts capture their decode step into graph_pool (None:
+    eager).
 
     target_params only matters for draft="resident": the resident draft
     truncates the target's own stacked layers to the bottom
@@ -192,7 +211,8 @@ def make_draft_provider(spec, target_cfg, *, target_params=None,
         return ResidentDraft(target_cfg, target_params,
                              default_resident_ids(target_cfg, spec.resident_layers),
                              temperature=spec.draft_temperature,
-                             seed=spec.seed, device=device, impl=impl)
+                             seed=spec.seed, device=device, impl=impl,
+                             graph_pool=graph_pool)
     if spec.draft == "model":
         from repro_torch.configs import get_smoke_config
         from repro_torch.models import model as M
@@ -204,5 +224,6 @@ def make_draft_provider(spec, target_cfg, *, target_params=None,
             cfg, torch.Generator(device=dev).manual_seed(spec.seed), dev)
         return SmallModelDraft(cfg, params,
                                temperature=spec.draft_temperature,
-                               seed=spec.seed, device=dev, impl=impl)
+                               seed=spec.seed, device=dev, impl=impl,
+                               graph_pool=graph_pool)
     raise KeyError(f"unknown draft provider {spec.draft!r}")

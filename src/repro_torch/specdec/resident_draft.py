@@ -79,14 +79,15 @@ class ResidentDraft(SmallModelDraft):
 
     def __init__(self, cfg, params, resident_ids: Sequence[int], *,
                  max_len: int = 512, temperature: float = 0.0,
-                 seed: int = 0, device=None, impl: str = "kernel"):
+                 seed: int = 0, device=None, impl: str = "kernel",
+                 graph_pool=None):
         self._full_cfg = cfg
         self._full_params = params
         self.resident_ids = tuple(sorted({int(i) for i in resident_ids}))
         sub_cfg, sub_params = truncate_stack(cfg, params, self.resident_ids)
         super().__init__(sub_cfg, sub_params, max_len=max_len,
                          temperature=temperature, seed=seed, device=device,
-                         impl=impl)
+                         impl=impl, graph_pool=graph_pool)
         self._tokens: List[int] = []
 
     def reset(self, tokens) -> None:
@@ -99,13 +100,15 @@ class ResidentDraft(SmallModelDraft):
 
     def retier(self, resident_ids: Sequence[int]) -> None:
         """The live tier boundary moved: rebuild the truncated stack and
-        replay the committed history through it."""
+        replay the committed history through it (a new depth: a new cache,
+        so its graph is captured again)."""
         ids = tuple(sorted({int(i) for i in resident_ids}))
         if ids == self.resident_ids:
             return
         self.resident_ids = ids
         self.cfg, self.params = truncate_stack(self._full_cfg,
                                                self._full_params, ids)
+        self._cache = None
         if self._tokens:
             super().reset(self._tokens)
 

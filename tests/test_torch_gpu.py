@@ -1308,3 +1308,248 @@ def test_encdec_engine_matches_model_on_card(cuda_device):
         assert torch.equal(el, ml[:, 0])
         tok = el[:, :cfg.vocab_size].argmax(-1, keepdim=True)
     eng.close()
+
+
+# ----------------------------------------------------------------------------
+# captured steps (core/capture.py): CUDA graphs replayed per token
+# ----------------------------------------------------------------------------
+N_REPLAYED = 64
+
+
+def _clone(cache):
+    return {k: v.clone() if isinstance(v, torch.Tensor) else v
+            for k, v in cache.items()}
+
+
+def _counted(fn):
+    """(fn(), the launch counters' advance over it)."""
+    from repro_torch.core import capture
+    c0 = capture.launch_counts()
+    out = fn()
+    c1 = capture.launch_counts()
+    return out, {k: v - c0[k] for k, v in c1.items() if v != c0[k]}
+
+
+def _same_step(eager, captured):
+    """One step both ways: logits bit-equal, launch counts equal."""
+    a, na = _counted(eager)
+    b, nb = _counted(captured)
+    assert torch.equal(a, b)
+    assert na == nb and na, (na, nb)
+    return a
+
+
+def _smoke_model(arch, device, **over):
+    cfg = dataclasses.replace(get_smoke_config(arch), **over)
+    params = M.init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                           device=device)
+    return cfg, params
+
+
+def _prefilled(cfg, params, device, B=2, S=12, max_len=48):
+    g = torch.Generator(device=device).manual_seed(1)
+    toks = torch.randint(1, cfg.vocab_size, (B, S), device=device, generator=g)
+    cache = M.init_cache(cfg, B, max_len, device=device)
+    kw = {}
+    if cfg.family.value == "encdec":
+        enc = torch.randn((B, 8, cfg.d_model), device=device,
+                          generator=g).bfloat16()
+        M.prefill(cfg, params, toks, cache, impl="kernel", enc_out=enc)
+        kw["enc_len"] = 8
+    else:
+        M.prefill(cfg, params, toks, cache, impl="kernel")
+    return cache, kw
+
+
+@pytest.mark.parametrize("arch,over", [
+    ("llama3.3-70b", {}), ("gemma3-1b", {"window_size": 6}),
+    ("deepseek-moe-16b", {}), ("rwkv6-3b", {}), ("hymba-1.5b", {}),
+    ("seamless-m4t-medium", {})], ids=lambda v: v if isinstance(v, str) else "")
+def test_captured_decode_step_is_the_eager_step(arch, over, cuda_device):
+    """65 decode steps (past the 48-slot ring's wrap) eagerly and through
+    one captured graph (64 replays) from the same state: logits, caches
+    and launch counts equal bit for bit; the capture ran under sync debug
+    mode "error"."""
+    from repro_torch.core.capture import CapturedStep
+    cfg, params = _smoke_model(arch, cuda_device, **over)
+    a, kw = _prefilled(cfg, params, cuda_device)
+    b = _clone(a)
+    steps = CapturedStep(cuda_device)
+    tok = torch.ones((2, 1), dtype=torch.long, device=cuda_device)
+    for _ in range(N_REPLAYED + 1):
+        lg = _same_step(
+            lambda: M.decode_step(cfg, params, a, tok, impl="kernel", **kw)[0],
+            lambda: M.decode_step(cfg, params, b, tok, impl="kernel",
+                                  steps=steps, **kw)[0])
+        tok = lg[:, -1, :cfg.vocab_size].argmax(-1, keepdim=True)
+    assert (steps.captures, steps.replays) == (1, N_REPLAYED)
+    assert steps.pool_bytes() > 0
+    for k, v in a.items():
+        assert torch.equal(v, b[k]) if isinstance(v, torch.Tensor) \
+            else v == b[k], k
+
+
+@pytest.mark.parametrize("arch", ["llama3.3-70b", "deepseek-moe-16b"])
+def test_captured_verify_step_is_the_eager_step(arch, cuda_device):
+    """64 verify rounds of q_len 2..5 in turn (one graph each), each
+    committing one position: logits and counts equal, four captures."""
+    from repro_torch.core.capture import CapturedStep
+    cfg, params = _smoke_model(arch, cuda_device)
+    a, _ = _prefilled(cfg, params, cuda_device, max_len=128)
+    b = _clone(a)
+    steps = CapturedStep(cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    for r in range(N_REPLAYED + 4):
+        mat = torch.randint(1, cfg.vocab_size, (2, 2 + r % 4), device=cuda_device,
+                            generator=g)
+        p0 = a["pos"]
+        _same_step(lambda: M.verify_step(cfg, params, a, mat, impl="kernel")[0],
+                   lambda: M.verify_step(cfg, params, b, mat, impl="kernel",
+                                         steps=steps)[0])
+        a["pos"] = b["pos"] = p0 + 1
+    assert (steps.captures, steps.replays) == (4, N_REPLAYED)
+    assert torch.equal(a["k"], b["k"]) and torch.equal(a["pos_ids"], b["pos_ids"])
+
+
+def test_captured_paged_steps_are_the_eager_steps(cuda_device):
+    """The paged cache's decode step and verify rounds (q_len 2..4, commit
+    one) through their graphs, 64 replays, across page boundaries (block
+    table refreshed in place): logits and counts equal, tables and pools
+    equal."""
+    from repro_torch.core.capture import CapturedStep
+    from repro_torch.kvcache.paged_decode import PagedDecodeCache
+    cfg, params = _smoke_model("llama3.3-70b", cuda_device)
+    dense, _ = _prefilled(cfg, params, cuda_device, max_len=160)
+
+    def make():
+        pc = PagedDecodeCache(cfg, 2, 160, page_size=8, impl="kernel",
+                              device=cuda_device)
+        pc.seed(dense)
+        return pc
+    a, b = make(), make()
+    steps = CapturedStep(cuda_device)
+    tok = torch.ones((2, 1), dtype=torch.long, device=cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    for r in range(N_REPLAYED // 2 + 2):        # 4 captures, 64 replays
+        lg = _same_step(lambda: a.step(params, tok),
+                        lambda: b.step(params, tok, steps=steps))
+        tok = lg[:, -1, :cfg.vocab_size].argmax(-1, keepdim=True)
+        mat = torch.cat([tok, torch.randint(1, cfg.vocab_size, (2, 1 + r % 3),
+                                            device=cuda_device, generator=g)], 1)
+        _same_step(lambda: a.verify(params, mat),
+                   lambda: b.verify(params, mat, steps=steps))
+        a.commit(1)
+        b.commit(1)
+    assert (steps.captures, steps.replays) == (4, N_REPLAYED)
+    assert [t.pages for t in a.tables] == [t.pages for t in b.tables]
+    assert torch.equal(a.k_pool, b.k_pool)
+
+
+def test_captured_engine_draft_is_the_eager_draft(cuda_device):
+    """The engine's resident-only draft step, 64 replays in rounds of 4
+    drafts and a rollback, across a retier (a new layout: captured again),
+    against an engine that drafts eagerly on the same weights."""
+    from repro_torch.core.capture import CapturedStep
+    cfg, params = _smoke_model("llama3.3-70b", cuda_device, n_layers=4)
+    engs = [InterleavedEngine(cfg, UniformPlan(1, 2, 2, 1), mb=2, max_len=128,
+                              retier_headroom=1, device=cuda_device)
+            for _ in range(2)]
+    ds = CapturedStep(cuda_device)
+    sts = [e.init_state(params) for e in engs]
+    toks = torch.randint(1, cfg.vocab_size, (2, 10), device=cuda_device,
+                         generator=torch.Generator(cuda_device).manual_seed(0))
+    for e, s in zip(engs, sts):
+        e.prefill_partial(s, toks, chunk=5)
+    tok = torch.ones((2, 1), dtype=torch.long, device=cuda_device)
+    for r in range(N_REPLAYED // 4 + 2):
+        if r == 6:
+            for e, s in zip(engs, sts):
+                e.retier(s, 0, +1)
+        p0 = sts[0]["pos"]
+        for _ in range(4):
+            lg = _same_step(lambda: engs[0].draft_step(sts[0], tok)[0],
+                            lambda: engs[1].draft_step(sts[1], tok,
+                                                       steps=ds)[0])
+            tok = lg[:, :cfg.vocab_size].argmax(-1, keepdim=True)
+        for e, s in zip(engs, sts):
+            e.rollback(s, p0 + 1)
+    assert ds.captures == 2 and ds.replays >= N_REPLAYED
+    for e in engs:
+        e.close()
+
+
+def test_captured_spec_serves_are_the_eager_serves(cuda_device):
+    """Speculative serves whose k changes (the cap at the cache's end) with
+    n-gram, small-model and host resident drafts (the model drafts' steps
+    captured too), dense and paged, captured and eager: tokens, rounds
+    and launch counts equal."""
+    from repro_torch.serving import cli_arrivals
+    from repro_torch.specdec import SpecConfig
+    cfg, params = _smoke_model("llama3.3-70b", cuda_device)
+    prompts = [np.random.default_rng(i).integers(1, cfg.vocab_size, 20)
+               .astype(np.int32) for i in range(2)]
+    for draft, paged in (("ngram", False), ("model", False),
+                         ("resident", False), ("ngram", True)):
+        spec = SpecConfig(k=4, draft=draft, resident_layers=1)
+        got = []
+        for capture in (False, True):
+            srv = LimeServer(cfg, params, max_len=64, pattern="bursty",
+                             spec=spec, prefix_cache=paged, page_size=8,
+                             capture=capture, device=cuda_device)
+            for ev, p in zip(cli_arrivals("bursty", 2, prompt_len=20,
+                                          max_new_tokens=44,
+                                          burst_size=srv.slots), prompts):
+                srv.queue.submit(p, ev.max_new_tokens, now=ev.time_s)
+            done, n = _counted(srv.serve_all)
+            be = srv.make_backend()
+            got.append(([r.output for r in sorted(done, key=lambda r: r.rid)],
+                        list(be.rounds), n))
+            if capture:
+                assert be.graph_stats["replays"] > 0, draft
+        assert got[0] == got[1], draft
+        assert len({k for k, _ in got[1][1] if k}) > 1, got[1][1]   # k changed
+
+
+def test_a_stale_position_buffer_breaks_bit_equality(cuda_device):
+    """A planted fault: replays whose position buffer keeps the captured
+    position. The comparison with the eager step rejects them."""
+    from repro_torch.core.capture import CapturedStep
+
+    class StaleSteps(CapturedStep):
+        @staticmethod
+        def _feed(e, tokens, pos):
+            e.tokens.copy_(tokens)
+            if e.graph is None:
+                e.pos.fill_(pos)
+    cfg, params = _smoke_model("llama3.3-70b", cuda_device)
+    a, _ = _prefilled(cfg, params, cuda_device)
+    b = _clone(a)
+    steps = StaleSteps(cuda_device)
+    tok = torch.ones((2, 1), dtype=torch.long, device=cuda_device)
+    same = []
+    for _ in range(4):
+        la = M.decode_step(cfg, params, a, tok, impl="kernel")[0]
+        lb = M.decode_step(cfg, params, b, tok, impl="kernel", steps=steps)[0]
+        same.append(torch.equal(la, lb))
+    assert same[0] and not any(same[1:]), same
+
+
+def test_int_positions_are_refused_under_capture(cuda_device):
+    """A host int position would be frozen into a graph: kernels 1 and 4
+    refuse one while the stream captures, and kernel 4's prefill-round
+    mainloop (host-built TMA descriptors) refuses capture."""
+    q = torch.randn((1, 1, 8, 64), device=cuda_device).bfloat16()
+    k = torch.randn((1, 256, 2, 64), device=cuda_device).bfloat16()
+    ids = torch.arange(256, dtype=torch.int32, device=cuda_device)
+    pos = torch.full((), 100, dtype=torch.int32, device=cuda_device)
+    q_pf = torch.randn((1, 64, 8, 64), device=cuda_device).bfloat16()
+    da.decode_attention(q, k, k, ids, pos)
+    mq.mq_decode_attention(q_pf, k, k, ids, pos)
+    torch.cuda.synchronize()
+    s = torch.cuda.Stream()
+    for call in (lambda: da.decode_attention(q, k, k, ids, 100),
+                 lambda: mq.mq_decode_attention(q_pf, k, k, ids, pos)):
+        g = torch.cuda.CUDAGraph()
+        with pytest.raises(RuntimeError, match="captur"):
+            with torch.cuda.graph(g, stream=s):
+                call()

@@ -122,14 +122,15 @@ def test_python_body_rule_is_the_c_rule():
 def test_one_launch_and_no_partials_in_global_memory():
     """No mq_combine_kernel (or any second pass) is left to reach, and the
     C entry points take no fp32 partials: q, K, V, ids (or tables and
-    ctx), out, then the shapes."""
+    ctx), out, then the shapes (the contiguous kernel's position among
+    them as a device pointer, read on the device)."""
     for p in sorted(CSRC.glob("*.cu*")):
         src = p.read_text()
         assert "mq_combine_kernel" not in src and "part_acc" not in src, p.name
         assert not re.search(r"__global__[^(]*combine", src), p.name
     P, I, F = build.P, build.I, build.F
     assert build.SIGNATURES["repro_mq_decode_attention"] \
-        == [P] * 5 + [I] * 8 + [F] + [I] * 3 + [P]
+        == [P] * 5 + [I] * 6 + [P] + [I] + [F] + [I] * 3 + [P]
     assert build.SIGNATURES["repro_mq_paged_decode_attention"] \
         == [P] * 6 + [I] * 9 + [F] + [I] * 3 + [P]
     src = "".join(p.read_text() for p in sorted(CSRC.glob("mq_*.cu")))

@@ -166,9 +166,9 @@ def main() -> int:
     def rn(*shape):
         return torch.randn(shape, generator=g, device="cuda").bfloat16()
     calls = {}
-    for key, B, S_c, H, KV, dh, pos, window in cs.DECODE_TIMED:
+    for key, B, S_c, H, KV, dh, pos, window, *_ in cs.DECODE_TIMED:
         a = rn(B, 1, H, dh), rn(B, S_c, KV, dh), rn(B, S_c, KV, dh), cs.linear_ids(S_c, pos)
-        calls[key] = (lambda a=a, pos=pos, window=window:
+        calls[key] = (lambda a=a, pos=cs.kernel_pos(pos), window=window:
                       da.decode_attention(*a, pos, window=window))
     ctx = (1019,) * 4
     bt, n_pages = cs.shuffled_tables(ctx, 64, 16, g)

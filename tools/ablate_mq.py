@@ -110,7 +110,7 @@ def main() -> int:
     for key, B, S_c, pos in SHAPES:
         a = rn(B, 5, 64, 128), rn(B, S_c, 8, 128), rn(B, S_c, 8, 128), \
             cs.linear_ids(S_c, pos + 4)
-        calls[key] = lambda a=a, pos=pos: mq.mq_decode_attention(*a, pos)
+        calls[key] = lambda a=a, pos=cs.kernel_pos(pos): mq.mq_decode_attention(*a, pos)
     ctx = (1019,) * 4
     bt, n_pages = cs.shuffled_tables(ctx, 64, 16, g)
     ctx_t = torch.tensor(ctx, dtype=torch.int32, device="cuda")

@@ -52,7 +52,7 @@ def hashes(cs) -> dict:
     def rn(*shape):
         return cs.randn(shape, torch.bfloat16, g)
     out = {}
-    for key, B, S_c, H, KV, dh, pos, window in cs.DECODE_TIMED:
+    for key, B, S_c, H, KV, dh, pos, window, *_ in cs.DECODE_TIMED:
         q, k, v = rn(B, 1, H, dh), rn(B, S_c, KV, dh), rn(B, S_c, KV, dh)
         out["kernel 1 " + key] = _hash(da.decode_attention(q, k, v, cs.linear_ids(S_c, pos),
                                                            pos, window=window))
@@ -103,9 +103,10 @@ def one(root: pathlib.Path) -> dict:
             k = cs.randn((B, 1024, 8, 128), torch.bfloat16, gen)
             v = cs.randn((B, 1024, 8, 128), torch.bfloat16, gen)
             ids = cs.mq_ids(1024, pos, 5, "linear")
+            pos_t = cs.kernel_pos(pos)
 
             def fn():
-                return mq.mq_decode_attention(q, k, v, ids, pos)
+                return mq.mq_decode_attention(q, k, v, ids, pos_t)
             err = cs.check(key, fn(), mq.mq_decode_attention_plain(q, k, v, ids, pos),
                            cs.BF16_REL)
             vis = cs.mq_visible(ids, pos, 5, None)
