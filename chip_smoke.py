@@ -101,17 +101,25 @@ Phases; any failure exits non-zero without the final ``ok`` line:
    paged and prefix-cache paths and 2c's n-gram, model and resident
    drafts on phase 2's weights and prompts, each on an eager backend
    (EngineBackend(capture=False)) and a captured one (the default: every
-   decode and verify step, and each draft's step, a replayed CUDA graph,
-   one per shape, the counterpart of the JAX package's jax.jit), after a
-   short warm-up serve on each (which captures): every step's logits
-   (the target's and the drafts') bit-equal, tokens identical, the launch
-   counters equal with replays counted. Printed per serve: TTFT and
+   prefill, every decode and verify step, and each draft's step and
+   prefill, a replayed CUDA graph, one per shape, the counterpart of the
+   JAX package's jax.jit), after a short warm-up serve on each (which
+   captures): every step's logits (the target's and the drafts')
+   bit-equal, tokens identical, the launch counters equal with replays
+   counted, the prefill graphs replayed. Printed per serve: TTFT and
    ms/token p50, a profiled serve's device idle share, eager against
-   captured; graphs, capture time, graph-pool bytes. Phases 3b (the
-   80-layer engine's resident draft step), 3c (RWKV6, Hymba), 3g
-   (DeepSeekMoE-16B) and 3h (SeamlessM4T-medium's decode step) check
-   PAIR_STEPS steps captured against eager the same way (step_pair) and
-   print both paces; every serve of every phase runs captured.
+   captured; graphs (steps, prefills, drafts), capture time, graph-pool
+   bytes. Then PREFILL_PAIRS prefills of the bursty batch and PAIR_STEPS
+   decode steps captured against eager (capture_pair, step_pair: logits
+   and every cache tensor bit-equal, launch counts equal; both paces, the
+   first captured call's time, the pool MiB a capture added). Phases 3c
+   (RWKV6, Hymba), 3g (DeepSeekMoE-16B) and 3h (SeamlessM4T-medium, its
+   encoder output a static input) check their prefill and decode step
+   the same way; 3f's, 3g's and 3h's engines their prompt pass (3f, 3h)
+   and streamed decode pass (engine_pass_pair), 3b the 80-layer engine's
+   decode pass (two calls) and resident draft step; every serve of every
+   phase runs captured, an engine's streamed passes included (3b prints
+   the graphs each serve captured: a retier drops the pass graphs).
 3a. the interleaved engine against the model on phase 2's weights, in a
    plan forced to stream (2 chunks of 2 resident + 2 streamed layers):
    decode and verify logits bit-equal to the model's kernel path (every
@@ -2550,14 +2558,17 @@ def idle_share(fn):
 def capture_phase(cfg, params, card, base):
     """Phase 2d: the single-device serves of phases 2, 2b and 2c on phase
     2's weights and prompts, each eagerly (EngineBackend(capture=False))
-    and captured (the default: every decode and verify step, and the
-    drafts' steps, a replayed CUDA graph). Each backend serves a short
+    and captured (the default: every prefill, decode and verify step, and
+    the drafts' steps and prefills, a replayed CUDA graph). Each backend
+    serves a short
     warm-up first (on the captured one it captures the graphs), then the
     measured serve: every step's logits bit-equal between the two, tokens
     identical, the launch counters equal (replays counted); then a
     profiled serve for the device's idle share. Printed per serve: TTFT
     and ms/token p50, idle share, eager against captured; graphs, capture
-    seconds, graph-pool bytes. Returns the captured serves' launches."""
+    seconds, graph-pool bytes. Then the 8-layer model's prefill and decode
+    step captured against eager (prefilled_pair). Returns the captured
+    serves' launches."""
     import torch
     from repro_torch.serving import EngineBackend, summarize
     from repro_torch.specdec import SpecConfig
@@ -2611,7 +2622,9 @@ def capture_phase(cfg, params, card, base):
             f"{c['pwall']:.1f} ms wall, {e['n_dev']} / {c['n_dev']} device events, "
             f"{CAPTURE_PROFILE_NEW} tokens a request); graphs {g['graphs']} "
             f"({g['captures']} captured in {g['capture_s'] * 1e3:.0f} ms, "
-            f"{g['replays']} replays), the drafts' {g['draft_graphs']} "
+            f"{g['replays']} replays), the prefills' {g['prefill_graphs']} "
+            f"({g['prefill_captures']} in {g['prefill_capture_s'] * 1e3:.0f} ms, "
+            f"{g['prefill_replays']} replays), the drafts' {g['draft_graphs']} "
             f"({g['draft_captures']} in {g['draft_capture_s'] * 1e3:.0f} ms, "
             f"{g['draft_replays']} replays), graph pool "
             f"{g['pool_bytes'] / 2**20:.1f} MiB [{card}; {cfg.n_layers} layers]")
@@ -2621,11 +2634,12 @@ def capture_phase(cfg, params, card, base):
                                  f"{len(c['rec'])} steps)")
         if e["out"] != c["out"] or e["got"] != c["got"]:
             raise AssertionError(f"2d {label}: tokens or launches differ")
-        if g["replays"] <= 0 or c["n_dev"] <= 0:
+        if g["replays"] <= 0 or g["prefill_replays"] <= 0 or c["n_dev"] <= 0:
             raise AssertionError(f"2d {label}: no replay ({g}) or no device event "
                                  "in the captured profile")
         for k, v in c["got"].items():
             launches[k] += v
+    prefilled_pair(cfg, params, prompts, card)
     return launches
 
 
@@ -2704,19 +2718,167 @@ def engine_draft_pair(eng, st, tok, card, what, steps):
 
 
 def prefilled_pair(cfg, params, prompts, card):
-    """model_step_pair on the model's decode step after a prefill of the
-    bursty batch `prompts` (impl "kernel")."""
+    """model_prefill_pair on the bursty batch `prompts`, then
+    model_step_pair on the model's decode step after that prefill (impl
+    "kernel")."""
     import numpy as np
     import torch
 
-    from repro_torch.models import model as M
     toks = torch.from_numpy(np.stack(prompts)).long().cuda()
-    cache = M.init_cache(cfg, toks.shape[0], MAX_LEN)
-    lg, cache = M.prefill(cfg, params, toks, cache, impl="kernel")
+    lg, cache = model_prefill_pair(cfg, params, toks, card)
     model_step_pair(f"{cfg.name} decode step (B {toks.shape[0]}, {cfg.n_layers} "
                     "layers)", cfg, params, cache,
                     lg[:, -1, :cfg.vocab_size].argmax(-1, keepdim=True), card,
                     impl="kernel")
+
+
+PREFILL_PAIRS = 3         # prefills of a captured-vs-eager prefill pair
+
+
+def graph_note(g):
+    """A backend's graph_stats in words: its step (an engine's pass),
+    prefill and draft graphs, captures, replays, capture seconds, pool."""
+    return (f"graphs: steps / passes {g['captures']} captured in "
+            f"{g['capture_s'] * 1e3:.0f} ms, {g['replays']} replays; prefills "
+            f"{g['prefill_captures']} captured in {g['prefill_capture_s'] * 1e3:.0f} ms, "
+            f"{g['prefill_replays']} replays; drafts {g['draft_captures']} captured, "
+            f"{g['draft_replays']} replays; pool {g['pool_bytes'] / 2**20:.1f} MiB")
+
+
+def capture_pair(label, run, card, save, restore, observe, n, steps=None):
+    """n calls of run(steps) (steps None: eager; a CapturedStep: the graph
+    of the call's shape replayed, captured at the first), each run
+    eagerly, then with the state put back as the eager call found it
+    (save() -> restore(saved)) through the graph: its logits, what it
+    wrote (observe(): tensors) bit for bit and the launch counters'
+    advance equal. Prints the eager and the replayed time (median), the
+    first captured call's (the eager warm-up plus the capture's host time)
+    and the graph-pool MiB the captures added. Returns (eager ms, replayed
+    ms, first captured call ms)."""
+    import torch
+    from repro_torch.core.capture import CapturedStep
+    steps = CapturedStep("cuda") if steps is None else steps
+    torch.cuda.synchronize()
+    pool0 = steps.pool_bytes()
+    times = {False: [], True: []}
+    for i in range(n):
+        saved = save()
+        out = {}
+        for cap in (False, True):
+            if cap:
+                restore(saved)
+            c0 = read_counts()
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            lg = run(steps if cap else None)
+            torch.cuda.synchronize()
+            times[cap].append(time.monotonic() - t0)
+            out[cap] = (lg, {k: v - c0[k] for k, v in read_counts().items()
+                             if v != c0[k]}, observe())
+        (le, ne, we), (lc, nc, wc) = out[False], out[True]
+        if not torch.equal(le, lc):
+            raise AssertionError(f"{label}: call {i}: captured logits differ from the "
+                                 "eager call's")
+        bad = [j for j, (a, b) in enumerate(zip(we, wc)) if not torch.equal(a, b)]
+        if bad or len(we) != len(wc):
+            raise AssertionError(f"{label}: call {i}: what the captured call wrote "
+                                 f"differs from the eager call's (tensors {bad})")
+        if ne != nc or not ne:
+            raise AssertionError(f"{label}: launches {ne} eager, {nc} captured")
+    pool = (steps.pool_bytes() - pool0) / 2**20
+    me = statistics.median(times[False]) * 1e3
+    mc = statistics.median(times[True][1:] or times[True]) * 1e3
+    first = times[True][0] * 1e3
+    log(f"  {label}: {n} calls captured against eager, logits and what they wrote "
+        f"bit-equal, launches equal ({nc} a call); {me:.3f} ms eager, {mc:.3f} ms "
+        f"replayed (median); the first captured call {first:.1f} ms (eager warm-up + "
+        f"capture), {steps.captures} graph(s), graph pool +{pool:.1f} MiB [{card}]")
+    return me, mc, first
+
+
+def model_prefill_pair(cfg, params, toks, card, enc_out=None):
+    """capture_pair over M.prefill of `toks` (B, S) (impl "kernel"; the
+    encoder-decoder family's enc_out a static input of the graph) into a
+    cache cleared in place before each call; what each wrote: every cache
+    tensor. Returns (logits, cache) of the last prefill."""
+    import torch
+
+    from repro_torch.models import model as M
+    from repro_torch.core.capture import CapturedStep
+    B = toks.shape[0]
+    kw = {"enc_out": enc_out} if enc_out is not None else {}
+    cache = M.init_cache(cfg, B, MAX_LEN, enc_out=enc_out)
+    steps = CapturedStep("cuda")
+    last = []
+
+    def run(steps):
+        lg, _ = M.prefill(cfg, params, toks, M.clear_cache(cache), impl="kernel",
+                          steps=steps, **kw)
+        last[:] = [lg]
+        return lg
+
+    def observe():
+        return tuple(v.clone() for v in cache.values() if isinstance(v, torch.Tensor))
+    label = f"{cfg.name} prefill (B {B}, S {toks.shape[1]}, {cfg.n_layers} layers)"
+    capture_pair(label, run, card, lambda: None, lambda _: None, observe,
+                 PREFILL_PAIRS, steps=steps)
+    pass_profile(None, None, None, lambda: run(steps), card, f"replayed {label}")
+    return last[0], cache
+
+
+def engine_pass_pair(eng, st, tok, card, what, n=PAIR_STEPS, prompt=None,
+                     enc_out=None):
+    """capture_pair over the engine's streamed decode pass of `tok` from
+    state st (and first, given `prompt`, its prompt pass into st): the
+    pure-KV families put back by rolling the position back, what a pass
+    wrote being its K/V slot and pos_ids; the others by copying every state
+    tensor back, what it wrote being the whole state (enc_out: the
+    encoder-decoder prompt pass's static input). The state ends one pass
+    on. Returns the decode pair's (eager ms, replayed ms, first ms)."""
+    import torch
+
+    from repro_torch.core.capture import CapturedStep
+    from repro_torch.models import model as M
+    steps = CapturedStep(eng.device)
+    label = f"{eng.cfg.name} engine, {what}"
+
+    def whole():
+        return tuple(v.clone() for v in st.values() if isinstance(v, torch.Tensor))
+    if prompt is not None:
+        what = f"{label}: the prompt pass (B {prompt.shape[0]}, S {prompt.shape[1]})"
+
+        def prompt_pass(s):
+            return eng.prefill(prompt, enc_out, cache=st, steps=s)[0]
+        capture_pair(what, prompt_pass, card, lambda: None, lambda _: None, whole,
+                     PREFILL_PAIRS, steps=steps)
+        pass_profile(None, None, None, lambda: prompt_pass(steps), card,
+                     f"replayed {what}")
+    if eng.cfg.family in M.PURE_KV:
+        S_c = st["k"].shape[2]
+
+        def save():
+            return st["pos"]
+
+        def restore(p):
+            eng.rollback(st, p)
+
+        def observe():
+            slot = (st["pos"] - 1) % S_c
+            return (st["k"][:, :, slot].clone(), st["v"][:, :, slot].clone(),
+                    st["pos_ids"].clone())
+    else:
+        def save():
+            return whole(), st["pos"]
+
+        def restore(saved):
+            ts, p = saved
+            for a, b in zip((v for v in st.values() if isinstance(v, torch.Tensor)), ts):
+                a.copy_(b)
+            st["pos"] = p
+        observe = whole
+    return capture_pair(f"{label}: a decode pass (B {tok.shape[0]})",
+                        lambda s: eng.decode_step(st, tok, steps=s)[0], card, save,
+                        restore, observe, n, steps=steps)
 
 
 # ----------------------------------------------------------------------------
@@ -3415,6 +3577,10 @@ def recurrent_engine_serve(arch, card):
     pass_profile(eng, st, st["pos"], lambda: eng.decode_step(st, tok), card,
                  f"{cfg.name} decode")
     lap(f"{cfg.name} timed and profiled passes")
+    engine_pass_pair(eng, st, tok, card, f"{L - n_res} of {L} layers streamed, the "
+                     f"copy {copy_s * 1e3:.2f} ms",
+                     prompt=torch.from_numpy(np.stack(prompts)).long().cuda())
+    lap(f"{cfg.name} captured against eager passes")
     eng.close()
     if cfg.family == Family.HYBRID:
         engp = InterleavedEngine(cfg, plan, mb=4, max_len=MAX_LEN, paged=True,
@@ -3849,6 +4015,7 @@ def full_model_phase(card):
         rep = summarize(done, pattern=pattern, backend="engine", stats=stats)
         spec_rounds = [c for k, c in be.rounds if k]
         g = be.graph_stats
+        log(f"  {pattern}, {graph_note(g)} [{card}; {L} layers]")
         log(f"  {pattern}: {rep.n_requests} requests x {MAX_NEW_80} tokens, "
             f"prompt {PROMPT_LEN}: TTFT p50 {rep.ttft_p50_s * 1e3:.1f} ms, p99 "
             f"{rep.ttft_p99_s * 1e3:.1f} ms; decode {1e3 / rep.decode_tok_s_p50:.1f} "
@@ -3903,6 +4070,7 @@ def full_model_phase(card):
         launches[key] += n
     rep = summarize(done, pattern="bursty", backend="engine", stats=stats)
     pool = be._pool
+    log(f"  adaptive serve, {graph_note(be.graph_stats)} [{card}; {L} layers]")
     log(f"  adaptive serve: occupancy notes (round, pages, tokens) {notes}; planner "
         f"retiers at (rounds done, live requests) {fired}; retier_events "
         f"{rep.retier_events}, hbm_returned_bytes {rep.hbm_returned_bytes:.0f}, "
@@ -3955,15 +4123,22 @@ def full_model_phase(card):
     log(f"  predicted T_total of plan_for's plan {plan.t_total * 1e3:.1f} ms against "
         f"measured decode {min(times['decode']) * 1e3:.1f} ms, verify "
         f"{min(times['verify q_len 5']) * 1e3:.1f} ms [{card}; {L} layers, B 4]")
+    engine_pass_pair(eng, st, cur, card, f"{L} layers, {L - n_res} streamed, the "
+                     f"copy {copy_s * 1e3:.0f} ms", n=2)
+    eng.rollback(st, P)
     pass_profile(eng, st, P, lambda: eng.decode_step(st, cur), card, "decode")
     pass_profile(eng, st, P, lambda: eng.verify_step(st, mat), card, "verify q_len 5")
     # one chunked-prefill round (q_len 512 from pos 0): kernel 4's prefill
     # regime in serve, and the GEMMs' sustained rate (the profile's flops)
+    # (replayed from its CUDA graph, as the serves run it)
     st0 = eng.init_state(params)
+    rounds = CapturedStep(eng.device)
+    eng.verify_step(st0, toks[:, :PREFILL_CHUNK], steps=rounds)    # captures
+    eng.rollback(st0, 0)
     for attempt in (1, 2):           # the profiler now and then loses them all
         by, _, kern = pass_profile(eng, st0, 0, lambda: eng.verify_step(
-            st0, toks[:, :PREFILL_CHUNK]), card,
-            f"chunked-prefill round (q_len {PREFILL_CHUNK})")
+            st0, toks[:, :PREFILL_CHUNK], steps=rounds), card,
+            f"replayed chunked-prefill round (q_len {PREFILL_CHUNK})")
         k4 = kern.get("sm90_attention_kernel")      # kernel 4's prefill regime
         if k4 is not None or attempt == 2:
             break
@@ -4783,8 +4958,8 @@ def moe_engine_check(card):
     for name in ("verify_requests", "decode_requests"):
         fn = getattr(eng, name)
 
-        def rec(state, tokens, active, _fn=fn, _name=name):
-            lg, state = _fn(state, tokens, active)
+        def rec(state, tokens, active, _fn=fn, _name=name, **kw):
+            lg, state = _fn(state, tokens, active, **kw)
             log_calls.append((_name, tokens.clone(), torch.as_tensor(active).clone(),
                               state["pos"], lg[..., :V].float()))
             return lg, state
@@ -4854,6 +5029,8 @@ def moe_engine_check(card):
         f"[{card}]")
     pass_profile(eng, st, st["pos"], lambda: eng.decode_step(st, tok), card,
                  f"folded {cfg.name} decode")
+    engine_pass_pair(eng, st, tok, card, f"folded, {L - n_res} of {L} layers "
+                     f"streamed, the copy {copy_s * 1e3:.2f} ms")
     host_mem("before 3g's engine is closed")
     eng.close()
     del params
@@ -5241,6 +5418,7 @@ def encdec_model_check(cfg, params, fe, toks, card):
     c = {k: v.clone() if k in ("k", "v", "pos_ids") else v for k, v in cache.items()}
     model_step_pair(f"{cfg.name} decode step (B {n}, enc_len {fe.shape[1]})", cfg,
                     params, c, got[:, 1:2], card, impl="kernel", enc_len=fe.shape[1])
+    model_prefill_pair(cfg, params, toks, card, enc_out=enc)
     pass_profile(None, None, None, lambda: encdec_run(cfg, params, fe, toks, "kernel",
                                                       steps=1), card,
                  f"{cfg.name} encode + cross K/V + prefill")
@@ -5329,6 +5507,9 @@ def encdec_engine_check(cfg, params, fe, toks, ref, lk, got, card):
         f"{passes[1] * 1e3:.3f} ms (min {passes[0] * 1e3:.3f}) against the streamed "
         f"bytes' copy {streamed / (rate * 1e9) * 1e3:.3f} ms and the cost model's "
         f"T_total {plan.t_total * 1e3:.3f} ms [{card}]")
+    engine_pass_pair(eng, st, tok, card, f"{L - n_res} of {L} layers streamed, the "
+                     f"copy {streamed / (rate * 1e9) * 1e3:.3f} ms", prompt=toks,
+                     enc_out=enc)
     eng.close()
     engp = InterleavedEngine(cfg, plan, mb=n, max_len=MAX_LEN, paged=True,
                              page_size=ENGINE_PAGE, enc_len=S_enc)

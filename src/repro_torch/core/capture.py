@@ -1,41 +1,60 @@
 """Captured serving steps: the port's counterpart of ``jax.jit``.
 
 The JAX package compiles each serving step once per shape and dispatches
-it as one program: the single-device backend's ``jax.jit`` of
-``M.decode_step`` and ``M.verify_step`` (``serving/backend.py:603-606``),
-the paged decode and verify (``kvcache/paged_decode.py:46, 86``), the
-engine's resident-only draft program (``core/engine.py:857``) and the
-drafts' decode steps (``specdec/draft.py:84``,
-``specdec/resident_draft.py:112``). Its decode kernels read the position
-as a runtime scalar, so one compiled step serves every position.
+it as one program. ``CapturedStep`` does the same with CUDA graphs, one
+graph per shape, for every step the JAX package jits:
 
-``CapturedStep`` does the same with CUDA graphs. A step is split into a
-host prelude (checks, page bookkeeping), a device body and a host
-epilogue (the host position advances). The body is a function of a
-tokens tensor and a 0-d int32 position tensor that reads no other value
-that changes between tokens: kernels 1 and 4 read the position from
-device memory, the model writes K/V and ``pos_ids`` at slots computed on
-the device. For each key (what fixes a graph: the tokens' shape, which
-carries the batch width and q_len, and whatever the caller adds, such as
-``enc_len``) the body is captured once and replayed per token, its
-static inputs written in place first.
+* the single-device backend's decode and verify steps (``jax.jit`` of
+  ``M.decode_step`` / ``M.verify_step``, ``serving/backend.py:603-606``)
+  and its prefill (``jax.jit`` of ``M.prefill``, ``:602``), one graph per
+  prompt shape, the encoder-decoder family's ``enc_out`` (or frame
+  embeddings) and the VLM's patch embeddings as static inputs;
+* the paged decode and verify (``kvcache/paged_decode.py:46, 86``), the
+  prefix cache's suffix rounds among them;
+* the engine's pass (``core/engine.py:875``): the decode and verify passes,
+  the rounds of ``prefill_partial`` and the prompt pass over the tiers,
+  streamed layers included (the pass forks the engine's copy stream from
+  the capture stream and joins it again before the capture ends), and
+  its resident-only draft program (``:857``);
+* the drafts' decode steps and their prefill in ``reset``
+  (``specdec/draft.py:84-85``, ``specdec/resident_draft.py:112-114``).
+
+Its decode kernels read the position as a runtime scalar, so one compiled
+step serves every position.
+
+A step is split into a host prelude (checks, page bookkeeping, buffers
+allocated), a device body and a host epilogue (the host position
+advances). The body is a function of a tokens tensor, a 0-d int32
+position tensor and the step's other static inputs (``inputs``: the
+encoder's output, patch embeddings) that reads no other value that
+changes between calls: kernels 1 and 4 read the position from device
+memory, the model writes K/V and ``pos_ids`` at slots computed on the
+device. What it writes in place (a cache, the engine's state) lives
+outside the graph's pool at addresses the scope names. For each key
+(what fixes a graph: the tokens' shape, which carries the batch width and
+q_len or the prompt length, the inputs' shapes, and whatever the caller
+adds, such as ``enc_len``) the body is captured once and replayed per
+call, its static inputs written in place first.
 
 * The first call of a key is the real step, run eagerly on the capture
   stream (the warm-up: cuBLAS handles, the kernels' one-time
-  ``cudaFuncSetAttribute`` and cluster-occupancy queries), then the body
-  is captured into the backend's graph pool under
-  ``torch.cuda.set_sync_debug_mode("error")``, so a host sync in the body
-  fails the capture. Warm-up and capture run the body once each: a
-  recurrent state advances once.
+  ``cudaFuncSetAttribute`` and cluster-occupancy queries, cached device
+  constants), then the body is captured into the backend's graph pool
+  under ``torch.cuda.set_sync_debug_mode("error")``, so a host sync in the
+  body fails the capture. Warm-up and capture run the body once each (the
+  capture only records): a recurrent state advances once.
 * The launch counters of the kernel wrappers (``KERNEL_MODULES``) count
   in Python, so a capture bumps them once and a replay never: the capture
   takes its counts back and every replay adds them, so the counters stay
   exact.
 * ``scope`` (a function, called only where graphs are kept) names the
   memory a graph reads and writes beyond its static buffers (the cache's
-  tensors, the weights, the engine's layout version). A call in a new
-  scope drops every graph of the old one: they would read freed or moved
-  memory.
+  tensors, the weights, the engine's layout version and pinned store). A
+  call in a new scope drops every graph of the old one: they would read
+  freed or moved memory.
+* The output is cloned right after a replay: the graphs of a backend
+  share one pool, and a later graph's temporaries may overlap an earlier
+  graph's static output.
 * On a CPU device (the caller asked for the CPU), or with capture turned
   off, the body runs eagerly with a fresh position tensor. On the card a
   capture or replay that fails raises; it never falls back to the eager
@@ -60,7 +79,7 @@ from repro_torch.kernels.ssm_scan import ops as ssm_ops
 
 KERNEL_MODULES = (da_ops, pg_ops, mq_ops, fa_ops, wkv_ops, ssm_ops)
 
-Body = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+Body = Callable[..., torch.Tensor]
 Scope = Callable[[], tuple]
 
 
@@ -137,16 +156,17 @@ class CudaGraphs:
 
 
 class _Entry:
-    __slots__ = ("tokens", "pos", "graph", "out", "launches")
+    __slots__ = ("tokens", "pos", "inputs", "graph", "out", "launches")
 
-    def __init__(self, tokens: torch.Tensor, pos: torch.Tensor):
-        self.tokens, self.pos = tokens, pos
+    def __init__(self, tokens: torch.Tensor, pos: torch.Tensor,
+                 inputs: Tuple[torch.Tensor, ...]):
+        self.tokens, self.pos, self.inputs = tokens, pos, inputs
         self.graph = self.out = None
         self.launches: Dict[Tuple[str, str], int] = {}
 
 
 class CapturedStep:
-    """One CUDA graph per key of a step's device body, replayed per token.
+    """One CUDA graph per key of a step's device body, replayed per call.
     ``enabled`` False (or a CPU device) runs every call eagerly; ``pool``
     shares a graph memory pool (``torch.cuda.graph_pool_handle()``) with
     another CapturedStep of the same backend; ``graphs`` injects the graph
@@ -186,22 +206,28 @@ class CapturedStep:
         self._scope = None
 
     def run(self, key: tuple, body: Body, tokens: torch.Tensor, pos: int, *,
-            scope: Scope = tuple) -> torch.Tensor:
-        """body(tokens, position) for tokens (B, q_len) at host position
-        `pos`: eagerly, or the key's graph replayed (captured at its first
-        call). Returns the body's output (a copy of a graph's static
-        output: it stays valid across later replays)."""
+            scope: Scope = tuple,
+            inputs: Tuple[torch.Tensor, ...] = ()) -> torch.Tensor:
+        """body(tokens, position, *inputs) for tokens (B, q_len) at host
+        position `pos`: eagerly, or the key's graph replayed (captured at
+        its first call). `inputs` are the body's other static inputs (the
+        encoder's output of a prefill), copied into the graph's own
+        buffers before each replay. Returns the body's output (a copy of a
+        graph's static output: it stays valid across later replays)."""
         if self.graphs is None:
-            return run(None, key, body, tokens, pos, device=self.device)
+            return run(None, key, body, tokens, pos, device=self.device,
+                       inputs=inputs)
         scope = scope()
         if scope != self._scope:
             self._entries.clear()
             self._scope = scope
-        key = (key, tuple(tokens.shape), tokens.dtype)
+        key = (key, tuple(tokens.shape), tokens.dtype,
+               tuple((tuple(t.shape), t.dtype) for t in inputs))
         e = self._entries.get(key)
         if e is None:
-            return self._capture(key, body, tokens, pos)
+            return self._capture(key, body, tokens, pos, inputs)
         self._feed(e, tokens, pos)
+        self._feed_inputs(e, inputs)
         self.graphs.replay(e.graph)
         _add_counts(e.launches)
         self.replays += 1
@@ -209,21 +235,32 @@ class CapturedStep:
 
     @staticmethod
     def _feed(e: _Entry, tokens: torch.Tensor, pos: int) -> None:
-        """Write a call's inputs into the graph's static buffers."""
+        """Write a call's tokens and position into the graph's static
+        buffers."""
         e.tokens.copy_(tokens)
         e.pos.fill_(pos)
 
+    @staticmethod
+    def _feed_inputs(e: _Entry, inputs: Tuple[torch.Tensor, ...]) -> None:
+        """... and its other static inputs."""
+        for buf, t in zip(e.inputs, inputs):
+            buf.copy_(t)
+
     def _capture(self, key: tuple, body: Body, tokens: torch.Tensor,
-                 pos: int) -> torch.Tensor:
+                 pos: int, inputs: Tuple[torch.Tensor, ...]) -> torch.Tensor:
         t0 = time.perf_counter()
         e = _Entry(torch.empty(tokens.shape, dtype=tokens.dtype,
                                device=self.device),
-                   torch.empty((), dtype=torch.int32, device=self.device))
+                   torch.empty((), dtype=torch.int32, device=self.device),
+                   tuple(torch.empty(t.shape, dtype=t.dtype,
+                                     device=self.device) for t in inputs))
         self._feed(e, tokens, pos)
-        out = self.graphs.warm(lambda: body(e.tokens, e.pos))
+        self._feed_inputs(e, inputs)
+        out = self.graphs.warm(lambda: body(e.tokens, e.pos, *e.inputs))
         before = launch_counts()
         try:
-            e.graph, e.out = self.graphs.capture(lambda: body(e.tokens, e.pos))
+            e.graph, e.out = self.graphs.capture(
+                lambda: body(e.tokens, e.pos, *e.inputs))
         finally:
             after = launch_counts()
             _add_counts({k: before[k] - v for k, v in after.items()})
@@ -242,11 +279,11 @@ class CapturedStep:
 
 def run(steps: Optional[CapturedStep], key: tuple, body: Body,
         tokens: torch.Tensor, pos: int, *, scope: Scope = tuple,
-        device=None) -> torch.Tensor:
+        device=None, inputs: Tuple[torch.Tensor, ...] = ()) -> torch.Tensor:
     """``steps.run(...)``, or with no CapturedStep the body run eagerly on
     `device` (where the caller's cache lives)."""
     if steps is not None:
-        return steps.run(key, body, tokens, pos, scope=scope)
+        return steps.run(key, body, tokens, pos, scope=scope, inputs=inputs)
     dev = torch.device(device) if device is not None else tokens.device
     return body(tokens.to(dev),
-                torch.full((), pos, dtype=torch.int32, device=dev))
+                torch.full((), pos, dtype=torch.int32, device=dev), *inputs)

@@ -63,6 +63,17 @@ package's per-stage grid (where a demoted layer's cache rows move with
 it) no cache row moves. The engine state *is* the model's cache dict, so
 engine and model steps run on the same state; the weights belong to the
 engine (``init_state`` loads them once from a layer source).
+
+Every pass (decode, verify, the rounds of ``prefill_partial``, the prompt
+pass, the resident-only draft step) takes ``steps=`` (a
+``core.capture.CapturedStep``) and then replays one CUDA graph per shape,
+the counterpart of the JAX engine's jitted pass: the pass forks the copy
+stream from the capture stream (both buffers marked free there) and joins
+it before the pass ends, so the copies, the events between them and the
+layers' compute become graph nodes and the interleave their dependencies.
+A graph reads the pinned store and the resident layers at their
+addresses: every weight load and retier bumps ``layout_version``, which
+the graphs' scope holds, so the next pass captures again.
 """
 from __future__ import annotations
 
@@ -271,6 +282,10 @@ class PinnedStore:
             torch.cuda.check_error(torch.cuda.cudart().cudaHostRegister(
                 self.data.data_ptr(), need, 0))
             self.registered = True
+        # whether torch sees it as page-locked: only then is a
+        # copy_(non_blocking=True) from it an asynchronous copy that a
+        # CUDA graph can hold
+        self.pinned = self.registered and self.data.is_pinned()
 
     @property
     def nbytes(self) -> int:
@@ -286,24 +301,45 @@ class PinnedStore:
 
 class _Streamer:
     """Two one-layer device buffers fed from the pinned store on a side
-    stream. fetch(i, src) fills buffer i once the compute stream has
-    released it; acquire(i) makes the compute stream wait for that copy;
-    release(i) marks the buffer free after the work enqueued so far. On
-    the CPU the copy is immediate and the events are no-ops."""
+    stream. begin() forks the side stream from the compute stream (both
+    buffers free as of the work enqueued so far); fetch(i, src) fills
+    buffer i once the compute stream has released it; acquire(i) makes
+    the compute stream wait for that copy; release(i) marks the buffer
+    free after the work enqueued so far; end() joins the side stream back.
+    Every event a pass waits on is recorded in that pass, so a captured
+    pass holds no event of an earlier one (a wait on it is illegal in a
+    capture; replays on one stream run in order). On the CPU the copy is
+    immediate and the events are no-ops."""
 
-    def __init__(self, numel: int, device: torch.device):
+    def __init__(self, numel: int, device: torch.device,
+                 pinned: bool = False):
         self.bufs = [torch.zeros(numel, dtype=torch.bfloat16, device=device)
                      for _ in range(2)]
         self.cuda = device.type == "cuda"
+        self.pinned = pinned      # the store is page-locked in torch's eyes
         if self.cuda:
             self.stream = torch.cuda.Stream(device)
             self.done = [torch.cuda.Event() for _ in range(2)]
             self.free = [torch.cuda.Event() for _ in range(2)]
 
+    def begin(self) -> None:
+        if self.cuda:
+            cur = torch.cuda.current_stream()
+            for ev in self.free:
+                ev.record(cur)
+
+    def end(self) -> None:
+        if self.cuda:
+            torch.cuda.current_stream().wait_stream(self.stream)
+
     def fetch(self, i: int, src: torch.Tensor) -> None:
         if not self.cuda:
             self.bufs[i].copy_(src)
             return
+        if not self.pinned and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("a captured pass copies streamed layers from "
+                               "page-locked memory only; torch does not see "
+                               "the store as pinned")
         with torch.cuda.stream(self.stream):
             self.stream.wait_event(self.free[i])
             self.bufs[i].copy_(src, non_blocking=True)
@@ -458,7 +494,7 @@ class InterleavedEngine:
                                  if k != "layers"})
         self._store = PinnedStore((self.plan.n_seg, self.k_off_cap,
                                    self.layer_numel), dev)
-        self._streamer = _Streamer(self.layer_numel, dev)
+        self._streamer = _Streamer(self.layer_numel, dev, self._store.pinned)
         self._buf_views = [self._views(b) for b in self._streamer.bufs]
         staging = self._streamer.bufs[0]
         for l in range(self.cfg.n_layers):
@@ -524,6 +560,7 @@ class InterleavedEngine:
         streamed = [where for _, where in order if where is not None]
         st, store = self._streamer, self._store.data
         if streamed:
+            st.begin()
             st.fetch(0, store[streamed[0]])
         i = 0
         for l, where in order:
@@ -537,20 +574,29 @@ class InterleavedEngine:
             x = body(self._buf_views[b], l, x)
             st.release(b)
             i += 1
+        if streamed:
+            st.end()
         return x
 
     def _check_loaded(self) -> None:
         if self._loaded_from is None:
             raise RuntimeError("init_state(params) loads the weights first")
 
+    def _scope(self, cache: dict):
+        """What a captured pass over `cache` reads and writes beyond its
+        static buffers: the tier layout (resident layers' HBM, which
+        retier and weight loads change; both bump layout_version), the
+        pinned store's address and the cache's tensors."""
+        return lambda: (self.layout_version, self._store.data.data_ptr(),
+                        capture.tensor_scope(cache))
+
     def _pass(self, state: dict, tokens: torch.Tensor, *, multi: bool,
               resident_only: bool = False,
               steps: Optional[CapturedStep] = None):
         """One pass: the host prelude (M.step_prelude's checks), the device
-        body (_pass_body), then pos advanced. With `steps` (a resident-only
-        pass, the draft step: no streamed layer, so no side-stream copy or
-        event) the body replays its CUDA graph for the shape; a streamed
-        pass runs eagerly."""
+        body (_pass_body), then pos advanced. With `steps` the body
+        replays its CUDA graph for the shape, streamed layers included
+        (their copies and events are graph nodes, see _Streamer)."""
         self._check_loaded()
         q_len = tokens.shape[1]
         M.step_prelude(self.cfg, state, q_len, impl=self.impl, multi=multi,
@@ -559,12 +605,9 @@ class InterleavedEngine:
         def body(tok, pos):
             return self._pass_body(state, tok, pos, multi=multi,
                                    resident_only=resident_only)
-        if steps is not None and not resident_only:
-            raise ValueError("a streamed pass is not captured")
         logits = capture.run(
-            steps, ("draft", multi), body, tokens, state["pos"],
-            scope=lambda: (self.layout_version, capture.tensor_scope(state)),
-            device=self.device)
+            steps, ("pass", multi, resident_only), body, tokens, state["pos"],
+            scope=self._scope(state), device=self.device)
         state["pos"] += q_len
         return logits
 
@@ -593,7 +636,9 @@ class InterleavedEngine:
         return M.encode(self.cfg, self._shared, frame_embeds, impl=self.impl)
 
     def prefill(self, tokens: torch.Tensor,
-                enc_out: Optional[torch.Tensor] = None):
+                enc_out: Optional[torch.Tensor] = None, *,
+                cache: Optional[dict] = None,
+                steps: Optional[CapturedStep] = None):
         """The prompt pass of every family over the engine's own tiers (the
         counterpart of the JAX backend's M.prefill on replicated params,
         which one card cannot hold): M.prefill_layer on each layer's
@@ -605,7 +650,12 @@ class InterleavedEngine:
         by that layer's own weights (M.cross_kv_layer) just before the
         layer runs. Returns (last-token logits (mb, 1, PV), cache):
         M.prefill's (after M.seed_cross_kv) on the same weights, bit for
-        bit, for seed_cache to adopt."""
+        bit, for seed_cache to adopt. `cache`, a model-layout cache of this
+        engine's shapes allocated by the caller (the serving backend passes
+        its state), is cleared and written in place instead of a new one:
+        a captured prompt pass (`steps`, one CUDA graph per prompt shape)
+        must write memory outside its graph pool, at addresses its scope
+        names."""
         self._check_loaded()
         cfg = self.cfg
         if cfg.family == Family.ENCDEC:
@@ -618,7 +668,28 @@ class InterleavedEngine:
         elif enc_out is not None:
             raise ValueError(f"enc_out feeds the encoder-decoder family, "
                              f"not {cfg.family}")
-        cache = self._empty_cache()
+        if cache is None:
+            cache = self._empty_cache()
+        else:
+            self._check_cache(cache)
+        cache["pos"] = 0                    # clear_cache's host half
+        inputs = (enc_out,) if enc_out is not None else ()
+
+        def body(tok, pos, *inp):
+            return self._prompt_body(cache, tok, *inp)
+        logits = capture.run(steps, ("prompt", bool(inputs)), body, tokens,
+                             0, scope=self._scope(cache), device=self.device,
+                             inputs=inputs)
+        M.prefill_epilogue(cache, tokens.shape[1])
+        return logits, cache
+
+    def _prompt_body(self, cache: dict, tokens: torch.Tensor,
+                     enc_out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The device body of the prompt pass: the cache cleared in place,
+        every layer over the tiers (cross K/V first where enc_out is
+        given), pos_ids written. Returns the last-token logits."""
+        cfg = self.cfg
+        M.clear_tensors(cache)
         x = M.embed(self._shared, tokens).to(torch.bfloat16)
 
         def body(p, l, x):
@@ -627,9 +698,23 @@ class InterleavedEngine:
             return M.prefill_layer(cfg, p, x, cache, l, self.windows[l],
                                    impl=self.impl)
         x = self._run_layers(x, body)
-        M.prefill_positions(cache, x.shape[1])
+        M.prompt_pos_ids(cache, x.shape[1])
         x = rms_norm(x[:, -1:], self._shared["final_norm"], cfg.norm_eps)
-        return unembed(self._shared, x), cache
+        return unembed(self._shared, x)
+
+    def _check_cache(self, cache: dict) -> None:
+        """A caller's cache must have this engine's entries and shapes."""
+        want = M.init_cache(self.cfg, self.mb, self.max_len, self.long_mode,
+                            device="meta", enc_len=self.enc_len)
+        for key, t in want.items():
+            got = cache.get(key)
+            if isinstance(t, torch.Tensor) and not (
+                    isinstance(got, torch.Tensor) and got.shape == t.shape
+                    and got.dtype == t.dtype
+                    and got.device.type == self.device.type):
+                raise ValueError(f"cache entry {key}: the engine's prompt "
+                                 f"pass needs {tuple(t.shape)} {t.dtype} on "
+                                 f"{self.device}")
 
     def seed_cache(self, state: dict, cache: dict) -> dict:
         """Adopt a model-layout cache (prefill's, or M.prefill's for mb
@@ -653,15 +738,20 @@ class InterleavedEngine:
         for key, v in cache.items():
             if self.paged and key in ("k", "v"):
                 v = self._through_pages(v, ctx)
+            if v is state.get(key):     # the prompt pass wrote the state
+                continue
             if isinstance(state.get(key), torch.Tensor):
-                state[key].copy_(v)     # in place: a captured draft step
-            else:                       # over the state stays valid
+                state[key].copy_(v)     # in place: a captured pass over
+            else:                       # the state stays valid
                 state[key] = v
         return state
 
-    def decode_step(self, state: dict, tokens: torch.Tensor):
-        """tokens: (mb, 1) -> (logits (mb, PV), state), pos advanced by 1."""
-        return self._pass(state, tokens, multi=False)[:, 0], state
+    def decode_step(self, state: dict, tokens: torch.Tensor, *,
+                    steps: Optional[CapturedStep] = None):
+        """tokens: (mb, 1) -> (logits (mb, PV), state), pos advanced by 1.
+        With `steps` the pass replays its CUDA graph."""
+        return self._pass(state, tokens, multi=False,
+                          steps=steps)[:, 0], state
 
     @staticmethod
     def _masked(tokens, active):
@@ -669,7 +759,7 @@ class InterleavedEngine:
                                  device=tokens.device)
         return torch.where(active[:, None], tokens, torch.zeros_like(tokens))
 
-    def decode_requests(self, state, tokens, active):
+    def decode_requests(self, state, tokens, active, *, steps=None):
         """decode_step where only the `active` slots are live: inactive
         slots ride as padding with zeroed tokens; their logits are to be
         ignored. Paged: each live slot's table grows to the new position
@@ -679,15 +769,17 @@ class InterleavedEngine:
             for slot in np.flatnonzero(np.asarray(
                     torch.as_tensor(active).cpu(), bool)):
                 self.extend_slot(int(slot), self._paged_pos)
-        return self.decode_step(state, self._masked(tokens, active))
+        return self.decode_step(state, self._masked(tokens, active),
+                                steps=steps)
 
-    def verify_step(self, state: dict, tokens: torch.Tensor):
+    def verify_step(self, state: dict, tokens: torch.Tensor, *,
+                    steps: Optional[CapturedStep] = None):
         """Score q_len positions per slot in one pass (one weight stream).
         tokens: (mb, q_len), column 0 the last committed token, the rest
         drafted. Returns (logits (mb, q_len, PV), state) with pos advanced
         by q_len and all q_len K/V written; rollback() commits a prefix.
         Dense and MoE families only (a recurrent state cannot roll
-        back)."""
+        back). With `steps` the pass replays its CUDA graph for q_len."""
         if self.cfg.family not in M.PURE_KV:
             raise NotImplementedError(
                 f"speculative verification needs pure-KV per-layer state "
@@ -695,10 +787,11 @@ class InterleavedEngine:
         q_len = tokens.shape[1]
         if not 1 <= q_len < max(self.S_c, 2):
             raise ValueError(f"q_len {q_len} must be in [1, {self.S_c})")
-        return self._pass(state, tokens, multi=True), state
+        return self._pass(state, tokens, multi=True, steps=steps), state
 
-    def verify_requests(self, state, tokens, active):
-        return self.verify_step(state, self._masked(tokens, active))
+    def verify_requests(self, state, tokens, active, *, steps=None):
+        return self.verify_step(state, self._masked(tokens, active),
+                                steps=steps)
 
     def draft_step(self, state: dict, tokens: torch.Tensor, *,
                    steps: Optional[CapturedStep] = None):
@@ -726,13 +819,14 @@ class InterleavedEngine:
                                steps=steps)
 
     def prefill_partial(self, state: dict, tokens: torch.Tensor, *,
-                        chunk: int = 0):
+                        chunk: int = 0, steps: Optional[CapturedStep] = None):
         """Prefill (mb, T) prompt positions from the state's pos through
         the engine itself: ceil(T / chunk) verify rounds, each one pass
         (one weight stream) over `chunk` positions. Returns (the last
         round's logits (mb, q, PV), state) with pos advanced by T. Dense
         and MoE families only; paged: the slot tables are rebuilt at the
-        prefilled span (released, then extended)."""
+        prefilled span (released, then extended). With `steps` each round
+        replays the verify pass's CUDA graph for its width."""
         if self.cfg.family not in M.PURE_KV:
             raise NotImplementedError(
                 "partial-context prefill rides the multi-query verify "
@@ -741,8 +835,8 @@ class InterleavedEngine:
         chunk = T if chunk <= 0 else min(chunk, T)
         logits = None
         for off in range(0, T, chunk):
-            logits, state = self.verify_step(state,
-                                             tokens[:, off:off + chunk])
+            logits, state = self.verify_step(
+                state, tokens[:, off:off + chunk], steps=steps)
         if self.paged:
             self._paged_pos = state["pos"]
             self._paged_seed_slots(state["pos"])

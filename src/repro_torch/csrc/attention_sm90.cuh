@@ -71,6 +71,20 @@
 //    id), and MUFU.EX2 in the log2 domain.
 // Tile order, tile contents and arithmetic depend only on the slots' ids
 // and K/V rows, so kernels 4 and 5 stay bit-identical on a gathered cache.
+//
+// Inside a CUDA graph: the four tensor maps are encoded on the host at
+// each launch and passed as __grid_constant__ kernel parameters, which a
+// stream capture copies into the graph's kernel node by value. They stay
+// valid on every replay because every address they encode is one the
+// graph keeps: q and out are tensors of the graph's memory pool (the same
+// addresses each replay), K/V the cache or pool that the captured step's
+// scope names (or, for flash, projections in the pool), and the paged
+// kernel's block tables one static buffer. The maps hold no position or
+// length that changes between replays (the position and ctx are read
+// from device memory), so no map needs to live in device memory. Nothing
+// host-side that a capture forbids runs here: the one-time
+// cudaFuncSetAttribute and the SM count happen at the first launch of each
+// instantiation, which a captured step's eager warm-up makes.
 #pragma once
 
 #include <algorithm>
@@ -737,8 +751,9 @@ inline int sm_count() {
 }
 
 // q, out: (B, Q, KV·G, dh); k, v: (outer, rows, KV, dh) bf16 in the model
-// layout. The maps are encoded on each call; the grid is one block per SM
-// (or per item, if fewer).
+// layout. The maps are encoded on the host at each launch and travel as
+// kernel parameters (a captured launch keeps them by value, see the
+// header); the grid is one block per SM (or per item, if fewer).
 template <int DHP, typename Addr>
 int launch(const void* q, const void* k, const void* v, const Addr& addr, void* out, int B,
            int Q, int S, long long rows, long long outer, int KV, int G, int dh, int window,

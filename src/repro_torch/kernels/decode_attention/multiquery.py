@@ -125,10 +125,11 @@ def mq_decode_attention(q, k_cache, v_cache, pos_ids, pos, *, window=None):
     q's device (``_launch.device_position``: the kernel reads it from
     device memory) -> (B, q_len, H, dh). CPU tensors take the plain
     version; CUDA tensors launch the kernel or raise (bf16 only: the
-    kernel's products run on bf16 tensor cores). The prefill rounds' body
-    (mq_body "mainloop") is not captured into CUDA graphs: it encodes its
-    TMA descriptors on the host, so a call that takes it while the stream
-    captures raises."""
+    kernel's products run on bf16 tensor cores). Every body runs inside a
+    CUDA graph: the prefill rounds' (mq_body "mainloop") TMA descriptors
+    are kernel parameters, copied into the graph by value at capture, and
+    encode addresses the graph keeps (q and out in its pool, the cache
+    in its scope), see ``csrc/attention_sm90.cuh``."""
     global launches, hopper_launches, verify_sm90_launches
     if q.device.type == "cpu":
         return mq_decode_attention_plain(q, k_cache, v_cache, pos_ids, pos,
@@ -159,10 +160,6 @@ def mq_decode_attention(q, k_cache, v_cache, pos_ids, pos, *, window=None):
     pos = _launch.device_position("mq_decode_attention", pos, q.device)
     vec = _launch.vector_ok(dh, q, k_cache, v_cache)
     body = mq_body(Q, H // KV, dh, vec)
-    if body == "mainloop" and torch.cuda.is_current_stream_capturing():
-        raise RuntimeError("mq_decode_attention: the prefill rounds' Hopper "
-                           "mainloop is not captured (host-built TMA "
-                           f"descriptors); q_len {Q} x G {H // KV} rows")
     n_split = n_splits(body, B, Q, H, KV, S_c, _sm_count(q.device.index))
     out = torch.empty_like(q)
     rc = build.load().repro_mq_decode_attention(

@@ -160,6 +160,9 @@ def wkv(r, k, v, w, u, state):
             raise ValueError("wkv: the chunked body needs 16-byte aligned r, k, "
                              "v, w and state")
         # the chunks' exchange buffer: a slot of dS and decays per chunk
+        # (inside a CUDA graph, memory of the graph's pool: the kernel
+        # writes every slot before a cluster barrier and reads them after
+        # it, in one launch, so no call reads another's)
         scratch = torch.empty(B * H * -(-S // chunk_len(dh)) * (dh * dh + dh),
                               dtype=torch.float32, device=r.device)
     rc = build.load().repro_wkv_scan(

@@ -161,8 +161,10 @@ def ssm_scan(x, dt, B_in, C_in, A, state):
         if any(t.data_ptr() % 16 for t in (x, state)):
             raise ValueError("ssm_scan: the chunked body needs 16-byte aligned "
                              "x and state")
-        # the chunks' exchange buffer: a slot of dS and decays per chunk,
-        # N rounded up to the body's 16, 32 or 64 rows
+        # the chunks' exchange buffer: a slot of dS and decays per chunk
+        # (inside a CUDA graph, memory of the graph's pool: the kernel
+        # writes every slot before a cluster barrier and reads them after
+        # it, in one launch, so no call reads another's), N rounded up to the body's 16, 32 or 64 rows
         rows = 16 if N <= 16 else 32 if N <= 32 else 64
         scratch = torch.empty(B * H * -(-S // CHUNK) * (rows * dh + rows),
                               dtype=torch.float32, device=x.device)

@@ -23,9 +23,9 @@ the kernels read a device copy of the tables, one static (B, max_pages)
 int32 buffer written in place, uploaded again only when a table changed
 (`bt_uploads` counts them). The shared position `pos` stays a host int,
 as in the model; the device body of a step (`_run`) takes its positions,
-pages and ctx from a 0-d int32 device copy of it, so `step` and `verify`
-can replay a captured CUDA graph (`steps=`, a core.capture.CapturedStep)
-at every position.
+pages and ctx from a 0-d int32 device copy of it, so `step`, `verify` and
+the rounds of `prefill` can replay a captured CUDA graph (`steps=`, a
+core.capture.CapturedStep) at every position.
 """
 from __future__ import annotations
 
@@ -198,14 +198,15 @@ class PagedDecodeCache:
             tokens, torch.Tensor) else tokens).long().to(self.device)
 
     # -- suffix / chunked prefill ------------------------------------------------
-    def prefill(self, params, tokens, *, chunk: int = 0):
+    def prefill(self, params, tokens, *, chunk: int = 0, steps=None):
         """Process `tokens` (B, T), the prompt or just its uncached suffix
         when the tables already hold a radix-matched prefix at `pos`,
         through ceil(T / chunk) multi-query rounds (`chunk` 0: one round).
         Each round is the verify pass scoring chunk positions and writing
         their K/V through the block tables. Returns the final position's
         logits (B, PV), the distribution the first sampled token draws
-        from."""
+        from. With `steps` each round replays the verify body's CUDA graph
+        for its width."""
         tokens = self._tokens(tokens)
         T = tokens.shape[1]
         if T == 0:
@@ -215,7 +216,7 @@ class PagedDecodeCache:
         last = None
         for off in range(0, T, chunk):
             q = tokens[:, off:off + chunk]
-            logits = self.verify(params, q)
+            logits = self.verify(params, q, steps=steps)
             self.commit(q.shape[1])
             last = logits[:, -1]
         return last
@@ -238,7 +239,7 @@ class PagedDecodeCache:
         Allocates pages for all q_len positions and writes their K/V;
         returns logits (B, q_len, PV). `pos` does not advance: commit()
         takes the accepted count. With `steps` the body replays its CUDA
-        graph for this q_len (prefill rounds run eagerly)."""
+        graph for this q_len."""
         tokens = self._tokens(tokens)
         Q = tokens.shape[1]
         if self.pos + Q > self.max_len:

@@ -55,8 +55,11 @@ body (``step_body``: pure tensor work that reads the position from a 0-d
 int32 device tensor mirroring ``cache["pos"]``, writes K/V and pos_ids at
 slots computed on the device, and reads no host value that changes
 between tokens) and a host epilogue (``cache["pos"] += q_len``). The
-eager step and a captured one (``steps=``, a ``core.capture.CapturedStep``
-replaying one CUDA graph per shape) run the same body.
+prefill is split alike (``prefill_prelude``: the checks, the
+frontend-embedding branch, the cross K/V buffers; ``prefill_body``;
+``prefill_epilogue``: ``cache["pos"]``). The eager step and a captured
+one (``steps=``, a ``core.capture.CapturedStep`` replaying one CUDA graph
+per shape, a prefill's per prompt shape) run the same body.
 """
 from __future__ import annotations
 
@@ -359,13 +362,19 @@ def clear_cache(cache: dict) -> dict:
     """init_cache's values written into an existing cache in place (K/V
     and states zero, pos_ids -1, pos 0): its tensors keep their addresses,
     so a captured step's graph over them stays valid. Returns the cache."""
+    clear_tensors(cache)
+    cache["pos"] = 0
+    return cache
+
+
+def clear_tensors(cache: dict) -> None:
+    """clear_cache's device work alone (the host pos left as it is): the
+    part a captured prompt pass runs inside its graph."""
     for key, t in cache.items():
         if key == "pos_ids":
             t.fill_(-1)
         elif isinstance(t, torch.Tensor):
             t.zero_()
-    cache["pos"] = 0
-    return cache
 
 
 # ============================================================================
@@ -401,17 +410,29 @@ def seed_cross_kv(cfg: ModelConfig, params: dict, cache: dict,
     """Every decoder layer's cross K/V of the encoder's output enc_out
     (B, S_enc, D) into the cache's ``xk`` / ``xv`` (allocated where the
     cache holds none of that length), in place; returns the cache."""
-    L, (B, S_enc, _) = cfg.n_layers, enc_out.shape
-    shape = (L, B, S_enc, cfg.n_kv_heads, cfg.head_dim)
+    _ensure_cross(cfg, cache, enc_out)
+    _write_cross(cfg, params, cache, enc_out)
+    return cache
+
+
+def _ensure_cross(cfg: ModelConfig, cache: dict, src: torch.Tensor) -> None:
+    """The host half of seed_cross_kv: ``xk`` / ``xv`` allocated for src's
+    (B, S_enc) where the cache holds none of that shape, and the decode
+    kernel's constant made (cross_pos), before any captured body runs."""
+    B, S_enc = src.shape[:2]
+    shape = (cfg.n_layers, B, S_enc, cfg.n_kv_heads, cfg.head_dim)
     if "xk" not in cache or tuple(cache["xk"].shape) != shape:
         for key in ("xk", "xv"):
             cache[key] = torch.zeros(shape, dtype=torch.bfloat16,
-                                     device=enc_out.device)
-    for l in range(L):
+                                     device=src.device)
+    cross_pos(S_enc, src.device)
+
+
+def _write_cross(cfg: ModelConfig, params: dict, cache: dict,
+                 enc_out: torch.Tensor) -> None:
+    for l in range(cfg.n_layers):
         cache["xk"][l], cache["xv"][l] = cross_kv_layer(
             layer_params(params, l), enc_out)
-    cross_pos(S_enc, enc_out.device)      # the decode kernel's constant
-    return cache
 
 
 # ============================================================================
@@ -540,17 +561,91 @@ def prefill_layer(cfg: ModelConfig, p: dict, x: torch.Tensor, cache: dict,
 def prefill_positions(cache: dict, S: int) -> None:
     """After every layer of an S-position prompt pass: the attention
     families' cache holds positions 0 .. S - 1 (pos_ids ring-rolled past
-    S_c); the SSM family's continues from its position."""
+    S_c); the SSM family's continues from its position. The device half
+    (prompt_pos_ids) and the host half (prefill_epilogue) in one."""
+    prompt_pos_ids(cache, S)
+    prefill_epilogue(cache, S)
+
+
+def prompt_pos_ids(cache: dict, S: int) -> None:
+    """The device half of prefill_positions: pos_ids of an S-position
+    prompt (a function of S alone, a static shape)."""
     if "pos_ids" in cache:
         _prompt_pos_ids(cache, S)
+
+
+def prefill_epilogue(cache: dict, S: int) -> None:
+    """The host half of prefill_positions: cache["pos"] = S, or + S for
+    the SSM family, which continues from its position."""
+    if "pos_ids" in cache:
         cache["pos"] = S
     else:
         cache["pos"] += S
 
 
+def prefill_prelude(cfg: ModelConfig, cache: dict, *,
+                    frontend_embeds: Optional[torch.Tensor], impl: str,
+                    enc_out: Optional[torch.Tensor]):
+    """The host prelude of prefill: the checks, the frontend-embedding
+    branch taken, the cross K/V buffers allocated. Returns (kind, inputs):
+    kind None (tokens alone), "enc_out" (the encoder's output seeds the
+    cross K/V), "frames" (frame embeddings feed the encoder first) or
+    "patches" (patch embeddings in front of the tokens), and the body's
+    static inputs (that tensor, or none)."""
+    _check(cfg, impl)
+    if cfg.family == Family.ENCDEC:
+        if frontend_embeds is not None and enc_out is not None:
+            raise ValueError("frontend_embeds feed the encoder: give them or "
+                             "enc_out, not both")
+        src = frontend_embeds if frontend_embeds is not None else enc_out
+        if src is not None:
+            _ensure_cross(cfg, cache, src)
+        _check_cross(cache)
+        if src is None:
+            return None, ()
+        return ("frames" if frontend_embeds is not None else "enc_out"), (src,)
+    if enc_out is not None:
+        raise ValueError(f"enc_out feeds the encoder-decoder family, not "
+                         f"{cfg.family}")
+    if frontend_embeds is None:
+        return None, ()
+    if cfg.family == Family.SSM:
+        raise NotImplementedError("frontend embeddings feed the attention "
+                                  "families' prefill, not the SSM's")
+    return "patches", (frontend_embeds,)
+
+
+def prefill_body(cfg: ModelConfig, params: dict, cache: dict,
+                 tokens: torch.Tensor, pos: torch.Tensor, *inputs,
+                 impl: str, kind: Optional[str] = None) -> torch.Tensor:
+    """The device body of prefill: tokens (B, S) (and the prelude's static
+    inputs) through every layer, the cache filled in place (the cross K/V
+    first, from the encoder's output, which "frames" computes here) and
+    pos_ids written. pos (a 0-d int32 device tensor equal to cache["pos"])
+    is read by no family: the attention families start at position 0, the
+    SSM family's layers carry no position. Returns the last-token logits
+    (B, 1, PV); reads no host value that changes between calls."""
+    src = inputs[0] if inputs else None
+    if kind == "frames":
+        src = encode(cfg, params, src, impl=impl)
+    if kind in ("frames", "enc_out"):
+        _write_cross(cfg, params, cache, src)
+    x = embed(params, tokens).to(torch.bfloat16)
+    if kind == "patches":
+        x = torch.cat([src.to(x.dtype), x], 1)
+    windows = layer_windows(cfg, cfg.n_layers)
+    for l in range(cfg.n_layers):
+        x = prefill_layer(cfg, layer_params(params, l), x, cache, l,
+                          windows[l], impl=impl)
+    prompt_pos_ids(cache, x.shape[1])
+    x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
+    return unembed(params, x)
+
+
 def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor, cache: dict,
             *, frontend_embeds: Optional[torch.Tensor] = None,
-            impl: str = "ref", enc_out: Optional[torch.Tensor] = None):
+            impl: str = "ref", enc_out: Optional[torch.Tensor] = None,
+            steps: Optional[capture.CapturedStep] = None):
     """Run the prompt, fill the cache in place, return (last-token logits
     (B, 1, PV), cache). tokens: (B, S) int. The SSM family continues from
     the cache's states and position (as the reference's _ssm_prefill);
@@ -561,34 +656,23 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor, cache: dict,
     family: enc_out (B, S_enc, D), the encoder's output, seeds the cross
     K/V first (seed_cross_kv); frontend_embeds (its frame embeddings) go
     through encode to give it, never in front of the tokens; with
-    neither, the cache must hold seeded cross K/V."""
-    _check(cfg, impl)
-    if cfg.family == Family.ENCDEC:
-        if frontend_embeds is not None:
-            if enc_out is not None:
-                raise ValueError("frontend_embeds feed the encoder: give "
-                                 "them or enc_out, not both")
-            enc_out = encode(cfg, params, frontend_embeds, impl=impl)
-            frontend_embeds = None
-        if enc_out is not None:
-            seed_cross_kv(cfg, params, cache, enc_out)
-        _check_cross(cache)
-    elif enc_out is not None:
-        raise ValueError(f"enc_out feeds the encoder-decoder family, not "
-                         f"{cfg.family}")
-    x = embed(params, tokens).to(torch.bfloat16)
-    if frontend_embeds is not None:
-        if cfg.family == Family.SSM:
-            raise NotImplementedError("frontend embeddings feed the attention "
-                                      "families' prefill, not the SSM's")
-        x = torch.cat([frontend_embeds.to(x.dtype), x], 1)
-    windows = layer_windows(cfg, cfg.n_layers)
-    for l in range(cfg.n_layers):
-        x = prefill_layer(cfg, layer_params(params, l), x, cache, l,
-                          windows[l], impl=impl)
-    prefill_positions(cache, x.shape[1])
-    x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
-    return unembed(params, x), cache
+    neither, the cache must hold seeded cross K/V. Split as a step is:
+    prefill_prelude, prefill_body, prefill_epilogue; with `steps` (a
+    CapturedStep) the body replays its CUDA graph for this prompt shape
+    (the counterpart of the JAX package's jax.jit of prefill)."""
+    kind, inputs = prefill_prelude(cfg, cache, frontend_embeds=frontend_embeds,
+                                   impl=impl, enc_out=enc_out)
+
+    def body(tok, pos, *inp):
+        return prefill_body(cfg, params, cache, tok, pos, *inp, impl=impl,
+                            kind=kind)
+    logits = capture.run(
+        steps, ("prefill", kind, impl), body, tokens, cache["pos"],
+        scope=lambda: (id(params), capture.tensor_scope(cache)),
+        device=params["final_norm"].device, inputs=inputs)
+    S = tokens.shape[1] + (inputs[0].shape[1] if kind == "patches" else 0)
+    prefill_epilogue(cache, S)
+    return logits, cache
 
 
 def check_window(cache: dict, q_len: int) -> None:

@@ -54,16 +54,22 @@ and a finished request donates its pages to the tree. The JAX backend
 builds its paged cache with the reference math; this one passes its own
 `impl` through, so the default runs the paged kernels.
 
-On the card every decode and verify step of the single-device path (plain,
-paged, prefix cache), the model and resident drafts' steps and an
-engine's resident draft step replay CUDA graphs (core/capture.py: the
-counterpart of the JAX backend's jax.jit of decode_step and verify_step),
-one per shape: speculation keeps one graph per q_len it meets. The
-caches they write (the dense and paged caches, the engine's state, the
-drafts' caches) are allocated once and cleared in place between epochs,
-so the graphs live as long as the backend. `capture=False` runs every
-one of these steps eagerly (for comparisons); the launcher does not
-expose it.
+On the card every step replays a CUDA graph (core/capture.py: the
+counterpart of the JAX backend's jax.jit of prefill, decode_step and
+verify_step), one per shape: the decode and verify steps of the
+single-device path (plain, paged, prefix cache) and every prefill route
+of start_batch (the dense prefill, which the paged path then seeds into
+pages; the prefix cache's suffix rounds; an engine's prefill_partial
+rounds or its prompt pass, one graph per prompt shape), an engine's
+decode, verify and resident draft passes (streamed layers included), and
+the model and resident drafts' steps and prefill. Speculation keeps one
+graph per q_len it meets. The caches they write (the dense and paged
+caches, the engine's state, which the engine's prompt pass writes
+directly, the drafts' caches) are allocated once and cleared in place
+between epochs, so the graphs live as long as the backend (an engine's
+retier drops its pass graphs: the next pass captures again).
+`capture=False` runs every one of these steps eagerly (for comparisons);
+the launcher does not expose it.
 """
 from __future__ import annotations
 
@@ -146,10 +152,14 @@ class EngineBackend:
         self.impl = impl
         self.device = engine.device if engine is not None \
             else resolve_device(device)
-        # the captured decode and verify steps of the single-device path,
-        # and the engine's draft step, in one graph pool that the host
-        # drafts share (None: capture off, or the CPU)
+        # the captured decode and verify steps (an engine's passes), the
+        # prefills (the dense prefill or the engine's prompt pass and
+        # chunked rounds; the prefix cache's suffix rounds apart, another
+        # scope) and the engine's draft step, in one graph pool that the
+        # host drafts share (None: capture off, or the CPU)
         self.steps = CapturedStep(self.device, enabled=capture)
+        self.prefill_steps = CapturedStep.sharing(self.steps.pool, self.device)
+        self.suffix_steps = CapturedStep.sharing(self.steps.pool, self.device)
         self.draft_steps = CapturedStep.sharing(self.steps.pool, self.device)
         self._dense_cache = None              # reused across epochs
         self.sampler = sampler if sampler is not None else SamplerConfig()
@@ -438,9 +448,11 @@ class EngineBackend:
             state = self.engine.init_state(self.params, reuse=self._state)
             if self._engine_can_chunk(toks.shape[1]):
                 logits, self._state = self.engine.prefill_partial(
-                    state, toks_t, chunk=self.chunk)
-            else:
-                logits, cache = self.engine.prefill(toks_t)
+                    state, toks_t, chunk=self.chunk,
+                    steps=self.prefill_steps)
+            else:                         # the prompt pass writes the state
+                logits, cache = self.engine.prefill(
+                    toks_t, cache=state, steps=self.prefill_steps)
                 self._state = self.engine.seed_cache(state, cache)
             last = logits[:, -1]
         else:
@@ -455,7 +467,7 @@ class EngineBackend:
                         device=self.device)
             cache = self._empty_cache()
             logits, cache = M.prefill(self.cfg, self.params, toks_t, cache,
-                                      impl=self.impl)
+                                      impl=self.impl, steps=self.prefill_steps)
             last = logits[:, -1]
             self._state = cache
             if self.paged:                # the dense prefill, into pages
@@ -497,8 +509,8 @@ class EngineBackend:
                              device=self.device)
         active[list(slots)] = True
         if self.engine is not None:
-            lg, self._state = self.engine.decode_requests(self._state,
-                                                          self._cur, active)
+            lg, self._state = self.engine.decode_requests(
+                self._state, self._cur, active, steps=self.steps)
         elif self.paged:
             if self.prefix_cache:
                 self._ensure_room(self._paged_cache, 1)
@@ -546,8 +558,8 @@ class EngineBackend:
                 mat[s, 1:] = toks
         mat_t = torch.from_numpy(mat).to(self.device)
         if self.engine is not None:
-            lg, self._state = self.engine.verify_requests(self._state, mat_t,
-                                                          active)
+            lg, self._state = self.engine.verify_requests(
+                self._state, mat_t, active, steps=self.steps)
         elif self.paged:
             if self.prefix_cache:
                 self._ensure_room(self._paged_cache, 1 + k)
@@ -623,16 +635,25 @@ class EngineBackend:
     def graph_stats(self):
         """The captured steps' counts: graphs captured and replayed, capture
         seconds, and the backend's graph pool bytes (the host drafts
-        capture into it too); the drafts' steps (the engine's resident
-        draft step, or the host model drafts') as draft_*."""
+        capture into it too), for the decode and verify steps (an
+        engine's decode and verify passes); the prefills' (the dense
+        prefill, the prefix cache's suffix rounds, an engine's prompt pass
+        or prefill_partial rounds) as prefill_*; the drafts' (the
+        engine's resident draft step, or the host model drafts' steps and
+        their prefill in reset) as draft_*."""
         out = self.steps.stats()
         if self.engine is not None:
             drafts = [self.draft_steps]
         else:
-            drafts = [d._steps for d in (self._ctl.drafts or [])
-                      if hasattr(d, "_steps")] if self._ctl is not None else []
-        for k in ("graphs", "captures", "replays", "capture_s"):
-            out["draft_" + k] = sum(d.stats()[k] for d in drafts)
+            drafts = [st for d in (self._ctl.drafts or [])
+                      for st in (getattr(d, "_steps", None),
+                                 getattr(d, "_prefill_steps", None))
+                      if st is not None] if self._ctl is not None else []
+        for name, group in (("prefill_", (self.prefill_steps,
+                                          self.suffix_steps)),
+                            ("draft_", drafts)):
+            for k in ("graphs", "captures", "replays", "capture_s"):
+                out[name + k] = sum(d.stats()[k] for d in group)
         return out
 
     def join(self, slot: int, req) -> Optional[int]:
@@ -703,7 +724,7 @@ class EngineBackend:
         if len(lens) != 1:
             cache = self._empty_cache()
             logits, cache = M.prefill(self.cfg, self.params, toks, cache,
-                                      impl=self.impl)
+                                      impl=self.impl, steps=self.prefill_steps)
             self._ensure_room(pc, int(cache["pos"]))
             pc.seed(cache)
             self._state = None
@@ -727,7 +748,8 @@ class EngineBackend:
                 tables.append(t)
             pc.adopt_tables(tables, m)
         self._ensure_room(pc, L - pc.pos)
-        last = pc.prefill(self.params, toks[:, pc.pos:], chunk=self.chunk)
+        last = pc.prefill(self.params, toks[:, pc.pos:], chunk=self.chunk,
+                          steps=self.suffix_steps)
         for slot, p in enumerate(prompts):
             self._slot_tokens[slot] = [int(x) for x in p]
         self._state = None

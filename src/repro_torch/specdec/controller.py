@@ -93,8 +93,8 @@ class SpecDecodeController:
         acceptance and counters; no host providers are built and
         begin/observe do nothing. device / impl: where and through which
         attention the model and resident drafts run; graph_pool: the
-        backend's graph pool their decode steps capture into (None:
-        eager)."""
+        backend's graph pool their decode steps and the prefill of their
+        reset capture into (None: eager)."""
         self.spec = spec
         self.sampler = sampler
         self.cfg = target_cfg

@@ -17,10 +17,10 @@ losslessly, a poor draft only costs acceptance.
   SmallModelDraft autoregressive draft from a small model's own cache
                   (models/model.py prefill / decode_step on the backend's
                   device, impl "kernel": kernels 2 and 1 at the draft's
-                  shapes; on the card each decode step replays one
-                  captured CUDA graph over the draft's own cache, the
-                  JAX draft's jitted step). The cache only ever holds
-                  committed tokens.
+                  shapes; on the card each decode step, and the prefill
+                  of reset, replays a captured CUDA graph over the
+                  draft's own cache, the JAX draft's jitted step and
+                  prefill). The cache only ever holds committed tokens.
 
 The port's caches are written in place (the JAX package's draft keeps an
 immutable snapshot for free), so propose() saves what its k decode steps
@@ -79,8 +79,9 @@ class SmallModelDraft:
     teacher-forcing the committed tokens through decode_step, propose()
     decodes k steps and then restores what they overwrite (eagerly,
     outside the graph). The cache is allocated once and cleared in place
-    by reset(), so its one graph (decode_step through a CapturedStep in
-    the backend's graph_pool; None: eager) survives requests."""
+    by reset(), so its graphs (decode_step and, one per prompt length,
+    the prefill of reset, each through a CapturedStep in the backend's
+    graph_pool; None: eager) survive requests."""
 
     def __init__(self, cfg, params, *, max_len: int = 512,
                  temperature: float = 0.0, seed: int = 0, device=None,
@@ -97,6 +98,7 @@ class SmallModelDraft:
         self._cache = None
         self._pending: Optional[int] = None   # last token not yet in cache
         self._steps = CapturedStep.sharing(graph_pool, self.device)
+        self._prefill_steps = CapturedStep.sharing(graph_pool, self.device)
 
     def _tok(self, t: int) -> torch.Tensor:
         return torch.full((1, 1), t, dtype=torch.long, device=self.device)
@@ -124,7 +126,7 @@ class SmallModelDraft:
         if len(toks) > 1:
             self._M.prefill(self.cfg, self.params, torch.tensor(
                 [toks[:-1]], dtype=torch.long, device=self.device), cache,
-                impl=self.impl)
+                impl=self.impl, steps=self._prefill_steps)
         self._cache = cache
         self._pending = toks[-1]
 

@@ -581,10 +581,10 @@ def test_engine_draft_recaptures_after_a_retier(tiny_dense_factory):
     eng.draft_step(st, tok, steps=steps)
     eng.draft_step(st, tok, steps=steps)
     assert (steps.captures, steps.replays) == (2, 3)
-    eng.decode_step(st, tok)             # a streamed pass runs eagerly
+    eng.decode_step(st, tok)             # no CapturedStep: eager
     assert steps.stats()["graphs"] == 1
-    with pytest.raises(ValueError, match="streamed pass"):
-        eng._pass(st, tok, multi=False, steps=steps)
+    eng.decode_step(st, tok, steps=steps)   # a streamed pass: captured
+    assert (steps.captures, steps.stats()["graphs"]) == (3, 2)
 
 
 def test_engine_state_keeps_its_addresses_across_epochs(tiny_dense_factory):

@@ -1536,8 +1536,10 @@ def test_a_stale_position_buffer_breaks_bit_equality(cuda_device):
 
 def test_int_positions_are_refused_under_capture(cuda_device):
     """A host int position would be frozen into a graph: kernels 1 and 4
-    refuse one while the stream captures, and kernel 4's prefill-round
-    mainloop (host-built TMA descriptors) refuses capture."""
+    refuse one while the stream captures; kernel 4's prefill-round
+    mainloop given a device position captures (its TMA descriptors are
+    kernel parameters, kept by value) and its replay equals the eager
+    call bit for bit."""
     q = torch.randn((1, 1, 8, 64), device=cuda_device).bfloat16()
     k = torch.randn((1, 256, 2, 64), device=cuda_device).bfloat16()
     ids = torch.arange(256, dtype=torch.int32, device=cuda_device)
@@ -1548,8 +1550,231 @@ def test_int_positions_are_refused_under_capture(cuda_device):
     torch.cuda.synchronize()
     s = torch.cuda.Stream()
     for call in (lambda: da.decode_attention(q, k, k, ids, 100),
-                 lambda: mq.mq_decode_attention(q_pf, k, k, ids, pos)):
+                 lambda: mq.mq_decode_attention(q_pf, k, k, ids, 100)):
         g = torch.cuda.CUDAGraph()
         with pytest.raises(RuntimeError, match="captur"):
             with torch.cuda.graph(g, stream=s):
                 call()
+    n0 = mq.hopper_launches
+    g, out = _graph_of(lambda: mq.mq_decode_attention(q_pf, k, k, ids, pos))
+    assert mq.hopper_launches == n0 + 2          # warm-up and capture
+    pos.fill_(150)
+    g.replay()
+    assert torch.equal(out, mq.mq_decode_attention(q_pf, k, k, ids, pos))
+
+
+# ----------------------------------------------------------------------------
+# captured prefills and streamed passes (the Hopper mainloop of kernels 2,
+# 4 and 5 and the chunked scans 6 and 7 inside a graph)
+# ----------------------------------------------------------------------------
+def _graph_of(fn):
+    """(graph, static output) of fn() captured after an eager warm-up on
+    the capture stream, as core/capture.py captures a step."""
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        fn()
+    torch.cuda.current_stream().wait_stream(s)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=s):
+        out = fn()
+    torch.cuda.synchronize()
+    return g, out
+
+
+def _refill(static, fresh):
+    """New values into the graph's inputs, at the same addresses."""
+    for t, v in zip(static, fresh):
+        t.copy_(v)
+
+
+@pytest.mark.parametrize("kernel", ["flash", "mq", "mq_paged"])
+def test_captured_hopper_mainloop_is_the_eager_call(kernel, cuda_device):
+    """Kernels 2, 4 and 5 at prefill shapes (the Hopper mainloop, as the
+    counters say) inside one CUDA graph each: replayed after the inputs'
+    contents change at the same addresses (new q, a cache holding other
+    K/V), and for 4 and 5 at a second position (ctx), each replay
+    bit-equal to an eager call on the same inputs."""
+    rng = np.random.default_rng(31)
+    if kernel == "flash":
+        shapes = ((4, 512, 64, 128), (4, 512, 8, 128), (4, 512, 8, 128))
+
+        def call(q, k, v):
+            return fa.flash_attention(q, k, v, causal=True)
+        feeds = [[to_torch(np_rand(rng, sh, "bf16"), "bf16", cuda_device)
+                  for sh in shapes] for _ in range(3)]
+        counter = (fa, "hopper_launches")
+    elif kernel == "mq":
+        cases = [(4, 128, 1024, 64, 8, 128, 891, None, "linear"),
+                 (4, 128, 1024, 64, 8, 128, 300, None, "stale"),
+                 (4, 128, 1024, 64, 8, 128, 600, None, "linear")]
+        feeds = []
+        for i, c in enumerate(cases):
+            q, k, v, ids = mq_inputs(c, seed=i)
+            feeds.append([to_torch(a, "bf16", cuda_device) for a in (q, k, v)]
+                         + [torch.from_numpy(ids).to(cuda_device),
+                            torch.full((), c[6], dtype=torch.int32,
+                                       device=cuda_device)])
+
+        def call(q, k, v, ids, pos):
+            return mq.mq_decode_attention(q, k, v, ids, pos)
+        counter = (mq, "hopper_launches")
+    else:
+        B, Q, H, KV, dh, ps, maxp = 4, 128, 64, 8, 128, 64, 16
+        ctx0 = (1019, 700, 300, 130)
+        q, k, v, bt, ctx = _paged_on(cuda_device, *paged_inputs(
+            B, Q, H, KV, dh, ps, maxp, ctx0, seed=4))
+        feeds = [[q, k, v, bt, ctx]]
+        for i, c in enumerate(((1000, 650, 290, 129), (1019, 700, 300, 130))):
+            feeds.append([to_torch(np_rand(rng, t.shape, "bf16"), "bf16",
+                                   cuda_device) for t in (q, k, v)]
+                         + [bt, torch.tensor(c, dtype=torch.int32,
+                                             device=cuda_device)])
+
+        def call(q, k, v, bt, ctx):
+            return mq.mq_paged_decode_attention(q, k, v, bt, ctx)
+        counter = (mq, "paged_hopper_launches")
+    static = [t.clone() for t in feeds[0]]
+    n0 = getattr(*counter)
+    g, out = _graph_of(lambda: call(*static))
+    assert getattr(*counter) == n0 + 2
+    for fresh in feeds[1:] + feeds[:1]:
+        _refill(static, fresh)
+        g.replay()
+        assert torch.equal(out, call(*static)), kernel
+
+
+@pytest.mark.parametrize("kind,S", [("wkv", 512), ("wkv", 1), ("ssm", 512),
+                                    ("ssm", 1)])
+def test_captured_scans_are_the_eager_calls(kind, S, cuda_device):
+    """Kernels 6 and 7 inside a CUDA graph at the prefill shape (S 512:
+    the chunked body, its exchange buffer from the graph's pool) and the
+    decode shape (S 1: the sequential body): three replays on new inputs
+    and states at the same addresses, outputs and final states bit-equal
+    to eager calls on copies."""
+    mod = wkv_ops if kind == "wkv" else ssm_ops
+    fn = mod.wkv if kind == "wkv" else mod.ssm_scan
+    bf16_at = (0, 1, 2, 4) if kind == "wkv" else (0, 2, 3)
+
+    def inputs(seed):
+        a = (wkv_inputs((4, S, 40, 64), seed=seed) if kind == "wkv"
+             else ssm_inputs((4, S, 25, 64, 16), seed=seed))
+        return [to_torch(x, "bf16" if i in bf16_at else "f32", cuda_device)
+                for i, x in enumerate(a)]
+    static = inputs(0)
+    n0 = mod.chunked_launches
+    g, out = _graph_of(lambda: fn(*static))
+    assert mod.chunked_launches - n0 == (2 if S >= 128 else 0)
+    for seed in (1, 2, 3):
+        _refill(static, inputs(seed))
+        eager_args = [t.clone() for t in static]
+        g.replay()
+        want = fn(*eager_args)
+        assert torch.equal(out, want) and torch.equal(static[-1], eager_args[-1])
+
+
+@pytest.mark.parametrize("arch", ["llama3.3-70b", "deepseek-moe-16b",
+                                  "rwkv6-3b", "hymba-1.5b",
+                                  "seamless-m4t-medium"])
+def test_captured_prefill_is_the_eager_prefill(arch, cuda_device):
+    """M.prefill of 128-token prompts (flash on the Hopper mainloop, the
+    scans on their chunked bodies) through one captured graph, three
+    prompts (three encoder outputs) into a cache cleared in place,
+    against eager prefills on a twin: logits, caches and launch counts
+    bit for bit; one capture, two replays."""
+    from repro_torch.core.capture import CapturedStep
+    cfg, params = _smoke_model(arch, cuda_device)
+    a = M.init_cache(cfg, 2, 256, device=cuda_device)
+    b = M.init_cache(cfg, 2, 256, device=cuda_device)
+    steps = CapturedStep(cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    for _ in range(3):
+        toks = torch.randint(1, cfg.vocab_size, (2, 128), device=cuda_device,
+                             generator=g)
+        kw = {}
+        if cfg.family.value == "encdec":
+            kw["enc_out"] = torch.randn((2, 64, cfg.d_model), device=cuda_device,
+                                        generator=g).bfloat16()
+        M.clear_cache(a)
+        M.clear_cache(b)
+        _same_step(lambda: M.prefill(cfg, params, toks, a, impl="kernel", **kw)[0],
+                   lambda: M.prefill(cfg, params, toks, b, impl="kernel",
+                                     steps=steps, **kw)[0])
+        for k, v in a.items():
+            assert torch.equal(v, b[k]) if isinstance(v, torch.Tensor) \
+                else v == b[k], k
+    assert (steps.captures, steps.replays) == (1, 2)
+
+
+@pytest.mark.parametrize("arch", ["llama3.3-70b", "hymba-1.5b"])
+def test_captured_engine_streamed_passes_are_the_eager_passes(arch, cuda_device):
+    """A tiny engine (4 layers, 2 streamed from pinned memory on the copy
+    stream) captured against an eager twin: the prompt pass into the
+    state (flash on the mainloop, Hymba's chunked scan), for the dense
+    family prefill_partial's 128-token rounds (kernel 4's mainloop) and
+    verify passes too, then 64 replayed decode passes; logits, state and
+    launch counts bit for bit."""
+    from repro_torch.core.capture import CapturedStep
+    cfg, params = _smoke_model(arch, cuda_device, n_layers=4)
+    engs = [InterleavedEngine(cfg, UniformPlan(1, 2, 1, 1), mb=2, max_len=512,
+                              device=cuda_device) for _ in range(2)]
+    sts = [e.init_state(params) for e in engs]
+    assert engs[1].store.pinned
+    steps, pre = CapturedStep(cuda_device), CapturedStep(cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    toks = torch.randint(1, cfg.vocab_size, (2, 256), device=cuda_device,
+                         generator=g)
+    for _ in range(2):
+        _same_step(lambda: engs[0].prefill(toks, cache=sts[0])[0],
+                   lambda: engs[1].prefill(toks, cache=sts[1], steps=pre)[0])
+    if cfg.family.value == "dense":
+        for e, s in zip(engs, sts):
+            e.init_state(params, reuse=s)
+        h0 = mq.hopper_launches
+        _same_step(lambda: engs[0].prefill_partial(sts[0], toks, chunk=128)[0],
+                   lambda: engs[1].prefill_partial(sts[1], toks, chunk=128,
+                                                   steps=pre)[0])
+        assert mq.hopper_launches - h0 == 2 * 2 * 4   # 2 rounds x 4 layers, both
+        for _ in range(3):
+            mat = torch.randint(1, cfg.vocab_size, (2, 5), device=cuda_device,
+                                generator=g)
+            p0 = sts[0]["pos"]
+            _same_step(lambda: engs[0].verify_step(sts[0], mat)[0],
+                       lambda: engs[1].verify_step(sts[1], mat, steps=steps)[0])
+            for e, s in zip(engs, sts):
+                e.rollback(s, p0 + 1)
+    tok = torch.ones((2, 1), dtype=torch.long, device=cuda_device)
+    for _ in range(N_REPLAYED + 1):
+        lg = _same_step(lambda: engs[0].decode_step(sts[0], tok)[0],
+                        lambda: engs[1].decode_step(sts[1], tok, steps=steps)[0])
+        tok = lg[:, :cfg.vocab_size].argmax(-1, keepdim=True)
+    for k, v in sts[0].items():
+        assert torch.equal(v, sts[1][k]) if isinstance(v, torch.Tensor) \
+            else v == sts[1][k], k
+    assert steps.replays >= N_REPLAYED and pre.replays >= 1
+    for e in engs:
+        e.close()
+
+
+@pytest.mark.parametrize("arch,kw", [
+    ("llama3.3-70b", {}), ("llama3.3-70b", {"prefix_cache": True}),
+    ("rwkv6-3b", {})], ids=["dense", "prefix", "rwkv6"])
+def test_captured_serves_replay_their_prefills(arch, kw, cuda_device):
+    """Sporadic serves (one epoch a request, one prompt length) captured
+    and eager: tokens and launch counts equal; the captured serve's
+    prefill graphs replayed."""
+    cfg, params = _smoke_model(arch, cuda_device)
+    prompts = [np.random.default_rng(i).integers(1, cfg.vocab_size, 128)
+               .astype(np.int32) for i in range(3)]
+    got = []
+    for capture in (False, True):
+        srv = LimeServer(cfg, params, max_len=256, pattern="sporadic",
+                         page_size=64, prefill_chunk_tokens=64,
+                         capture=capture, device=cuda_device, **kw)
+        for p in prompts:
+            srv.queue.submit(p, 8)
+        done, n = _counted(srv.serve_all)
+        got.append(([r.output for r in sorted(done, key=lambda r: r.rid)], n))
+        stats = srv.make_backend().graph_stats
+    assert got[0] == got[1]
+    assert stats["prefill_replays"] > 0 and stats["replays"] > 0

@@ -583,8 +583,8 @@ def _record_rounds(eng):
     for name in ("verify_requests", "decode_requests"):
         orig = getattr(eng, name)
 
-        def rec(state, tokens, active, _orig=orig, _name=name):
-            lg, state = _orig(state, tokens, active)
+        def rec(state, tokens, active, _orig=orig, _name=name, **kw):
+            lg, state = _orig(state, tokens, active, **kw)
             log.append((_name, tokens.clone(), torch.as_tensor(active).clone(),
                         lg.clone()))
             return lg, state
