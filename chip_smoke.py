@@ -120,6 +120,17 @@ Phases; any failure exits non-zero without the final ``ok`` line:
    decode pass (two calls) and resident draft step; every serve of every
    phase runs captured, an engine's streamed passes included (3b prints
    the graphs each serve captured: a retier drops the pass graphs).
+2e. the flight recorder (obs/trace), the SLO engine and the dashboard on
+   the serving path: phase 2's bursty batch on 2d's warm captured backend
+   four times in turns (untraced, traced, traced, untraced), the traced
+   serves under a Tracer with an SLOEngine attached to the scheduler and a
+   Dashboard ticking between its steps: tokens and launch counts equal
+   across the four, the Chrome export valid, the JSONL export read back
+   as the ring holds it, each request's lifecycle in order with its
+   req.span equal to its latency, one engine.decode span per round and
+   one engine.prefill, the spans' sum within the serve's wall time.
+   Printed: ms/token traced and untraced, the spans' share of the wall
+   time, the dashboard's last frame.
 3a. the interleaved engine against the model on phase 2's weights, in a
    plan forced to stream (2 chunks of 2 resident + 2 streamed layers):
    decode and verify logits bit-equal to the model's kernel path (every
@@ -186,7 +197,9 @@ Phases; any failure exits non-zero without the final ``ok`` line:
    and the measured H2D rate) and plan_for's plan; its TS ladder must
    retier the live engine while requests are live (every token still
    equal to the verify-pass greedy, kernels 1 and 4 in every round), and
-   the tier boundary is restored after it.
+   the tier boundary is restored after it. That serve runs traced: its
+   Chrome export valid, an engine.retier instant inside a live request's
+   window, the pool's kv.grow instants.
    Printed: plan, memory, H2D rate, the CostEnv, the plan's predicted
    T_total beside the measured pass times, Alg. 1's plan and candidates
    for the same env, TTFT, ms/token, acceptance, committed tokens per
@@ -2568,7 +2581,8 @@ def capture_phase(cfg, params, card, base):
     and ms/token p50, idle share, eager against captured; graphs, capture
     seconds, graph-pool bytes. Then the 8-layer model's prefill and decode
     step captured against eager (prefilled_pair). Returns the captured
-    serves' launches."""
+    serves' launches and the warm captured backend of the dense bursty
+    serve (phase 2e serves on it)."""
     import torch
     from repro_torch.serving import EngineBackend, summarize
     from repro_torch.specdec import SpecConfig
@@ -2576,6 +2590,7 @@ def capture_phase(cfg, params, card, base):
     log(f"phase 2d: captured steps (CUDA graphs) against eager ones, {cfg.name}, "
         f"{cfg.n_layers} layers, phase 2's prompts ({PROMPT_LEN} tokens)")
     launches = dict.fromkeys(kernel_counters(), 0)
+    warm = None
     for label, kw, pattern, n_req, max_new in CAPTURE_SERVES:
         kw = dict(kw)
         if "spec" in kw:
@@ -2605,6 +2620,8 @@ def capture_phase(cfg, params, card, base):
                                  rep=rep, wall=wall, idle=1 - busy / pwall,
                                  busy=busy, pwall=pwall, n_dev=n_dev,
                                  graphs=be.graph_stats)
+            if capture and warm is None and not kw and pattern == "bursty":
+                warm = be
         e, c = runs[False], runs[True]
         diff = [i for i, (a, b) in enumerate(zip(e["rec"], c["rec"]))
                 if not torch.equal(a, b)]
@@ -2640,7 +2657,163 @@ def capture_phase(cfg, params, card, base):
         for k, v in c["got"].items():
             launches[k] += v
     prefilled_pair(cfg, params, prompts, card)
-    return launches
+    return launches, warm
+
+
+# ----------------------------------------------------------------------------
+# phase 2e: the flight recorder, SLO engine and dashboard on the serving path
+# ----------------------------------------------------------------------------
+TRACE_SERVES = 4          # untraced, traced, traced, untraced
+TRACE_DASH_S = 0.05       # dashboard interval (backend clock) while traced
+
+
+def trace_phase(cfg, card, base, be):
+    """Phase 2e: phase 2's bursty batch (4 x PROMPT_LEN, MAX_NEW tokens a
+    request) served on 2d's warm captured backend `be` four times in turns
+    (untraced, traced, traced, untraced): the traced serves under a Tracer
+    with an SLOEngine attached to the scheduler and a Dashboard ticking
+    between its steps. Checks: every serve's tokens and launch counts are
+    the first's (tracing adds no launch); the Chrome export validates; the
+    JSONL export reads back as the ring holds it; each request's events
+    come in the order arrive <= admit <= prefill end <= decode <= finish
+    and its req.span is its latency; one engine.decode span per backend
+    round and one engine.prefill; the engine.* spans sum to no more than
+    the serve's wall time. Prints ms/token traced and untraced, where the
+    spans leave the wall time, and the dashboard's last frame. Returns the
+    first serve's launches."""
+    import tempfile
+
+    import torch
+    from repro_torch.obs import (Dashboard, SLOEngine, Tracer, analyze,
+                                 default_targets, export_jsonl, read_jsonl,
+                                 set_tracer, to_chrome, validate_chrome)
+    from repro_torch.obs import trace as tr_ev
+    from repro_torch.serving import (ContinuousBatchingScheduler, Request,
+                                     SchedulerConfig, cli_arrivals, summarize)
+    prompts = base[0][:4]
+    log(f"phase 2e: the flight recorder on the serving path, {cfg.name}, "
+        f"{cfg.n_layers} layers, captured, bursty 4 x {PROMPT_LEN} prompt + "
+        f"{MAX_NEW} tokens, untraced / traced / traced / untraced")
+    runs = []
+    for i in range(TRACE_SERVES):
+        traced = i in (1, 2)
+        arrivals = cli_arrivals("bursty", len(prompts), prompt_len=PROMPT_LEN,
+                                max_new_tokens=MAX_NEW, burst_size=be.n_slots)
+        t_base = be.now()
+        reqs = [Request(j, p, MAX_NEW, arrival_s=t_base + ev.time_s)
+                for j, (ev, p) in enumerate(zip(arrivals, prompts))]
+        tracer = Tracer() if traced else None
+        rounds0 = len(be.rounds)
+        torch.cuda.synchronize()
+        zero_counts()
+        prev = set_tracer(tracer)
+        try:
+            t0 = time.monotonic()
+            sched = ContinuousBatchingScheduler(be, SchedulerConfig())
+            slo = dash = frame = None
+            if traced:
+                slo = SLOEngine(default_targets())
+                sched.attach_slo(slo)
+                dash = Dashboard(slo=slo, sched=sched, tracer=tracer,
+                                 interval_s=TRACE_DASH_S)
+            sched.begin(reqs)
+            while sched.step():
+                if dash is not None:
+                    frame = dash.tick(sched.now()) or frame
+            done = sorted(sched.finish_run(), key=lambda r: r.rid)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+        finally:
+            set_tracer(prev)
+        rep = summarize(done, pattern="bursty", backend="single-device")
+        runs.append(dict(traced=traced, out=[r.output for r in done],
+                         got=read_counts(), wall=wall, rep=rep, done=done,
+                         tracer=tracer, slo=slo, dash=dash, frame=frame,
+                         rounds=len(be.rounds) - rounds0, sched=sched))
+    first = runs[0]
+    for r in runs[1:]:
+        if r["out"] != first["out"]:
+            raise AssertionError("2e: a traced serve's tokens differ from the "
+                                 "untraced serve's")
+        if r["got"] != first["got"]:
+            raise AssertionError(f"2e: launches differ between serves "
+                                 f"({r['got']} / {first['got']})")
+    for r in runs:
+        if not r["traced"]:
+            continue
+        tr = r["tracer"]
+        evs = tr.events()
+        problems = validate_chrome(to_chrome(tr))
+        if problems or tr.dropped:
+            raise AssertionError(f"2e: the Chrome export is invalid ({problems[:4]}) "
+                                 f"or the ring dropped {tr.dropped} events")
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "trace.jsonl")
+            export_jsonl(tr, path)
+            header, back = read_jsonl(path)
+        if header.get("schema") != "lime-trace" or \
+                back != [tuple(json.loads(json.dumps(list(e)))) for e in evs]:
+            raise AssertionError("2e: the JSONL export does not read back")
+        for q in r["done"]:
+            lane = {e[tr_ev.EVT_NAME]: e for e in evs
+                    if e[tr_ev.EVT_TRACK] == tr_ev.req_track(q.rid)}
+            pf = lane[tr_ev.REQ_PREFILL]
+            order = [lane[tr_ev.REQ_ARRIVE][tr_ev.EVT_TS],
+                     lane[tr_ev.REQ_ADMIT][tr_ev.EVT_TS],
+                     pf[tr_ev.EVT_TS] + pf[tr_ev.EVT_DUR],
+                     lane[tr_ev.REQ_DECODE][tr_ev.EVT_TS],
+                     lane[tr_ev.REQ_FINISH][tr_ev.EVT_TS]]
+            span = lane[tr_ev.REQ_SPAN][tr_ev.EVT_DUR]
+            if order != sorted(order) or abs(span - q.latency_s) > 1e-9:
+                raise AssertionError(f"2e: request {q.rid}'s lifecycle {order}, "
+                                     f"span {span} against latency {q.latency_s}")
+        spans = [e for e in evs if e[tr_ev.EVT_TRACK] == tr_ev.TRACK_PIPELINE]
+        by = {}
+        for e in spans:
+            by.setdefault(e[tr_ev.EVT_NAME], []).append(e[tr_ev.EVT_DUR])
+        busy = sum(e[tr_ev.EVT_DUR] for e in spans)
+        if len(by.get(tr_ev.ENGINE_DECODE, [])) != r["rounds"] or \
+                len(by.get(tr_ev.ENGINE_PREFILL, [])) != 1:
+            raise AssertionError(f"2e: {len(by.get(tr_ev.ENGINE_DECODE, []))} "
+                                 f"engine.decode spans for {r['rounds']} rounds, "
+                                 f"{len(by.get(tr_ev.ENGINE_PREFILL, []))} prefill")
+        if busy > r["wall"]:
+            raise AssertionError(f"2e: the engine.* spans sum to {busy:.4f} s, "
+                                 f"more than the serve's {r['wall']:.4f} s")
+        r["busy"], r["by"], r["evs"] = busy, by, evs
+    for i, r in enumerate(runs):
+        rep = r["rep"]
+        line = (f"  serve {i + 1} ({'traced' if r['traced'] else 'untraced'}): "
+                f"{r['wall'] * 1e3:.1f} ms wall, {rep.ms_per_token:.3f} ms/token "
+                f"(span / tokens), decode {1e3 / rep.decode_tok_s_p50:.3f} ms/token "
+                f"per request (p50), TTFT p50 {rep.ttft_p50_s * 1e3:.2f} ms, "
+                f"{r['rounds']} rounds")
+        if r["traced"]:
+            by = r["by"]
+            dec = by[tr_ev.ENGINE_DECODE]
+            cp = analyze(r["evs"])
+            line += (f"; {r['tracer'].emitted} events; spans: engine.prefill "
+                     f"{by[tr_ev.ENGINE_PREFILL][0] * 1e3:.2f} ms, engine.decode "
+                     f"{len(dec)} x mean {statistics.mean(dec) * 1e3:.3f} ms (min "
+                     f"{min(dec) * 1e3:.3f}, max {max(dec) * 1e3:.3f}); spans "
+                     f"{r['busy'] * 1e3:.1f} of {r['wall'] * 1e3:.1f} ms wall "
+                     f"({1 - r['busy'] / r['wall']:.1%} outside the steps); "
+                     f"critical path rounds {len(cp.rounds)}, "
+                     f"waterfalls {len(cp.requests)}")
+        log(line + f" [{card}; {cfg.n_layers} layers]")
+    un = [r["rep"].ms_per_token for r in runs if not r["traced"]]
+    tr_ = [r["rep"].ms_per_token for r in runs if r["traced"]]
+    log(f"  ms/token traced {tr_} against untraced {un} (serves 2, 3 against "
+        f"1, 4) [{card}; {cfg.n_layers} layers]")
+    last = runs[2]
+    log("  the dashboard's last frame of serve 3 (and its render at the end):")
+    for text in (last["frame"], last["dash"].render(last["sched"].now())):
+        for ln in (text or "(no frame)").splitlines():
+            log("    " + ln)
+    snap = last["slo"].snapshot(last["sched"].now())
+    log(f"  SLO health {snap['health']:.2f}, breaching {snap['breaching']}, "
+        f"TTFT p99 {snap['targets']['ttft_p99']['p99']}")
+    return first["got"]
 
 
 PAIR_STEPS = 5            # steps of a captured-vs-eager pair check
@@ -3893,6 +4066,40 @@ def pass_profile(eng, st, P, fn, card, label):
     return by, wall, kern
 
 
+def adaptive_trace_check(tracer, done, card, n_layers):
+    """Phase 3b's adaptive serve, traced: the Chrome export validates, an
+    engine.retier instant lies inside some request's admit..finish window
+    (the planner retiered the live engine), the pool's kv.grow instants
+    credit the retiered HBM, and the engine.* instants and spans count the
+    serve's passes."""
+    from repro_torch.obs import to_chrome, validate_chrome
+    from repro_torch.obs import trace as tr_ev
+    evs = tracer.events()
+    problems = validate_chrome(to_chrome(tracer))
+    names = {}
+    for e in evs:
+        names.setdefault((e[tr_ev.EVT_NAME], e[tr_ev.EVT_TRACK]), []).append(e)
+    retiers = names.get((tr_ev.ENGINE_RETIER, tr_ev.TRACK_KV), [])
+    grows = names.get((tr_ev.KV_GROW, tr_ev.TRACK_KV), [])
+    live = [(q.admitted_s, q.finish_s) for q in done]
+    while_live = [e for e in retiers
+                  if any(a <= e[tr_ev.EVT_TS] <= f for a, f in live)]
+    counts = {f"{n}@{track}": len(v) for (n, track), v in sorted(names.items())
+              if n.startswith(("engine.", "kv.", "retier"))}
+    spans = {n: f"{len(v)} x mean {statistics.mean(e[tr_ev.EVT_DUR] for e in v) * 1e3:.1f} ms"
+             for (n, track), v in sorted(names.items()) if track == tr_ev.TRACK_PIPELINE}
+    log(f"  adaptive serve traced: {tracer.emitted} events, {tracer.dropped} dropped; "
+        f"{counts}; pipeline spans {spans}; engine.retier {[e[tr_ev.EVT_ARGS] for e in retiers]}, "
+        f"{len(while_live)} while requests were live; kv.grow "
+        f"{[e[tr_ev.EVT_ARGS] for e in grows]} [{card}; {n_layers} layers]")
+    if problems or tracer.dropped:
+        raise AssertionError(f"3b: the adaptive serve's trace is invalid "
+                             f"({problems[:4]}) or dropped {tracer.dropped} events")
+    if not while_live or not grows:
+        raise AssertionError(f"3b: no engine.retier while requests were live "
+                             f"({len(retiers)} retiers) or no kv.grow ({len(grows)})")
+
+
 def full_model_phase(card):
     import numpy as np
     import torch
@@ -3906,6 +4113,7 @@ def full_model_phase(card):
     from repro_torch.launch.serve import HBM_FRAC, cost_env, hetero_plan, measure_h2d
     from repro_torch.kernels.decode_attention import ops as da
     from repro_torch.models import model as M
+    from repro_torch.obs import Tracer, set_tracer
     from repro_torch.serving import LimeServer, SchedulerConfig, summarize
     from repro_torch.specdec import SpecConfig
 
@@ -4059,11 +4267,19 @@ def full_model_phase(card):
         notes.append((len(be.rounds), pages, pages * page_size))
         note(pages, page_size)
     be.note_kv_pages = noted
-    t0 = time.monotonic()
-    done, stats, (m, d, h, hd, vf), _, fired = drive(
-        srv, prompts[:4], "bursty", L, scfg=SchedulerConfig(kv_policy="paged",
-                                                             page_size=PAGE))
-    wall = time.monotonic() - t0
+    # the flight recorder around this serve (installed before drive builds
+    # the scheduler, which binds its clock to the backend's)
+    tracer = Tracer()
+    prev = set_tracer(tracer)
+    try:
+        t0 = time.monotonic()
+        done, stats, (m, d, h, hd, vf), _, fired = drive(
+            srv, prompts[:4], "bursty", L, scfg=SchedulerConfig(kv_policy="paged",
+                                                                 page_size=PAGE))
+        wall = time.monotonic() - t0
+    finally:
+        set_tracer(prev)
+    adaptive_trace_check(tracer, done, card, L)
     for key, n in (("mq_decode_attention", m), ("decode_attention", d),
                    ("mq_decode_attention@prefill", h), ("decode_attention@hopper", hd),
                    ("mq_decode_attention@verify", vf)):
@@ -5748,10 +5964,14 @@ def main() -> int:
         for k, n in spec_launches.items():
             launches[k] = launches.get(k, 0) + n
         t = done("2c", t)
-        for k, n in capture_phase(cfg8, params8, card, base).items():
+        got, warm = capture_phase(cfg8, params8, card, base)
+        for k, n in got.items():
             launches[k] = launches.get(k, 0) + n
-        del base
         t = done("2d", t)
+        for k, n in trace_phase(cfg8, card, base, warm).items():
+            launches[k] = launches.get(k, 0) + n
+        del base, warm
+        t = done("2e", t)
         engine_check_phase(cfg8, params8, card)
         t = done("3a", t)
         del params8

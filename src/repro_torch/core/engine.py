@@ -74,6 +74,14 @@ layers' compute become graph nodes and the interleave their dependencies.
 A graph reads the pinned store and the resident layers at their
 addresses: every weight load and retier bumps ``layout_version``, which
 the graphs' scope holds, so the next pass captures again.
+
+With a tracer installed (obs/trace) the serving entry points record the
+JAX engine's instants on the "engine" track: engine.seed (seed_cache),
+engine.decode (decode_requests), engine.verify (verify_requests),
+engine.draft (draft_requests) and one engine.prefill per round of
+``prefill_partial``. Their args come from host values (the caller's
+``live`` count, a tensor's shape), never from a device read: an instant
+costs no sync and may sit beside a captured pass.
 """
 from __future__ import annotations
 
@@ -94,6 +102,8 @@ from repro_torch.kvcache.layout import gather_from_pages, scatter_to_pages
 from repro_torch.kvcache.pool import PagedKVConfig, PagePool
 from repro_torch.models import model as M
 from repro_torch.models.modules import rms_norm, round_up, unembed
+from repro_torch.obs import trace as tr_ev
+from repro_torch.obs.trace import get_tracer
 
 # the families whose layers the engine streams; of them the dense and MoE
 # families have pure-KV per-layer state (chunked prefill, verify, draft)
@@ -724,6 +734,10 @@ class InterleavedEngine:
         through the table's pool pages and back (scatter_to_pages /
         gather_from_pages), an identity by construction that exercises
         the table indirection on whatever pages the free list handed out."""
+        tr = get_tracer()
+        if tr is not None:
+            tr.instant(tr_ev.ENGINE_SEED, track=tr_ev.TRACK_ENGINE,
+                       args={"pos": int(cache["pos"]), "paged": self.paged})
         for key, v in cache.items():
             old = state.get(key)
             if isinstance(old, torch.Tensor) and (
@@ -754,16 +768,33 @@ class InterleavedEngine:
                           steps=steps)[:, 0], state
 
     @staticmethod
+    def _live(active, live: Optional[int]) -> Optional[int]:
+        """The live-slot count an engine.decode instant records: the
+        caller's `live`, else the mask's count where that needs no device
+        read (a host mask); None for a mask on the card."""
+        if live is not None:
+            return live
+        if isinstance(active, torch.Tensor) and active.device.type != "cpu":
+            return None
+        return int(np.count_nonzero(np.asarray(active, bool)))
+
+    @staticmethod
     def _masked(tokens, active):
         active = torch.as_tensor(active, dtype=torch.bool,
                                  device=tokens.device)
         return torch.where(active[:, None], tokens, torch.zeros_like(tokens))
 
-    def decode_requests(self, state, tokens, active, *, steps=None):
+    def decode_requests(self, state, tokens, active, *, steps=None,
+                        live: Optional[int] = None):
         """decode_step where only the `active` slots are live: inactive
         slots ride as padding with zeroed tokens; their logits are to be
         ignored. Paged: each live slot's table grows to the new position
-        (a page every page_size steps)."""
+        (a page every page_size steps). `live`: the live-slot count for
+        the tracer, where the caller holds it on the host."""
+        tr = get_tracer()
+        if tr is not None:
+            tr.instant(tr_ev.ENGINE_DECODE, track=tr_ev.TRACK_ENGINE,
+                       args={"live": self._live(active, live)})
         if self.paged:
             self._paged_pos += 1
             for slot in np.flatnonzero(np.asarray(
@@ -790,6 +821,10 @@ class InterleavedEngine:
         return self._pass(state, tokens, multi=True, steps=steps), state
 
     def verify_requests(self, state, tokens, active, *, steps=None):
+        tr = get_tracer()
+        if tr is not None:
+            tr.instant(tr_ev.ENGINE_VERIFY, track=tr_ev.TRACK_ENGINE,
+                       args={"q_len": int(tokens.shape[1])})
         return self.verify_step(state, self._masked(tokens, active),
                                 steps=steps)
 
@@ -815,6 +850,9 @@ class InterleavedEngine:
                           steps=steps)[:, 0], state
 
     def draft_requests(self, state, tokens, active, *, steps=None):
+        tr = get_tracer()
+        if tr is not None:
+            tr.instant(tr_ev.ENGINE_DRAFT, track=tr_ev.TRACK_ENGINE)
         return self.draft_step(state, self._masked(tokens, active),
                                steps=steps)
 
@@ -833,8 +871,13 @@ class InterleavedEngine:
                 "step (pure-KV families only)")
         T = int(tokens.shape[1])
         chunk = T if chunk <= 0 else min(chunk, T)
+        tr = get_tracer()
         logits = None
         for off in range(0, T, chunk):
+            if tr is not None:
+                tr.instant(tr_ev.ENGINE_PREFILL, track=tr_ev.TRACK_ENGINE,
+                           args={"offset": off,
+                                 "chunk": min(chunk, T - off)})
             logits, state = self.verify_step(
                 state, tokens[:, off:off + chunk], steps=steps)
         if self.paged:

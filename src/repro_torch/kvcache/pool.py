@@ -16,10 +16,9 @@ and benchmarks can report spill/fetch traffic. Capacity is enforced per
 tier; page identity (and the owning BlockTable's entries) never changes
 across a migration — only the residency bit does.
 
-The port's copy of ``repro.kvcache.pool``, trimmed of the flight
-recorder's calls (kv.grow / kv.shrink / kv.spill / kv.fetch instants):
-the port has no tracer yet, it comes with the observability slice.
-Everything else is the JAX package's code unchanged.
+The port's copy of ``repro.kvcache.pool``, the flight recorder's
+kv.grow / kv.shrink / kv.spill / kv.fetch instants included, with the
+imports pointed at the port.
 """
 from __future__ import annotations
 
@@ -27,6 +26,8 @@ import dataclasses
 from typing import Dict, Iterable, List
 
 from repro_torch.kvcache.allocator import BlockTable, OutOfPages, PageAllocator
+from repro_torch.obs import trace as tr_ev
+from repro_torch.obs.trace import get_tracer
 
 DEVICE = "device"
 HOST = "host"
@@ -110,6 +111,10 @@ class PagePool:
         if fresh:
             self.alloc.add_pages(fresh)
         self._cap[tier] += n_pages
+        tr = get_tracer()
+        if tr is not None:
+            tr.instant(tr_ev.KV_GROW, track=tr_ev.TRACK_KV,
+                       args={"pages": n_pages, "tier": tier})
         return n_pages
 
     def shrink(self, n_pages: int, tier: str = DEVICE) -> int:
@@ -120,6 +125,11 @@ class PagePool:
         take = max(min(n_pages, self.free_pages(tier)), 0)
         self._cap[tier] -= take
         self._spare += take
+        if take:
+            tr = get_tracer()
+            if tr is not None:
+                tr.instant(tr_ev.KV_SHRINK, track=tr_ev.TRACK_KV,
+                           args={"pages": take, "tier": tier})
         return take
 
     # -- allocation --------------------------------------------------------------
@@ -199,6 +209,12 @@ class PagePool:
         else:
             self.fetched_pages += len(moving)
         self.migrated_bytes += nbytes
+        if moving:
+            tr = get_tracer()
+            if tr is not None:
+                tr.instant(tr_ev.KV_SPILL if dst == HOST else tr_ev.KV_FETCH,
+                           track=tr_ev.TRACK_KV,
+                           args={"pages": len(moving), "bytes": nbytes})
         return nbytes
 
     def migrate_any(self, n: int, dst: str) -> float:

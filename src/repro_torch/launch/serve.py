@@ -72,7 +72,15 @@ model's entry points and the engine.
       --pattern shared_prefix --n-templates 1 --prefix-len 24 \\
       --prompt-len 32 --requests 8 --max-new 8
 
-Prints one line per request, then the JSON ServingReport.
+  # traced: the flight recorder's Chrome trace (Perfetto; a .jsonl path
+  # writes JSONL), the SLO engine's burn-rate targets and a live dashboard
+  # every 0.5 s of the backend's clock:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.3-70b \
+      --smoke --device cpu --pattern bursty --requests 4 --max-new 8 \
+      --trace out.json --slo --dash-interval 0.5
+
+Prints one line per request, then the JSON ServingReport (with an "slo"
+section under --slo).
 """
 from __future__ import annotations
 
@@ -203,6 +211,21 @@ def main(argv=None):
     ap.add_argument("--retier-headroom", type=int, default=1,
                     help="streamed-store slots reserved for runtime "
                          "demotions (--adapt)")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="flight-recorder output: Chrome trace-event JSON "
+                         "loadable in Perfetto, or JSONL when PATH ends in "
+                         ".jsonl")
+    ap.add_argument("--slo", action="store_true",
+                    help="online SLO engine: burn-rate alerts on TTFT / "
+                         "TPOT / goodput / reject targets, its pressure fed "
+                         "to the planner; the report gains an 'slo' section")
+    ap.add_argument("--slo-ttft", type=float, default=8.0,
+                    help="TTFT p99 threshold in seconds (--slo)")
+    ap.add_argument("--slo-tpot", type=float, default=1.0,
+                    help="TPOT p50 threshold in seconds/token (--slo)")
+    ap.add_argument("--dash-interval", type=float, default=0.0,
+                    help="seconds between live dashboard snapshots on "
+                         "stdout (0 = off; the backend's clock)")
     args = ap.parse_args(argv)
 
     import torch
@@ -213,6 +236,8 @@ def main(argv=None):
                                          weight_budget)
     from repro_torch.device import resolve_device
     from repro_torch.models import model as M
+    from repro_torch.obs.log import get_logger
+    from repro_torch.obs.trace import Tracer, set_tracer
     from repro_torch.serving.backend import refuse_encdec
     from repro_torch.serving import (ContinuousBatchingScheduler, LimeServer,
                                      SamplerConfig, SchedulerConfig,
@@ -323,9 +348,43 @@ def main(argv=None):
     # planner, and the scheduler reclaims retier headroom before it preempts
     scfg = SchedulerConfig(kv_policy="paged", page_size=args.page_size) \
         if args.adapt else SchedulerConfig()
-    sched = ContinuousBatchingScheduler(srv.make_backend(), scfg)
-    done = sched.serve(requests_from_arrivals(arrivals,
-                                              vocab_size=cfg.vocab_size))
+    reqs = requests_from_arrivals(arrivals, vocab_size=cfg.vocab_size)
+    backend = srv.make_backend()
+    # flight recorder: installed before the scheduler is built (it takes
+    # the tracer and binds its clock to the backend at construction)
+    tracer = None
+    if args.trace:
+        tracer = Tracer()
+        set_tracer(tracer)
+    slo = None
+    try:
+        sched = ContinuousBatchingScheduler(backend, scfg)
+        if args.slo:
+            from repro_torch.obs.slo import SLOEngine, default_targets
+            slo = SLOEngine(default_targets(ttft_p99_s=args.slo_ttft,
+                                            tpot_p50_s=args.slo_tpot))
+            sched.attach_slo(slo)
+        if args.dash_interval > 0:
+            from repro_torch.obs.dashboard import Dashboard
+            dash = Dashboard(slo=slo, sched=sched, tracer=tracer,
+                             interval_s=args.dash_interval)
+            sched.begin(reqs)
+            while sched.step():
+                snap = dash.tick(sched.now())
+                if snap is not None:
+                    print(snap)
+            done = sched.finish_run()
+            print(dash.render(sched.now()))
+        else:
+            done = sched.serve(reqs)
+    finally:
+        if tracer is not None:
+            set_tracer(None)
+    if tracer is not None:
+        tracer.export(args.trace)
+        get_logger("repro_torch.launch.serve").info(
+            f"trace: {args.trace} ({tracer.emitted} events, "
+            f"{tracer.dropped} dropped)")
     for r in sorted(done, key=lambda r: r.rid):
         status = "REJECTED" if r.rejected else \
             f"ttft {r.ttft_s:.2f}s total {r.latency_s:.2f}s " \
@@ -335,7 +394,10 @@ def main(argv=None):
                        backend="engine" if engine else
                        ("paged-prefix" if args.prefix_cache else "fallback"),
                        stats=sched.stats)
-    print(json.dumps(report.to_dict(), indent=2))
+    doc = report.to_dict()
+    if slo is not None:
+        doc["slo"] = slo.snapshot(sched.now())
+    print(json.dumps(doc, indent=2))
     if engine is not None:
         engine.close()
     return 0

@@ -30,16 +30,17 @@ The tree is substrate-agnostic: over the scheduler's bookkeeping pool it
 tracks which simulated pages are reusable; over the engine's real pool the
 same structure carries actual K/V bytes (serving/backend.EngineBackend).
 
-The port's copy of ``repro.prefixcache.radix``, trimmed of the flight
-recorder's calls (prefix.hit / prefix.insert / prefix.evict instants):
-the port has no tracer yet, it comes with the observability slice.
-Everything else is the JAX package's code unchanged.
+The port's copy of ``repro.prefixcache.radix``, the flight recorder's
+prefix.hit / prefix.insert / prefix.evict instants included, with the
+imports pointed at the port.
 """
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from repro_torch.kvcache.pool import PagePool
+from repro_torch.obs import trace as tr_ev
+from repro_torch.obs.trace import get_tracer
 from repro_torch.prefixcache.digest import (ROOT_SEED, PrefixDigest,
                                             chain_hash)
 
@@ -123,6 +124,11 @@ class RadixPrefixCache:
         if pages:
             self.hits += 1
             self.hit_tokens += len(pages) * self.page_size
+            tr = get_tracer()
+            if tr is not None:
+                tr.instant(tr_ev.PREFIX_HIT, track=tr_ev.TRACK_PREFIX,
+                           args={"pages": len(pages),
+                                 "tokens": len(pages) * self.page_size})
         return pages, len(pages) * self.page_size
 
     # -- insert ------------------------------------------------------------------
@@ -149,6 +155,11 @@ class RadixPrefixCache:
             child.last_use = self._clock
             node = child
         self.inserted_pages += new
+        if new:
+            tr = get_tracer()
+            if tr is not None:
+                tr.instant(tr_ev.PREFIX_INSERT, track=tr_ev.TRACK_PREFIX,
+                           args={"pages": new, "total": self._n_pages})
         return new
 
     # -- evict -------------------------------------------------------------------
@@ -188,6 +199,11 @@ class RadixPrefixCache:
                 progress = True
             if not progress:
                 break
+        if freed:
+            tr = get_tracer()
+            if tr is not None:
+                tr.instant(tr_ev.PREFIX_EVICT, track=tr_ev.TRACK_PREFIX,
+                           args={"pages": freed, "total": self._n_pages})
         return freed
 
     def release_all(self) -> int:

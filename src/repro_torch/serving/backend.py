@@ -70,6 +70,15 @@ between epochs, so the graphs live as long as the backend (an engine's
 retier drops its pass graphs: the next pass captures again).
 `capture=False` runs every one of these steps eagerly (for comparisons);
 the launcher does not expose it.
+
+With a tracer installed (obs/trace) each step is one complete span on the
+"pipeline" track, as in the JAX backend: engine.prefill (start_batch),
+engine.decode (a plain decode round), engine.verify (a speculative round,
+an engine.draft span inside it for the engine's resident draft), and a
+retier of the live engine one engine.retier instant on "kv". A span
+closes after the step's host copy of its tokens, the sync the step makes
+anyway, so its duration holds the device's work (a replayed graph is one
+span); tracing adds no sync of its own.
 """
 from __future__ import annotations
 
@@ -86,6 +95,8 @@ from repro_torch.kvcache.allocator import BlockTable
 from repro_torch.kvcache.paged_decode import PagedDecodeCache
 from repro_torch.kvcache.pool import PagedKVConfig, PagePool
 from repro_torch.models import model as M
+from repro_torch.obs import trace as tr_ev
+from repro_torch.obs.trace import get_tracer
 from repro_torch.prefixcache import RadixPrefixCache
 from repro_torch.serving.sampling import SamplerConfig, sample
 
@@ -316,6 +327,13 @@ class EngineBackend:
             self._adapt[key] += moved
             self._adapt["hbm_returned_bytes"] += max(freed, 0.0)
             self._sync_depth_rung()
+            tr = get_tracer()
+            if tr is not None:
+                tr.instant(tr_ev.ENGINE_RETIER, track=tr_ev.TRACK_KV,
+                           args={"stage": stage, "moved": moved,
+                                 "direction": ("demote" if freed > 0
+                                               else "promote"),
+                                 "freed_bytes": freed})
         return freed
 
     def retier(self, stage: int, delta: int) -> float:
@@ -361,6 +379,12 @@ class EngineBackend:
                 if dev < self.engine.plan.n_stage:
                     self._retier_to(dev, max(step.alpha, step.beta))
         self._maybe_promote()
+
+    def note_slo_pressure(self, pressure: float) -> None:
+        """Scheduler callback with SLO pressure (1 - the SLO engine's
+        health): forward to the planner so its TS ladder fires early."""
+        if self.planner is not None:
+            self.planner.note_slo_pressure(pressure)
 
     def reclaim_kv_pages(self, n_pages: int) -> int:
         """Scheduler pressure hook: before preempting a request, demote
@@ -431,6 +455,8 @@ class EngineBackend:
 
     # -- protocol ----------------------------------------------------------------
     def start_batch(self, reqs: Sequence) -> List[Optional[int]]:
+        tr = get_tracer()
+        t0 = tr.now() if tr is not None else 0.0
         prompts = [self._materialize_prompt(r) for r in reqs]
         toks = self._pad_prompts(prompts)
         if toks.shape[0] < self.batch_width:  # pad batch with replicas
@@ -476,6 +502,10 @@ class EngineBackend:
         tok = self._sample(last)
         self._cur = tok[:, None]
         host = tok.tolist()
+        if tr is not None:
+            tr.complete(tr_ev.ENGINE_PREFILL, ts=t0, dur=tr.now() - t0,
+                        track=tr_ev.TRACK_PIPELINE,
+                        args={"batch": len(reqs), "span": int(toks.shape[1])})
         if self.spec is not None:
             if self._ctl is None:
                 from repro_torch.specdec import SpecDecodeController
@@ -504,13 +534,16 @@ class EngineBackend:
             k = min(k_cap, self._spec_cap - self._pos - 1)
             if slots and k >= 1:
                 return self._decode_active_spec(slots, k)
+        tr = get_tracer()
+        t0 = tr.now() if tr is not None else 0.0
         self.rounds.append((0, 1))
         active = torch.zeros(self.batch_width, dtype=torch.bool,
                              device=self.device)
         active[list(slots)] = True
         if self.engine is not None:
             lg, self._state = self.engine.decode_requests(
-                self._state, self._cur, active, steps=self.steps)
+                self._state, self._cur, active, steps=self.steps,
+                live=len(slots))
         elif self.paged:
             if self.prefix_cache:
                 self._ensure_room(self._paged_cache, 1)
@@ -532,6 +565,10 @@ class EngineBackend:
         if self.spec is not None:             # keep the drafts in step on
             for s in slots:                   # the plain fallback step
                 self._ctl.observe(s, [host[s]])
+        if tr is not None:
+            tr.complete(tr_ev.ENGINE_DECODE, ts=t0, dur=tr.now() - t0,
+                        track=tr_ev.TRACK_PIPELINE,
+                        args={"slots": len(slots)})
         return {s: host[s] for s in slots}
 
     def _decode_active_spec(self, slots: Sequence[int], k: int):
@@ -539,6 +576,8 @@ class EngineBackend:
         multi-query pass (one weight stream through an engine); commit the
         lockstep-min accepted prefix, roll the rejected suffix back (pos
         reset or block-table truncation)."""
+        tr = get_tracer()
+        t0 = tr.now() if tr is not None else 0.0
         cur = self._cur.cpu().numpy()                      # (B, 1)
         mat = np.tile(cur, (1, 1 + k))                     # padding: replicas
         active = np.zeros(self.batch_width, bool)
@@ -603,6 +642,10 @@ class EngineBackend:
                 self._slot_out[s].extend(committed[s])
                 self._donate_slot(s)
         self._cur = torch.from_numpy(cur).to(self.device)
+        if tr is not None:
+            tr.complete(tr_ev.ENGINE_VERIFY, ts=t0, dur=tr.now() - t0,
+                        track=tr_ev.TRACK_PIPELINE,
+                        args={"k": k, "committed": c, "slots": len(slots)})
         return committed
 
     def _draft_resident(self, active: np.ndarray, k: int) -> np.ndarray:
@@ -610,6 +653,8 @@ class EngineBackend:
         (the live tier boundary, the real slot caches), then a rollback to
         the committed position so the verify pass overwrites every drafted
         position. Returns (B, k) int64."""
+        tr = get_tracer()
+        t0 = tr.now() if tr is not None else 0.0
         eng = self.engine
         cur = self._cur
         out = []
@@ -619,7 +664,11 @@ class EngineBackend:
             cur = torch.argmax(lg[:, :self.cfg.vocab_size], -1)[:, None]
             out.append(cur)
         self._state = eng.rollback(self._state, self._pos)
-        return torch.cat(out, 1).cpu().numpy()
+        draft = torch.cat(out, 1).cpu().numpy()
+        if tr is not None:
+            tr.complete(tr_ev.ENGINE_DRAFT, ts=t0, dur=tr.now() - t0,
+                        track=tr_ev.TRACK_PIPELINE, args={"k": k})
+        return draft
 
     def _empty_cache(self) -> dict:
         """The single-device path's dense cache, empty: allocated once, then

@@ -177,3 +177,42 @@ def summarize(requests: List, *, pattern: str = "", backend: str = "",
         kv_pages_spilled=int(stats.get("kv_pages_spilled", 0)),
         kv_pages_fetched=int(stats.get("kv_pages_fetched", 0)),
         kv_migrated_bytes=float(stats.get("kv_migrated_bytes", 0.0)))
+
+
+def report_from_dict(d: Dict, *, source: str = "",
+                     warn=None) -> ServingReport:
+    """Rehydrate a ServingReport from benchmark/baseline JSON,
+    tolerantly: missing fields fall back to dataclass defaults, unknown
+    fields are dropped, and a schema_version mismatch warns (via `warn`
+    or repro_torch.obs.log) instead of raising, so old baselines stay
+    readable across schema growth."""
+    if warn is None:
+        from repro_torch.obs.log import get_logger
+        warn = get_logger("repro_torch.metrics").warning
+    fields = {f.name: f for f in dataclasses.fields(ServingReport)}
+    ver = d.get("schema_version")
+    if ver != SCHEMA_VERSION:
+        warn("baseline schema mismatch", source=source or "<dict>",
+             baseline=ver, current=SCHEMA_VERSION)
+    unknown = sorted(set(d) - set(fields))
+    if unknown:
+        warn("baseline has unknown report fields (dropped)",
+             source=source or "<dict>", fields=",".join(unknown))
+    required = {"pattern", "backend", "n_requests", "n_rejected",
+                "total_tokens", "span_s", "ms_per_token",
+                "throughput_tok_s", "throughput_req_s", "ttft_p50_s",
+                "ttft_p99_s", "latency_p50_s", "latency_p99_s"}
+    missing = sorted(required - set(d))
+    if missing:
+        warn("baseline missing report fields (defaults used)",
+             source=source or "<dict>", fields=",".join(missing))
+    kw = {k: v for k, v in d.items() if k in fields}
+    # null in the JSON is the wire form of an empty-percentile NaN
+    # (to_dict wrote it); restore the float sentinel for numeric fields
+    for name, v in list(kw.items()):
+        if v is None and str(fields[name].type) == "float":
+            kw[name] = float("nan")
+    fill = {"str": "", "int": 0, "float": float("nan")}
+    for name in required - set(kw):
+        kw[name] = fill.get(str(fields[name].type), 0)
+    return ServingReport(**kw)

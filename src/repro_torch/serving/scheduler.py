@@ -29,14 +29,18 @@ Speculative backends emit a list of committed tokens per round; paged
 growth reserves a whole round (k + 1 tokens). The backend's spec, retier
 and radix prefix-cache counters join the stats at the end of a run. The
 JAX scheduler's decisions are reproduced exactly (same admissions,
-preemptions, resumes and reclaims on the same stream). What it also
-carries comes back with the slice that needs it: its own radix prefix
+preemptions, resumes and reclaims on the same stream), and so are its
+flight-recorder events (obs/trace: the request lifecycle on "req:<rid>",
+occupancy counters, reclaims), its SLO feeds (attach_slo) and the load
+signals a dashboard reads (queue_depth, in_flight, outstanding). What it
+also carries comes back with the slice that needs it: its own radix prefix
 cache over the admission pool and the chunked mixed rounds (only the
-simulator backend runs them) with the simulator, tracer calls, SLO feeds
-and bounded-memory histograms with the observability slice, and the
-fleet's live load signals with the fleet slice.
+simulator backend runs them) with the simulator, and the rest of the
+fleet's API (submit, free_kv_pages) with the fleet slice.
 
-The loop is clock-agnostic: `backend.now()` is whatever the backend says.
+The loop is clock-agnostic: `backend.now()` is whatever the backend says;
+an installed tracer's clock is bound to it at construction, so every
+event of a run shares the backend's timebase.
 """
 from __future__ import annotations
 
@@ -48,6 +52,8 @@ import numpy as np
 
 from repro_torch.kvcache import PagedKVConfig, PagedKVManager, PagePool
 from repro_torch.obs import MetricsRegistry
+from repro_torch.obs import trace as tr_ev
+from repro_torch.obs.trace import get_tracer, req_track
 
 
 @dataclasses.dataclass
@@ -137,6 +143,10 @@ class SchedulerConfig:
     preempt: str = "spill"                   # paged: "spill" | "recompute"
     host_kv_budget_tokens: Optional[int] = None  # paged: spill-tier size
                                                  # (None -> device budget)
+    hist_capacity: Optional[int] = None      # bounded-memory histograms
+                                             # (obs.sketch reservoir of
+                                             # this many samples; None =
+                                             # exact raw-sample mode)
 
 
 class ContinuousBatchingScheduler:
@@ -179,18 +189,44 @@ class ContinuousBatchingScheduler:
         # reserves the whole round
         self._round_tokens = 1 + getattr(getattr(backend, "spec", None),
                                          "k", 0)
-        self.metrics = MetricsRegistry()
+        self.metrics = MetricsRegistry(hist_capacity=config.hist_capacity)
         for k in ("kv_pages_spilled", "kv_pages_fetched",
                   "kv_migrated_bytes"):
             self.metrics.counter(k)
         self.metrics.gauge("peak_active")
         self.metrics.gauge("peak_kv_pages")
+        # flight recorder: when a tracer is installed, slave its clock to
+        # the backend's, so every event this run emits shares one timebase
+        self._tr = get_tracer()
+        if self._tr is not None:
+            self._tr.clock = backend.now
+        # online SLO engine (attach_slo): finishes and rejections feed its
+        # burn-rate windows, its pressure reaches the backend's planner
+        self.slo = None
+        self._slo_pressure_fn = getattr(backend, "note_slo_pressure", None)
+        # empty run state, so the load signals read sanely before begin()
         self.begin([])
 
     @property
     def stats(self) -> Dict[str, float]:
         """Flat stats view (the registry is the source of truth)."""
         return self.metrics.to_stats_dict()
+
+    def attach_slo(self, engine) -> None:
+        """Install an obs.slo.SLOEngine: every finish and rejection from
+        now on feeds its burn-rate windows."""
+        self.slo = engine
+
+    def _note_slo(self, req: Request, now: float,
+                  rejected: bool = False) -> None:
+        if self.slo is None:
+            return
+        if rejected:
+            self.slo.observe_reject(req, now)
+        else:
+            self.slo.observe_request(req, now)
+        if self._slo_pressure_fn is not None:
+            self._slo_pressure_fn(self.slo.pressure())
 
     def _page_bytes(self) -> float:
         fn = getattr(self.backend, "kv_bytes_per_token", None)
@@ -226,6 +262,9 @@ class ContinuousBatchingScheduler:
         got = fn(n_pages)
         if got:
             self.metrics.inc("retier_reclaimed_pages", got)
+            if self._tr is not None:
+                self._tr.instant(tr_ev.RETIER_RECLAIM, track=tr_ev.TRACK_KV,
+                                 args={"pages": got, "asked": n_pages})
         return got
 
     def _on_admit(self, req: Request) -> None:
@@ -254,9 +293,15 @@ class ContinuousBatchingScheduler:
 
     def _note_occupancy(self, active_count: int) -> None:
         self.metrics.set_gauge("peak_active", active_count)
+        if self._tr is not None:
+            self._tr.counter("active_requests", track=tr_ev.TRACK_SCHED,
+                             active=active_count)
         if self.paged:
             pages = self.mgr.device_pages_in_use()
             self.metrics.set_gauge("peak_kv_pages", pages)
+            if self._tr is not None:
+                self._tr.counter("kv_pages", track=tr_ev.TRACK_KV,
+                                 device=pages)
             note = getattr(self.backend, "note_kv_pages", None)
             if note:
                 note(pages, self.config.page_size)
@@ -315,6 +360,11 @@ class ContinuousBatchingScheduler:
         self._charge(moved)
         if not self.mgr.table(r.rid).pages:   # recompute (or spill fallback)
             r.restart_tokens = r.kv_tokens_now
+        if self._tr is not None:
+            mode = "spill" if self.mgr.table(r.rid).pages else "recompute"
+            self._tr.instant(tr_ev.REQ_PREEMPT, track=req_track(r.rid),
+                             args={"slot": slot, "mode": mode,
+                                   "moved_bytes": moved})
         suspended.append(r)
         self.backend.release(slot)
 
@@ -328,7 +378,39 @@ class ContinuousBatchingScheduler:
         # a spill kept the KV: the re-entry step prefills nothing;
         # recompute re-prefills the whole span
         req.cached_tokens = req.kv_tokens_now if kept else 0
+        if self._tr is not None:
+            self._tr.instant(tr_ev.REQ_RESUME, track=req_track(req.rid),
+                             args={"kept_kv": kept,
+                                   "moved_bytes": moved})
         return True
+
+    def _trace_lifecycle(self, r: Request) -> None:
+        """Emit `r`'s lifecycle spans at completion, rebuilt from the
+        timestamps the scheduler records anyway (arrival_s, admitted_s,
+        first_token_s, finish_s): emitted at finish, not live, a long
+        run's request spans survive the ring's wraparound."""
+        tr = self._tr
+        track = req_track(r.rid)
+        if r.admitted_s is not None:
+            tr.complete(tr_ev.REQ_QUEUE, ts=r.arrival_s,
+                        dur=r.admitted_s - r.arrival_s, track=track)
+            if r.first_token_s is not None:
+                tr.complete(tr_ev.REQ_PREFILL, ts=r.admitted_s,
+                            dur=r.first_token_s - r.admitted_s,
+                            track=track,
+                            args={"prompt_len": r.prompt_len,
+                                  "cached_tokens": r.cached_tokens})
+        if r.first_token_s is not None and r.finish_s is not None:
+            tr.complete(tr_ev.REQ_DECODE, ts=r.first_token_s,
+                        dur=r.finish_s - r.first_token_s, track=track,
+                        args={"generated": r.generated})
+        if r.finish_s is not None:
+            tr.complete(tr_ev.REQ_SPAN, ts=r.arrival_s,
+                        dur=r.finish_s - r.arrival_s, track=track,
+                        args={"prompt_len": r.prompt_len,
+                              "generated": r.generated,
+                              "preempted": r.preempted})
+            tr.instant(tr_ev.REQ_FINISH, ts=r.finish_s, track=track)
 
     # -- run state ---------------------------------------------------------------
     def begin(self, requests: List[Request]) -> None:
@@ -342,16 +424,42 @@ class ContinuousBatchingScheduler:
         self._done: List[Request] = []
         self._shed: List[Request] = []
 
+    # -- live load signals (what a dashboard reads) ------------------------------
+    @property
+    def queue_depth(self) -> int:
+        """Requests accepted but not yet (re-)running."""
+        return len(self._q) + len(self._susp)
+
+    @property
+    def in_flight(self) -> int:
+        """Requests occupying batch slots right now."""
+        return len(self._active)
+
+    @property
+    def outstanding(self) -> int:
+        """Everything submitted and not yet finished or shed."""
+        return len(self._pending) + len(self._q) + len(self._susp) \
+            + len(self._active)
+
     def now(self) -> float:
         return self.backend.now()
 
     def _reject(self, r: Request) -> None:
         r.rejected = True
         self._shed.append(r)
+        if self._tr is not None:
+            self._tr.instant(tr_ev.REQ_REJECT, track=req_track(r.rid),
+                             args={"prompt_len": r.prompt_len})
+        self._note_slo(r, self.backend.now(), rejected=True)
 
     def _intake(self, now: float) -> None:
         while self._pending and self._pending[0].arrival_s <= now:
             r = self._pending.popleft()
+            if self._tr is not None:
+                self._tr.instant(tr_ev.REQ_ARRIVE, ts=r.arrival_s,
+                                 track=req_track(r.rid),
+                                 args={"prompt_len": r.prompt_len,
+                                       "max_new": r.max_new_tokens})
             if self._oversized(r) or len(self._q) >= self.config.max_queue:
                 self._reject(r)
             else:
@@ -379,6 +487,7 @@ class ContinuousBatchingScheduler:
         return None
 
     def _pop_candidate(self, kind) -> Request:
+        tr = self._tr
         if kind == "suspended":
             r = self._susp.popleft()
             self._try_resume(r)
@@ -388,8 +497,15 @@ class ContinuousBatchingScheduler:
         else:
             r = self._q.popleft()
             self._on_admit(r)
+            if tr is not None and r.cached_tokens > 0:
+                tr.instant(tr_ev.REQ_PREFIX_HIT, track=req_track(r.rid),
+                           args={"cached_tokens": r.cached_tokens})
         if r.admitted_s is None:
             r.admitted_s = self.backend.now()
+        if tr is not None:
+            tr.instant(tr_ev.REQ_ADMIT, track=req_track(r.rid),
+                       args={"resumed": kind == "suspended",
+                             "cached_tokens": r.cached_tokens})
         return r
 
     def _finish_req(self, r: Request, slot: int, t: float) -> None:
@@ -399,6 +515,9 @@ class ContinuousBatchingScheduler:
         self._done.append(r)
         del self._active[slot]
         self.backend.release(slot)
+        if self._tr is not None:
+            self._trace_lifecycle(r)
+        self._note_slo(r, t)
 
     def _emit(self, r: Request, slot: int, tok, t: float) -> bool:
         """Count one emitted token; True when it finished the request."""

@@ -18,7 +18,9 @@ serves through a paged KV pool with a radix prefix cache over it
 (page_size tokens per page, the uncached suffix prefilled in rounds of
 prefill_chunk_tokens). A SpecConfig turns on speculative decoding on
 either path: n-gram, small-model or resident drafts, verified in one
-multi-query pass, rejection-sampled at temperature > 0.
+multi-query pass, rejection-sampled at temperature > 0. trace=PATH arms
+the flight recorder for every serve_all(): Chrome trace-event JSON
+(Perfetto), or JSONL when the path ends in .jsonl.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ import numpy as np
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.obs.trace import Tracer, get_tracer, set_tracer
 from repro_torch.serving.backend import EngineBackend
 from repro_torch.serving.sampling import SamplerConfig
 from repro_torch.serving.scheduler import (ContinuousBatchingScheduler,
@@ -70,7 +73,8 @@ class LimeServer:
                  pattern: str = "sporadic", impl: str = "kernel", spec=None,
                  prefix_cache: bool = False, prefill_chunk_tokens: int = 0,
                  page_size: int = 64, planner=None, capture: bool = True,
-                 device=None):
+                 device=None, trace: Optional[str] = None,
+                 trace_capacity: int = 1 << 16):
         self.cfg = cfg
         self.params = params
         self.engine = engine
@@ -84,6 +88,9 @@ class LimeServer:
         self.page_size = page_size
         self.planner = planner                # OnlinePlanner (engine only)
         self.capture = capture                # False: eager steps
+        # flight recorder: a path arms tracing for every serve_all()
+        self.trace = trace
+        self.trace_capacity = trace_capacity
         self.device = engine.device if engine is not None \
             else resolve_device(device)
         self.queue = RequestQueue()
@@ -118,5 +125,17 @@ class LimeServer:
         base = backend.now()
         for r in reqs:
             r.arrival_s += base
-        sched = ContinuousBatchingScheduler(backend, SchedulerConfig())
-        return sched.serve(reqs)
+        # arm the flight recorder before the scheduler is built (it binds
+        # the tracer's clock to backend.now at construction); a tracer the
+        # caller installed wins, and the caller owns its export then
+        tracer = None
+        if self.trace and get_tracer() is None:
+            tracer = Tracer(capacity=self.trace_capacity)
+            set_tracer(tracer)
+        try:
+            sched = ContinuousBatchingScheduler(backend, SchedulerConfig())
+            return sched.serve(reqs)
+        finally:
+            if tracer is not None:
+                set_tracer(None)
+                tracer.export(self.trace)

@@ -69,6 +69,22 @@ def _t(a):
     return torch.from_numpy(np.asarray(a)).long()
 
 
+@pytest.fixture(scope="module")
+def memo():
+    """Made once per module, read by every case that needs it: a config's
+    converted weights, and the single-device serves the engine's serves
+    are held to."""
+    return {}
+
+
+def _weights(memo, cfg):
+    """jax_params(cfg), converted once per module (configs key by repr)."""
+    key = ("w", repr(cfg))
+    if key not in memo:
+        memo[key] = jax_params(cfg)
+    return memo[key]
+
+
 def _engine(cfg, pp, mb=B, max_len=MAX_LEN, plan=PLAN, **kw):
     eng = PE.InterleavedEngine(port_cfg(cfg), plan, mb=mb, max_len=max_len,
                                device="cpu", **kw)
@@ -94,12 +110,12 @@ def _prompts(cfg, seed=5, n=B, length=P):
 # the recurrent families against JAX and the port's model
 # ----------------------------------------------------------------------------
 @pytest.mark.parametrize("arch", RECURRENT)
-def test_engine_recurrent_vs_jax(arch):
+def test_engine_recurrent_vs_jax(arch, memo):
     """The prompt pass over the tiers + seed_cache + 6 decode steps,
     teacher-forced on the reference's picks."""
     cfg = _cfg(arch)
     V = cfg.vocab_size
-    jp, _, pp = jax_params(cfg)
+    jp, _, pp = _weights(memo, cfg)
     toks = _prompts(cfg)
     eng, st = _engine(cfg, pp)
     assert eng.resident_layer_ids() == [0, 2]
@@ -136,7 +152,7 @@ def test_engine_recurrent_vs_jax(arch):
 
 
 @pytest.mark.parametrize("arch", RECURRENT + ["llama3.3-70b"])
-def test_engine_prefill_and_decode_match_port_model_bitwise(arch):
+def test_engine_prefill_and_decode_match_port_model_bitwise(arch, memo):
     """The engine's prompt pass leaves M.prefill's cache and logits on the
     same stacked weights, bit for bit (resident layers from their flat HBM
     tensors, streamed ones through the load buffers), and its decode steps
@@ -145,7 +161,7 @@ def test_engine_prefill_and_decode_match_port_model_bitwise(arch):
     buffer (a planted fault) breaks the equality."""
     cfg = _cfg(arch)
     pcfg = port_cfg(cfg)
-    _, _, pp = jax_params(cfg)
+    _, _, pp = _weights(memo, cfg)
     toks = _t(_prompts(cfg, seed=6))
     eng, st = _engine(cfg, pp)
     el, cache = eng.prefill(toks)
@@ -179,14 +195,14 @@ def test_engine_prefill_and_decode_match_port_model_bitwise(arch):
 
 
 @pytest.mark.parametrize("arch", RECURRENT)
-def test_recurrent_retier_mid_stream_changes_no_logit(arch):
+def test_recurrent_retier_mid_stream_changes_no_logit(arch, memo):
     """Greedy decode with retier(+1) after step 1 and retier(-1) after step
     3 gives the logits of the run without retier, bit for bit: 6 layers in
     2 chunks of 2 resident + 1 streamed, a demotion streams layers 1 and 4
     ahead of the streamed tails 2 and 5 (the recurrent states, like the
     K/V, stay indexed by layer id)."""
     cfg = _cfg(arch, n_layers=6)
-    _, _, pp = jax_params(cfg)
+    _, _, pp = _weights(memo, cfg)
     toks = _t(_prompts(cfg, seed=7))
     runs = []
     for retier in (False, True):
@@ -238,7 +254,7 @@ def test_refusals_are_jax_words():
 # ----------------------------------------------------------------------------
 # long_mode
 # ----------------------------------------------------------------------------
-def test_long_mode_vs_jax_decode_step():
+def test_long_mode_vs_jax_decode_step(memo):
     """gemma3's smoke config (local:global) with window 6 in long_mode:
     every layer windowed, a 6-slot ring. A 10-token prompt outruns the
     ring: the engine's prompt pass (windowed flash, K/V ring-rolled)
@@ -248,7 +264,7 @@ def test_long_mode_vs_jax_decode_step():
     decode_step(long_mode=True) run token by token from an empty cache."""
     cfg = _cfg("gemma3-1b", window_size=6)
     V = cfg.vocab_size
-    jp, _, pp = jax_params(cfg)
+    jp, _, pp = _weights(memo, cfg)
     toks = _prompts(cfg, seed=8)
     jdecode = jax.jit(functools.partial(JM.decode_step, cfg, long_mode=True))
     jc = JM.init_cache(cfg, B, 16, long_mode=True)
@@ -292,14 +308,14 @@ def _shuffle_free_list(eng, rng):
     assert eng.paged_stats()["pages_in_use"] == 0
 
 
-def test_paged_accounting_matches_jax_engine():
+def test_paged_accounting_matches_jax_engine(memo):
     """seed_cache, decode_requests (some slots idle), free_slot,
     note_committed and prefill_partial's release-then-extend move the
     port's tables as the JAX engine's own accounting moves on the same
     sequence (its host-side methods, replayed); drafts never extend."""
     cfg = _cfg("llama3.3-70b")
     mb, ps = 4, 4
-    _, _, pp = jax_params(cfg)
+    _, _, pp = _weights(memo, cfg)
     eng, st = _engine(cfg, pp, mb=mb, paged=True, page_size=ps)
     je = JE.InterleavedEngine(cfg, jax.make_mesh((1,), ("data",)),
                               JE.UniformPlan(1, 2, 1, 1), mb=mb,
@@ -349,12 +365,12 @@ def test_paged_accounting_matches_jax_engine():
 
 
 @pytest.mark.parametrize("arch", ["llama3.3-70b", "hymba-1.5b"])
-def test_paged_round_trip_is_identity_on_shuffled_tables(arch):
+def test_paged_round_trip_is_identity_on_shuffled_tables(arch, memo):
     """seed_cache on a churned pool: the tables hold pages out of order,
     the K/V that come back through them equal the cache bit for bit, and
     the decode steps that follow equal an unpaged engine's."""
     cfg = _cfg(arch)
-    _, _, pp = jax_params(cfg)
+    _, _, pp = _weights(memo, cfg)
     toks = _t(_prompts(cfg, seed=10))
     eng, st = _engine(cfg, pp, paged=True, page_size=4)
     ref, rst = _engine(cfg, pp)
@@ -387,34 +403,34 @@ def test_paged_round_trip_is_identity_on_shuffled_tables(arch):
     ("rwkv6-3b", 9, False), ("hymba-1.5b", 9, False),
     # 140 prompt tokens outrun the smoke window's 128-slot ring
     ("hymba-1.5b", 140, False), ("hymba-1.5b", 140, True)])
-def test_engine_serve_equals_single_device_serve(arch, length, paged):
+def test_engine_serve_equals_single_device_serve(arch, length, paged, memo):
     """LimeServer through the engine (the prompt pass over the tiers and
     seed_cache) emits the single-device path's tokens on the same weights,
     an uneven bursty batch; a paged engine's pages are freed as requests
     finish."""
     cfg = _cfg(arch)
-    _, _, pp = jax_params(cfg)
+    _, _, pp = _weights(memo, cfg)
     max_len = 256
     rng = np.random.default_rng(11)
     lens = [length, length - 4, length, length - 6]
     prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
                for n in lens]
-    outs = []
-    for engine in (None, "engine"):
-        eng = None
-        if engine:
-            eng = PE.InterleavedEngine(port_cfg(cfg), PLAN, mb=4,
-                                       max_len=max_len, paged=paged,
-                                       page_size=16, device="cpu")
+    def serve(eng):
         srv = LimeServer(port_cfg(cfg), pp, engine=eng, max_len=max_len,
                          pattern="bursty", device="cpu")
         for i, p in enumerate(prompts):
             srv.queue.submit(p, 4 + i)
-        done = sorted(srv.serve_all(), key=lambda r: r.rid)
-        outs.append([r.output for r in done])
-        if eng is not None and eng.paged:
-            assert eng.paged_stats()["pages_in_use"] == 0
-    assert outs[0] == outs[1]
+        return [r.output for r in sorted(srv.serve_all(),
+                                         key=lambda r: r.rid)]
+    key = ("single-device", arch, length)      # the paged cases share it
+    if key not in memo:
+        memo[key] = serve(None)
+    eng = PE.InterleavedEngine(port_cfg(cfg), PLAN, mb=4, max_len=max_len,
+                               paged=paged, page_size=16, device="cpu")
+    got = serve(eng)
+    if eng.paged:
+        assert eng.paged_stats()["pages_in_use"] == 0
+    assert memo[key] == got
 
 
 @pytest.mark.parametrize("arch,layers,hbm,plan", [

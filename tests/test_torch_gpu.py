@@ -181,6 +181,63 @@ def test_lime_server_defaults_to_the_card(cuda_device):
     assert da.launches - n0 == 4 * cfg.n_layers
 
 
+def test_traced_serve_on_the_card(cuda_device, monkeypatch):
+    """The flight recorder on the card: a captured bursty serve (its graphs
+    captured by a warm-up serve) untraced, then traced with an SLO engine
+    attached: the same tokens, kernel launches and device reads
+    (synchronize, item, tolist, cpu); one engine.decode span per round and
+    one engine.prefill, each closing after its step's host copy; the
+    Chrome export valid."""
+    from repro_torch.obs import (SLOEngine, Tracer, set_tracer, to_chrome,
+                                 validate_chrome)
+    from repro_torch.obs import trace as tr_ev
+    from repro_torch.serving import EngineBackend, Request
+    cfg = get_smoke_config("llama3.3-70b")
+    params = M.init_params(cfg, torch.Generator(cuda_device).manual_seed(0))
+    be = EngineBackend(cfg, params, n_slots=4, max_len=64)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, cfg.vocab_size, 12) for _ in range(4)]
+
+    def serve():
+        return sorted(ContinuousBatchingScheduler(be, SchedulerConfig()).serve(
+            [Request(i, p, 6) for i, p in enumerate(prompts)]),
+            key=lambda r: r.rid)
+    serve()                                      # captures the graphs
+    runs = []
+    for traced in (False, True):
+        reads = {}
+        with monkeypatch.context() as m:
+            for obj, name in ((torch.Tensor, "item"), (torch.Tensor, "tolist"),
+                              (torch.Tensor, "cpu"), (torch.cuda, "synchronize")):
+                def counted(*a, _fn=getattr(obj, name), _k=name, **kw):
+                    reads[_k] = reads.get(_k, 0) + 1
+                    return _fn(*a, **kw)
+                m.setattr(obj, name, counted)
+            tracer = Tracer() if traced else None
+            prev = set_tracer(tracer)
+            try:
+                n0, r0 = (da.launches, fa.launches), len(be.rounds)
+                sched = ContinuousBatchingScheduler(be, SchedulerConfig())
+                if traced:
+                    sched.attach_slo(SLOEngine())
+                done = sorted(sched.serve([Request(i, p, 6) for i, p
+                                           in enumerate(prompts)]),
+                              key=lambda r: r.rid)
+            finally:
+                set_tracer(prev)
+        runs.append(([r.output for r in done],
+                     (da.launches - n0[0], fa.launches - n0[1]), reads,
+                     len(be.rounds) - r0, tracer))
+    assert runs[0][:3] == runs[1][:3]
+    tracer, rounds = runs[1][4], runs[1][3]
+    spans = [e for e in tracer.events()
+             if e[tr_ev.EVT_TRACK] == tr_ev.TRACK_PIPELINE]
+    assert [e[tr_ev.EVT_NAME] for e in spans] \
+        == [tr_ev.ENGINE_PREFILL] + [tr_ev.ENGINE_DECODE] * rounds
+    assert all(e[tr_ev.EVT_DUR] > 0 for e in spans)
+    assert validate_chrome(to_chrome(tracer)) == []
+
+
 def test_engine_streams_and_matches_model(cuda_device):
     """llama smoke, 4 layers, 2 chunks of 1 resident + 1 streamed layer
     (pinned host store, side-stream copies): decode and verify equal the

@@ -80,10 +80,18 @@ def _serve_epochs(pcfg, pp, prompts):
         sched.stats
 
 
-def test_warm_epoch_equals_cold_and_counts_the_hit(model):
+@pytest.fixture(scope="module")
+def epochs(model):
+    """The two-epoch serve both the counters test and the JAX comparison
+    read (neither changes the backend)."""
+    cfg, pcfg, _, pp = model
+    return _serve_epochs(pcfg, pp, _prompts(cfg))
+
+
+def test_warm_epoch_equals_cold_and_counts_the_hit(model, epochs):
     cfg, pcfg, jp, pp = model
     prompts = _prompts(cfg)
-    toks, be, stats = _serve_epochs(pcfg, pp, prompts)
+    toks, be, stats = epochs
     assert all(len(t) == MAX_NEW for t in toks)
     # epoch 1 finds an empty tree; each epoch-2 request matches the template
     assert be.prefix_stats == {
@@ -99,12 +107,12 @@ def test_warm_epoch_equals_cold_and_counts_the_hit(model):
     assert toks[4:] == cold
 
 
-def test_prefix_serve_vs_jax_backend(model):
+def test_prefix_serve_vs_jax_backend(model, epochs):
     """The JAX backend's radix cache on the same traffic: equal counters,
     tokens equal up to a near tie of the dense reference."""
     cfg, pcfg, jp, pp = model
     prompts = _prompts(cfg)
-    toks, be, _ = _serve_epochs(pcfg, pp, prompts)
+    toks, be, _ = epochs
     jsrv = JLimeServer(cfg, jp, max_len=MAX_LEN, pattern="bursty",
                        prefix_cache=True, prefill_chunk_tokens=CHUNK,
                        page_size=PS)

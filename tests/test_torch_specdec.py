@@ -58,6 +58,33 @@ def _serve(srv, prompts):
     return sorted(srv.serve_all(), key=lambda r: r.rid)
 
 
+@pytest.fixture(scope="module")
+def memo():
+    return {}
+
+
+@pytest.fixture
+def shared(memo, tiny_dense_factory):
+    """Made once per module (in `memo`) and read by every case that needs
+    them: each arch's converted weights and the JAX package's reference
+    serves (the tiny bursty serve is the reference of four cases)."""
+    def weights(arch):
+        if ("w", arch) not in memo:
+            cfg = _cfg(arch, tiny_dense_factory)
+            memo["w", arch] = (cfg,) + jax_params(cfg)
+        return memo["w", arch]
+
+    def reference(arch, pattern, lens, max_len):
+        key = ("ref", arch, pattern, tuple(lens), max_len)
+        if key not in memo:
+            cfg, jp, _, _ = weights(arch)
+            memo[key] = _serve(JaxServer(cfg, jp, max_len=max_len,
+                                         pattern=pattern),
+                               _prompts(cfg, lens))
+        return memo[key]
+    return weights, reference
+
+
 # arch, pattern, prompt lengths, max_len, spec: gemma's 16 positions end
 # the cache, so its last rounds shrink k; without spec the engine decodes
 # one token per pass
@@ -71,11 +98,10 @@ CASES = [("tiny", "bursty", [8, 5, 8, 3], 32, True),
                          ids=[f"{c[0]}-{c[1]}{'' if c[4] else '-nospec'}"
                               for c in CASES])
 def test_spec_engine_serve_matches_jax_greedy(arch, pattern, lens, max_len,
-                                              spec, tiny_dense_factory):
-    cfg = _cfg(arch, tiny_dense_factory)
-    jp, _, pp = jax_params(cfg)
+                                              spec, shared):
+    cfg, jp, _, pp = shared[0](arch)
     prompts = _prompts(cfg, lens)
-    ref = _serve(JaxServer(cfg, jp, max_len=max_len, pattern=pattern), prompts)
+    ref = shared[1](arch, pattern, lens, max_len)
     srv = _engine_server(cfg, pp, pattern, max_len,
                          SpecConfig(k=K, draft="resident", adapt_k=False)
                          if spec else None)
@@ -108,14 +134,13 @@ def test_spec_engine_serve_matches_jax_greedy(arch, pattern, lens, max_len,
 
 
 @pytest.mark.parametrize("draft", ["ngram", "model"])
-def test_spec_engine_host_drafts_match_jax_greedy(draft, tiny_dense_factory):
+def test_spec_engine_host_drafts_match_jax_greedy(draft, shared):
     """The engine verifying host-proposed drafts (engine.verify_requests,
     rollback, note_committed): the JAX package's single-device greedy
     tokens, and the engine's own non-speculative serve's."""
-    cfg = _cfg("tiny", tiny_dense_factory)
-    jp, _, pp = jax_params(cfg)
+    cfg, jp, _, pp = shared[0]("tiny")
     prompts = _prompts(cfg, [8, 5, 8, 3])
-    ref = _serve(JaxServer(cfg, jp, max_len=32, pattern="bursty"), prompts)
+    ref = shared[1]("tiny", "bursty", [8, 5, 8, 3], 32)
     plain = _serve(_engine_server(cfg, pp, "bursty", 32, None), prompts)
     srv = _engine_server(cfg, pp, "bursty", 32, SpecConfig(k=K, draft=draft))
     got = _serve(srv, prompts)
@@ -128,13 +153,12 @@ def test_spec_engine_host_drafts_match_jax_greedy(draft, tiny_dense_factory):
     assert {k for k, _ in be.rounds} == {K}
 
 
-def test_retier_during_spec_serve_token_identical(tiny_dense_factory):
+def test_retier_during_spec_serve_token_identical(shared):
     """retier(+1) after the first round and retier(-1) two rounds later,
     on the live serve: the tokens of the serve without retier, and the
     drafts shrink to the live resident tier in between (mirrors
     test_engine_retier_during_spec_token_identical)."""
-    cfg = _cfg("tiny", tiny_dense_factory)
-    _, _, pp = jax_params(cfg)
+    cfg, _, _, pp = shared[0]("tiny")
     prompts = _prompts(cfg, [8, 8, 8, 8])
     outs = []
     for retier in (False, True):

@@ -3,14 +3,14 @@ rejection sampling (target_probs, rejection_verify), the n-gram,
 small-model and resident drafts (their proposals, snapshots past the
 cache's end, truncate_stack, retier), the draft-provider contract of
 tests/test_draft_conformance.py over the port's providers, and the
-single-device backend's speculation (dense through verify_step, paged
-through PagedDecodeCache.verify / commit, with and without the radix
-prefix cache, greedy and rejection-sampled) and the launcher. Greedy
-proposals and served tokens are held to the JAX package's on the same
-converted weights: equal, or a first divergence at a near tie of the
+single-device backend's speculation over the radix prefix cache. The
+single-device backend's other speculative serves (dense through
+verify_step, paged through PagedDecodeCache.verify / commit, greedy and
+rejection-sampled) and the launcher's are in test_torch_specdec_serve.py.
+Greedy proposals and served tokens are held to the JAX package's on the
+same converted weights: equal, or a first divergence at a near tie of the
 reference (_torch_parity's rule)."""
 import dataclasses
-import json
 
 import pytest
 
@@ -22,8 +22,6 @@ import numpy as np  # noqa: E402
 from _torch_parity import (LOGIT_TOL, assert_same_or_near_tie,  # noqa: E402
                            f32, jax_params, margin, port_cfg)
 from repro.configs.registry import get_smoke_config  # noqa: E402
-from repro.serving import EngineBackend as JaxBackend  # noqa: E402
-from repro.serving import Request as JaxRequest  # noqa: E402
 from repro.serving.sampling import SamplerConfig as JaxSampler  # noqa: E402
 from repro.specdec import NgramDraft as JaxNgram  # noqa: E402
 from repro.specdec import ResidentDraft as JaxResident  # noqa: E402
@@ -34,11 +32,8 @@ from repro.specdec import target_probs as jax_target_probs  # noqa: E402
 from repro.specdec.resident_draft import truncate_stack as jax_truncate  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.kvcache.paged_decode import PagedDecodeCache  # noqa: E402
-from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.models import model as PM  # noqa: E402
-from repro_torch.serving import (ContinuousBatchingScheduler,  # noqa: E402
-                                 EngineBackend, LimeServer, Request,
-                                 SamplerConfig, SchedulerConfig)
+from repro_torch.serving import LimeServer, SamplerConfig  # noqa: E402
 from repro_torch.specdec import (NgramDraft, ResidentDraft,  # noqa: E402
                                  SmallModelDraft, SpecConfig,
                                  default_resident_ids, greedy_verify,
@@ -478,89 +473,43 @@ def test_resident_spec_paged_rollback_no_page_leak(smoke):
 
 
 # ----------------------------------------------------------------------------
-# the backend: speculation on the single-device dense and paged paths
+# the backend: speculation over the radix prefix cache (the single-device
+# serves are in test_torch_specdec_serve.py)
 # ----------------------------------------------------------------------------
-LENS, NEW = (6, 4), (12, 9)
+def _prefix_server(smoke, spec):
+    return LimeServer(smoke[2], smoke[3], max_len=48, pattern="bursty",
+                      prefix_cache=True, page_size=8, prefill_chunk_tokens=8,
+                      spec=spec, device="cpu")
 
 
-def _reqs(cls):
-    return [cls(i, None, max_new_tokens=n, prompt_len=p)
-            for i, (p, n) in enumerate(zip(LENS, NEW))]
-
-
-def _serve(be, cls=Request):
-    done = ContinuousBatchingScheduler(be, SchedulerConfig()).serve(_reqs(cls))
-    return [r.output for r in sorted(done, key=lambda r: r.rid)]
+def _epoch(srv, ps):
+    for p in ps:
+        srv.queue.submit(p, 6)
+    return [r.output for r in sorted(srv.serve_all(), key=lambda r: r.rid)]
 
 
 @pytest.fixture(scope="module")
-def jax_tokens(smoke):
-    """The JAX package's EngineBackend, single device, no speculation (its
-    own tests hold its spec serves to this)."""
+def prefix_refs(smoke):
+    """The prompts of the prefix-cache spec serves (two epochs of 4 sharing
+    a 16-token template), the port's non-speculative warm epoch and the
+    JAX package's serve of the warm prompts: what every draft's warm epoch
+    is held to."""
     cfg, jp, _, _ = smoke
-    from repro.serving import ContinuousBatchingScheduler as JaxSched
-    from repro.serving import SchedulerConfig as JaxSchedCfg
-    be = JaxBackend(cfg, jp, n_slots=2, max_len=48)
-    done = JaxSched(be, JaxSchedCfg()).serve(_reqs(JaxRequest))
-    return [r.output for r in sorted(done, key=lambda r: r.rid)]
-
-
-def _prompts(vocab):
-    return [np.random.default_rng(r).integers(1, vocab, size=n)
-            .astype(np.int32) for r, n in enumerate(LENS)]
-
-
-@pytest.mark.parametrize("draft", KINDS)
-@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
-def test_spec_serve_lossless_single_device(paged, draft, smoke, jax_tokens):
-    """Greedy speculative serves equal the port's non-speculative serve
-    token for token, and the JAX package's (near-tie rule), through the
-    dense path (verify_step) and the paged one (PagedDecodeCache.verify /
-    commit), for every draft (JAX's
-    test_engine_backend_spec_lossless_single_device)."""
-    cfg, jp, pcfg, pp = smoke
-
-    def backend(spec):
-        return EngineBackend(pcfg, pp, n_slots=2, max_len=48, paged=paged,
-                             page_size=8, spec=spec, device="cpu")
-    base = _serve(backend(None))
-    be = backend(SpecConfig(k=3, draft=draft))
-    got = _serve(be)
-    assert got == base
-    assert_same_or_near_tie(cfg, jp, pp, _prompts(cfg.vocab_size), got,
-                            jax_tokens, 48, width=max(LENS))
-    st = be.spec_stats
-    assert st["spec_rounds"] > 0 and 0 <= st["spec_accepted"] <= \
-        st["spec_drafted"]
-    assert all(1 <= c <= k + 1 for k, c in be.rounds if k)
-    if paged:
-        pc = be._paged_cache
-        assert pc.pages_in_use == sum(-(-pc.pos // 8) for _ in pc.tables)
-
-
-def test_model_draft_on_the_targets_weights_accepts(smoke):
-    """A model draft that shares the target's weights (the same smoke
-    config, the same seed) accepts drafts and commits k + 1 in a round:
-    the accept path end to end (JAX's
-    test_engine_backend_spec_model_draft_accepts)."""
-    pcfg = smoke[2]
-    pp = PM.init_params(pcfg, torch.Generator().manual_seed(0), "cpu")
-
-    def run(spec):
-        be = EngineBackend(pcfg, pp, n_slots=1, max_len=48, spec=spec,
-                           device="cpu")
-        done = ContinuousBatchingScheduler(be, SchedulerConfig()).serve(
-            [Request(0, None, max_new_tokens=12, prompt_len=6)])
-        return done[0].output, be
-    base, _ = run(None)
-    out, be = run(SpecConfig(k=3, draft="model", draft_arch="gemma3-1b"))
-    assert out == base
-    assert be.spec_stats["spec_accepted"] > 0
-    assert (3, 4) in be.rounds
+    rng = np.random.default_rng(9)
+    tmpl = rng.integers(1, cfg.vocab_size, 16)
+    prompts = [np.concatenate([tmpl, rng.integers(1, cfg.vocab_size, 8)])
+               .astype(np.int32) for _ in range(8)]
+    plain = _prefix_server(smoke, None)
+    _epoch(plain, prompts[:4])
+    plain_warm = _epoch(plain, prompts[4:])
+    from repro.serving.server import LimeServer as JaxServer
+    ref = _epoch(JaxServer(cfg, jp, max_len=48, pattern="bursty"),
+                 prompts[4:])
+    return prompts, plain_warm, ref
 
 
 @pytest.mark.parametrize("draft", ["ngram", "model"])
-def test_spec_prefix_cache_warm_equals_cold(draft, smoke):
+def test_spec_prefix_cache_warm_equals_cold(draft, smoke, prefix_refs):
     """Speculation over the radix prefix cache: two epochs of 4 requests
     sharing a 16-token template (page 8, prefill rounds of 8); the warm
     epoch matches 2 pages a request, grows its tables through verify and
@@ -568,78 +517,18 @@ def test_spec_prefix_cache_warm_equals_cold(draft, smoke):
     of the same prompts, a non-speculative warm serve's and the JAX
     package's (near-tie rule)."""
     cfg, jp, pcfg, pp = smoke
-    rng = np.random.default_rng(9)
-    tmpl = rng.integers(1, cfg.vocab_size, 16)
-    prompts = [np.concatenate([tmpl, rng.integers(1, cfg.vocab_size, 8)])
-               .astype(np.int32) for _ in range(8)]
-
-    def server(spec):
-        return LimeServer(pcfg, pp, max_len=48, pattern="bursty",
-                          prefix_cache=True, page_size=8,
-                          prefill_chunk_tokens=8, spec=spec, device="cpu")
-
-    def epoch(srv, ps):
-        for p in ps:
-            srv.queue.submit(p, 6)
-        return [r.output for r in sorted(srv.serve_all(),
-                                         key=lambda r: r.rid)]
+    prompts, plain_warm, ref = prefix_refs
     spec = SpecConfig(k=3, draft=draft)
-    srv = server(spec)
-    epoch(srv, prompts[:4])
-    warm = epoch(srv, prompts[4:])
+    srv = _prefix_server(smoke, spec)
+    _epoch(srv, prompts[:4])
+    warm = _epoch(srv, prompts[4:])
     be = srv.make_backend()
     assert be.prefix_stats["prefill_tokens_saved"] == 4 * 16
     assert be.spec_stats["spec_rounds"] > 0
-    assert epoch(server(spec), prompts[4:]) == warm
-    plain = server(None)
-    epoch(plain, prompts[:4])
-    assert epoch(plain, prompts[4:]) == warm
-    from repro.serving.server import LimeServer as JaxServer
-    jsrv = JaxServer(cfg, jp, max_len=48, pattern="bursty")
-    ref = epoch(jsrv, prompts[4:])
+    assert _epoch(_prefix_server(smoke, spec), prompts[4:]) == warm
+    assert plain_warm == warm
     assert_same_or_near_tie(cfg, jp, pp, prompts[4:], warm, ref, 48,
                             width=24)
-
-
-@pytest.mark.parametrize("draft", ["ngram", "model"])
-@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
-def test_spec_serve_stochastic_exact_counts(paged, draft, smoke):
-    """Temperature 0.8 / top-p 0.95: rejection sampling drives the serve
-    to exact per-request counts of in-vocabulary tokens, and a seed
-    repeats it (JAX's test_engine_backend_spec_stochastic_counts)."""
-    _, _, pcfg, pp = smoke
-    outs = []
-    for _ in range(2):
-        be = EngineBackend(pcfg, pp, n_slots=2, max_len=48, paged=paged,
-                           page_size=8,
-                           sampler=SamplerConfig(temperature=0.8, top_p=0.95,
-                                                 seed=3),
-                           spec=SpecConfig(k=3, draft=draft, seed=7,
-                                           draft_temperature=0.8),
-                           device="cpu")
-        done = ContinuousBatchingScheduler(be, SchedulerConfig()).serve(
-            _reqs(Request))
-        by = {r.rid: r for r in done}
-        for rid, n in enumerate(NEW):
-            assert by[rid].generated == n and len(by[rid].output) == n
-        assert all(0 <= t < pcfg.vocab_size for r in done for t in r.output)
-        assert be.spec_stats["spec_rounds"] > 0
-        outs.append([by[i].output for i in range(2)])
-    assert outs[0] == outs[1]
-
-
-def test_launcher_spec_ngram_without_engine(capsys):
-    """--spec --spec-draft ngram on the single-device path: the report
-    counts speculative rounds."""
-    rc = launch_serve.main(["--arch", "gemma3-1b", "--smoke", "--device",
-                            "cpu", "--spec", "--spec-draft", "ngram",
-                            "--spec-k", "3", "--pattern", "bursty",
-                            "--requests", "4", "--max-new", "6"])
-    assert rc == 0
-    out = capsys.readouterr().out
-    report = json.loads(out[out.index("{"):])
-    assert report["backend"] == "fallback" and report["total_tokens"] == 24
-    assert report["spec_rounds"] > 0 and report["spec_drafted"] > 0
 
 
 def test_make_draft_provider_kinds(smoke):
