@@ -131,6 +131,24 @@ Phases; any failure exits non-zero without the final ``ok`` line:
    one engine.prefill, the spans' sum within the serve's wall time.
    Printed: ms/token traced and untraced, the spans' share of the wall
    time, the dashboard's last frame.
+2f. the fleet router (repro_torch.fleet) on phase 2's weights, built by
+   the launcher's make_fleet: 2 single-device EngineBackend(engine=None)
+   replicas over the same weight tensors, each with the radix prefix cache
+   (page 64, prefill rounds of 128, 4 slots), under the prefix router; 24
+   shared-prefix requests (2 templates of 384 tokens; per template two
+   epochs of 512-token prompts, then one of unequal lengths; 8 new tokens)
+   arriving at one instant: every request served once, each replica's
+   own steps launch kernels 2 (the unequal epoch's flash prefill), 3
+   (decode) and 5 (prefill rounds, the warm epoch's from the template's
+   cached pages) on the Hopper bodies and nothing of kernels 1 and 4, the
+   replicas' launches sum to the fleet's, the router matched prefixes,
+   each replica's radix tree served prompt tokens, the second replica adds
+   KV and graphs to HBM but no weights, and every request's tokens are
+   its prompt's served alone on phase 2b's path (left-padded as its epoch
+   padded it) or differ at a near tie. Printed: placement, router stats,
+   per-replica launches, the FleetReport's TTFT p50 / p99 and decode
+   ms/token (aggregate and per replica), prefix hit tokens per replica,
+   HBM with one replica against two.
 3a. the interleaved engine against the model on phase 2's weights, in a
    plan forced to stream (2 chunks of 2 resident + 2 streamed layers):
    decode and verify logits bit-equal to the model's kernel path (every
@@ -208,8 +226,10 @@ Phases; any failure exits non-zero without the final ``ok`` line:
    pool growth, and profiler breakdowns of a decode, a verify and a
    chunked-prefill pass (kernel 4's µs per call in each regime, the
    GEMMs' rate in the prefill round).
-3d. Alg. 1's plan on the 80-layer engine, after 3b's engine is closed:
-   the launcher's hetero path (allocate_with_retry over the same CostEnv,
+3d. Alg. 1's plan on the engine, after 3b's engine is closed, depth cut
+   to ALG1_LAYERS (40) of the 80 layers with the weight budget scaled with
+   it (all 80 until PR 28; the cut pays for phase 2f): the launcher's
+   hetero path (allocate_with_retry over the same CostEnv,
    n_emp = the prompt length; a relaxed memory scale fails the run), no
    retier headroom, exactly the plan's resident layers laid out; phase
    3b's bursty batch served once (spec k = 4) with exact launch counts,
@@ -356,6 +376,12 @@ SPEC_K = 4
 MAX_NEW_80 = 12           # tokens per request in phase 3b: >= 5 rounds at
                           # k = 4 only if drafts are mostly rejected
 RETIER_AT = ((2, +1), (4, -1))   # (after decode round, delta), bursty serve
+# phase 3d's depth cut: 40 of LLaMA-3.3-70B's 80 layers, the weight budget
+# scaled with it (Alg. 1 keeps 18 resident and streams 22 where it kept 38
+# and streamed 42 at 80). At 80 layers 3d took 125.3-158.8 s of PR 27's
+# calls, 41.9 s of it building the 71.9 GB pinned store; the cut pays for
+# phase 2f
+ALG1_LAYERS = 40
 PAGE = 64                 # KV page of the adaptive serve's admission
 BF16_PEAK = 989.4e12      # H100 SXM dense bf16 tensor FLOP/s (data sheet)
 
@@ -2816,6 +2842,215 @@ def trace_phase(cfg, card, base, be):
     return first["got"]
 
 
+
+# ----------------------------------------------------------------------------
+# phase 2f: the fleet router over two replicas sharing phase 2's weights
+# ----------------------------------------------------------------------------
+FLEET_REPLICAS, FLEET_SLOTS, FLEET_NEW = 2, 4, 8
+# prompt lengths by turn within a template: two epochs of 4 at 512 tokens
+# (cold: the paged multi-query rounds of kernel 5 over the whole prompt,
+# then warm: the 384-token template from the radix tree, one suffix round),
+# then an epoch of unequal lengths (the dense flash prefill, kernel 2,
+# scattered into pages); every decode step on kernel 3
+FLEET_LENS = (512,) * 8 + (512, 480, 448, 416)
+
+
+def fleet_requests(cfg):
+    """The shared_prefix traffic of phase 2f: 24 requests of two templates
+    (384 shared tokens each, PREFIX_LEN), alternating, FLEET_NEW new tokens,
+    lengths FLEET_LENS per template, all arriving at t 0 of the serve."""
+    from repro_torch.serving import requests_from_arrivals
+    from repro_torch.serving.traffic import ArrivalEvent
+    arr = [ArrivalEvent(0.0, FLEET_LENS[i // 2], FLEET_NEW, template_id=i % 2,
+                        template_len=PREFIX_LEN) for i in range(2 * len(FLEET_LENS))]
+    return requests_from_arrivals(arr, vocab_size=cfg.vocab_size, seed=0)
+
+
+def fleet_warmup(cfg, be, seed):
+    """Capture a replica's graphs before the measured serve: an epoch of 4
+    equal 512-token prompts and one of FLEET_LENS' unequal lengths, random
+    tokens (their donated pages match no template), 2 new tokens each."""
+    import numpy as np
+    from repro_torch.serving import (ContinuousBatchingScheduler, Request,
+                                     SchedulerConfig)
+    rng = np.random.default_rng(seed)
+    lens = (512,) * 4 + FLEET_LENS[-4:]
+    reqs = [Request(1000 + i, rng.integers(1, cfg.vocab_size, n).astype(np.int32), 2)
+            for i, n in enumerate(lens)]
+    ContinuousBatchingScheduler(be, SchedulerConfig(page_size=PAGE)).serve(reqs)
+
+
+def fleet_alone_check(cfg, params, per_replica, card):
+    """Every fleet request's tokens against the same prompt served alone
+    (one request an epoch) on phase 2b's single-device path
+    (LimeServer(prefix_cache=True, prefill_chunk_tokens=128, page_size=64)),
+    left-padded with token 0 to the longest prompt of its fleet epoch as
+    the backend pads it (the pads are attended, as in the reference):
+    equal, or the first divergence is a near tie by compare_greedy's rule
+    (both impls fed the alone serve's tokens at its batch shape; the
+    reference's logit gap between the two picks within the kernel path's
+    logit error there, or the kernel path's own logits of the two picks
+    equal). Returns (requests equal, near ties)."""
+    import numpy as np
+    alone = prefix_server(cfg, params)
+    n_same = n_tie = 0
+    for recs in per_replica.values():
+        epochs = {}
+        for r in recs:                    # an epoch emits its first tokens at once
+            epochs.setdefault(r.first_token_s, []).append(r)
+        for batch in epochs.values():
+            width = max(r.prompt_len for r in batch)
+            for r in sorted(batch, key=lambda r: r.rid):
+                prompt = np.pad(r.prompt, (width - r.prompt_len, 0))
+                alone.queue.submit(prompt, r.max_new_tokens)
+                a = alone.serve_all()[0].output
+                f = r.output
+                if a == f:
+                    n_same += 1
+                    continue
+                t = next(t for t in range(len(a)) if a[t] != f[t])
+                feed = np.array([a], np.int64)
+                lk = forced_logits(cfg, params, [prompt], feed, FLEET_SLOTS, "kernel")
+                lr = forced_logits(cfg, params, [prompt], feed, FLEET_SLOTS, "ref")
+                err = (lk[t, 0] - lr[t, 0]).abs().max().item()
+                gap = (lr[t, 0, a[t]] - lr[t, 0, f[t]]).item()
+                kgap = (lk[t, 0, a[t]] - lk[t, 0, f[t]]).item()
+                log(f"  fleet req {r.rid}: diverges from its alone serve at {t} ({f[t]} "
+                    f"for {a[t]}): reference gap {gap:.4f}, kernel gap {kgap:.4f}, "
+                    f"logit err {err:.4f}")
+                if gap > err and kgap != 0:
+                    raise AssertionError(f"fleet req {r.rid} diverges from its alone "
+                                         "serve outside a near tie")
+                n_tie += 1
+    return n_same, n_tie
+
+
+def fleet_phase(cfg, params, card):
+    """Phase 2f: the launcher's fleet (launch.serve.make_fleet) on phase 2's
+    weights: FLEET_REPLICAS single-device EngineBackend(engine=None)
+    replicas over the same parameter tensors, each with the radix prefix
+    cache (page 64, prefill rounds of 128, 4 slots), under the prefix
+    router. fleet_requests' 24 requests arrive at one instant, re-based onto
+    the replicas' clocks by the launcher's rebase_arrivals (1 s ahead of
+    them), so each replica's first step takes in what was routed to it by
+    then and the router sees the first replica's queue when the other
+    template arrives. Checks: every request served once, each
+    replica served epochs of both prefill routes, the router matched
+    prefixes, each replica's counters show kernels 2, 3 and 5 and the
+    fleet's totals are their sum (nothing of kernels 1 and 4), the second
+    replica adds its KV and graphs to HBM but no weights, and every
+    request's tokens are its alone serve's (fleet_alone_check). Returns the
+    launches."""
+    import torch
+    from repro_torch.launch.serve import make_fleet, rebase_arrivals
+    gc.collect()
+    torch.cuda.empty_cache()
+    w_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    log(f"phase 2f: the fleet router, {FLEET_REPLICAS} replicas of {cfg.name} "
+        f"({cfg.n_layers} layers) over one set of weights ({w_bytes / 1e9:.2f} GB): "
+        f"prefix cache, page {PAGE}, prefill rounds of {PREFIX_CHUNK}, "
+        f"{FLEET_SLOTS} slots each, prefix router; {2 * len(FLEET_LENS)} shared-prefix "
+        f"requests (2 templates of {PREFIX_LEN} tokens, lengths {FLEET_LENS} a "
+        f"template, {FLEET_NEW} new tokens) at one instant")
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    fleet = make_fleet(cfg, params, replicas=FLEET_REPLICAS, n_slots=FLEET_SLOTS,
+                       max_len=MAX_LEN, prefix_cache=True,
+                       prefill_chunk_tokens=PREFIX_CHUNK, page_size=PAGE,
+                       router="prefix")
+    if not all(r.backend.params is params for r in fleet.replicas):
+        raise AssertionError("a replica holds its own weights")
+    mem = []
+    for i, rep in enumerate(fleet.replicas):
+        fleet_warmup(cfg, rep.backend, 7 + i)
+        torch.cuda.synchronize()
+        mem.append(torch.cuda.memory_allocated() - mem0)
+    one, two = mem[0], mem[-1]
+    log(f"  HBM beside the weights after each replica's warm-up (graphs captured): "
+        f"one replica {one / 1e9:.3f} GB, two {two / 1e9:.3f} GB; HBM allocated "
+        f"with one replica {(mem0 + one) / 1e9:.2f} GB, with two "
+        f"{(mem0 + two) / 1e9:.2f} GB (weights {w_bytes / 1e9:.2f} GB, held once) "
+        f"[{card}; {cfg.n_layers} layers]")
+    if two - one > 0.1 * w_bytes:
+        raise AssertionError(f"the second replica added {(two - one) / 1e9:.2f} GB")
+
+    per = {rep.name: dict.fromkeys(kernel_counters(), 0) for rep in fleet.replicas}
+
+    def counted(rep):
+        step = rep.step
+
+        def wrapped():
+            c0 = read_counts()
+            out = step()
+            for k, v in read_counts().items():
+                per[rep.name][k] += v - c0[k]
+            return out
+        rep.step = wrapped
+    for rep in fleet.replicas:
+        counted(rep)
+    reqs = fleet_requests(cfg)
+    rebase_arrivals(fleet, reqs)
+    zero_counts()
+    wall = time.monotonic()
+    res = fleet.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - wall
+    total = read_counts()
+
+    served = sorted(r.rid for recs in res.per_replica.values() for r in recs)
+    if served != [r.rid for r in reqs] or res.shed \
+            or any(r.rejected or len(r.output) != FLEET_NEW for r in res.requests):
+        raise AssertionError(f"served {served}, shed {[r.rid for r in res.shed]}")
+    part = {n: [r.rid for r in sorted(recs, key=lambda r: r.rid)]
+            for n, recs in res.per_replica.items()}
+    log(f"  placement {part}; router {fleet.router.stats}; {wall:.2f} s wall")
+    if not all(part.values()):
+        raise AssertionError("a replica served nothing")
+    if fleet.router.stats["prefix_matched"] <= 0:
+        raise AssertionError("the prefix router matched no prefix")
+    for k in total:
+        if sum(p[k] for p in per.values()) != total[k]:
+            raise AssertionError(f"{k}: the replicas' launches {[p[k] for p in per.values()]} "
+                                 f"do not sum to the fleet's {total[k]}")
+    if total["decode_attention"] or total["mq_decode_attention"]:
+        raise AssertionError(f"the paged fleet launched contiguous kernels: {total}")
+    for name, p in per.items():
+        log(f"  {name} launches: flash {p['flash_attention']} (hopper "
+            f"{p['flash_attention@hopper']}), paged decode {p['paged_decode_attention']} "
+            f"(hopper {p['paged_decode_attention@hopper']}), paged multi-query "
+            f"{p['mq_paged_decode_attention']} (prefill rounds "
+            f"{p['mq_paged_decode_attention@prefill']})")
+        if min(p["flash_attention"], p["paged_decode_attention"],
+               p["mq_paged_decode_attention"]) <= 0:
+            raise AssertionError(f"{name} did not launch kernels 2, 3 and 5: {p}")
+        if p["flash_attention"] != p["flash_attention@hopper"] \
+                or p["paged_decode_attention"] != p["paged_decode_attention@hopper"] \
+                or p["mq_paged_decode_attention"] \
+                != p["mq_paged_decode_attention@prefill"]:
+            raise AssertionError(f"{name}: a launch off the Hopper bodies: {p}")
+    rep = res.report(pattern="shared_prefix", backend=f"fleet{FLEET_REPLICAS}")
+
+    def line(r):
+        return (f"TTFT p50 {r.ttft_p50_s * 1e3:.1f} ms, p99 {r.ttft_p99_s * 1e3:.1f} ms; "
+                f"decode {1e3 / r.decode_tok_s_p50:.2f} ms/token per request (p50); "
+                f"{r.n_requests} requests")
+    log(f"  FleetReport aggregate: {line(rep.aggregate)} [{card}; {cfg.n_layers} layers]")
+    for rp in fleet.replicas:
+        st = rp.backend.prefix_stats
+        log(f"  {rp.name}: {line(rep.replicas[rp.name])}; prefix hits "
+            f"{st['prefix_hits']}, prompt tokens from the cache "
+            f"{st['prefill_tokens_saved']} [{card}; {cfg.n_layers} layers]")
+        if st["prefill_tokens_saved"] <= 0:
+            raise AssertionError(f"{rp.name}: no prompt token came from its radix tree")
+    n_same, n_tie = fleet_alone_check(cfg, params, res.per_replica, card)
+    log(f"  against each prompt served alone on phase 2b's path: {n_same} of "
+        f"{len(reqs)} requests token-identical, {n_tie} diverge at a near tie")
+    del fleet, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
 PAIR_STEPS = 5            # steps of a captured-vs-eager pair check
 
 
@@ -4388,7 +4623,7 @@ def full_model_phase(card):
 
 
 # ----------------------------------------------------------------------------
-# phase 3d: Alg. 1's plan on the 80-layer engine
+# phase 3d: Alg. 1's plan on the engine (40 of the 80 layers)
 # ----------------------------------------------------------------------------
 def alg1_phase(card, cfg, params, budget, rate, prompts, phase="3d", ngram=False):
     """The launcher's hetero path at a weight budget and an H2D rate (phase
@@ -5972,6 +6207,9 @@ def main() -> int:
             launches[k] = launches.get(k, 0) + n
         del base, warm
         t = done("2e", t)
+        for k, n in fleet_phase(cfg8, params8, card).items():
+            launches[k] = launches.get(k, 0) + n
+        t = done("2f", t)
         engine_check_phase(cfg8, params8, card)
         t = done("3a", t)
         del params8
@@ -5997,10 +6235,20 @@ def main() -> int:
         for k, n in got.items():
             launches[k] = launches.get(k, 0) + n
         t = done("3h", t)
-        for k, n in alg1_phase(card, **state80).items():
-            launches[k] = launches.get(k, 0) + n
-        rate = state80["rate"]
+        # 3d at ALG1_LAYERS of 3b's 80 layers (a layer source of that depth,
+        # seed 0), the weight budget scaled with it so that Alg. 1 plans
+        # the same resident share
+        from repro_torch.models import model as M
+        cfg80, rate, prompts = state80["cfg"], state80["rate"], state80["prompts"]
+        budget = state80["budget"] * ALG1_LAYERS / cfg80.n_layers
+        log(f"phase 3d: DEPTH CUT to {ALG1_LAYERS} of {cfg80.n_layers} layers, the "
+            f"weight budget {state80['budget'] / 1e9:.2f} GB scaled with it")
         del state80
+        gc.collect()
+        cfg40 = dataclasses.replace(cfg80, n_layers=ALG1_LAYERS)
+        for k, n in alg1_phase(card, cfg40, M.init_params_by_layer(cfg40, seed=0),
+                               budget, rate, prompts).items():
+            launches[k] = launches.get(k, 0) + n
         t = done("3d", t)
         shapes, got = tab3_phase(card, rate)
         for k, n in got.items():

@@ -79,8 +79,17 @@ model's entry points and the engine.
       --smoke --device cpu --pattern bursty --requests 4 --max-new 8 \
       --trace out.json --slo --dash-interval 0.5
 
+  # fleet mode: N single-device replicas over one set of weight tensors
+  # behind the prefix-affine router (each replica its own KV pool, radix
+  # tree and CUDA graphs); the report is the FleetReport (aggregate, per
+  # replica, router stats, membership):
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.3-70b \
+      --smoke --device cpu --replicas 2 --router prefix --prefix-cache \
+      --page-size 8 --pattern shared_prefix --n-templates 2 \
+      --prefix-len 24 --prompt-len 32 --requests 8 --max-new 8
+
 Prints one line per request, then the JSON ServingReport (with an "slo"
-section under --slo).
+section under --slo), or the FleetReport's JSON with --replicas > 1.
 """
 from __future__ import annotations
 
@@ -129,6 +138,57 @@ def hetero_plan(cfg, hbm_bytes: float, *, width: int, prompt_len: int,
     return r, env, scale
 
 
+def make_fleet(cfg, params, *, replicas: int, n_slots: int, max_len: int,
+               sampler=None, spec=None, prefix_cache: bool = False,
+               prefill_chunk_tokens: int = 0, page_size: int = 64,
+               router: str = "prefix", seed: int = 0, slo=None,
+               device=None):
+    """The fleet the launcher serves with --replicas: `replicas`
+    single-device EngineBackend(engine=None) replicas over the same
+    `params` tensors (the weights are on the card once; each replica
+    holds its own KV cache or page pool, radix tree and CUDA graphs),
+    each behind its own reserve scheduler at the backends' page size,
+    which the router's prefix digests key on (the JAX launcher's
+    SchedulerConfig() keeps 64 whatever --page-size says, so its prefix
+    policy matches nothing on prompts of 64 tokens or fewer), under a
+    FleetRouter of
+    policy `router`. `slo`, a zero-argument factory, gives
+    each replica its own SLOEngine (health is a per-replica signal: the
+    router sheds off the breaching one). Returns the Fleet."""
+    from repro_torch.fleet import Fleet, Replica, RouterConfig
+    from repro_torch.serving import EngineBackend, SchedulerConfig
+    scfg = SchedulerConfig(page_size=page_size)
+    reps = [Replica(i, EngineBackend(
+                cfg, params, engine=None, n_slots=n_slots, max_len=max_len,
+                sampler=sampler, spec=spec, prefix_cache=prefix_cache,
+                prefill_chunk_tokens=prefill_chunk_tokens,
+                page_size=page_size, device=device), scfg)
+            for i in range(replicas)]
+    if slo is not None:
+        for rep in reps:
+            rep.sched.attach_slo(slo())
+    return Fleet(reps, config=RouterConfig(policy=router, seed=seed))
+
+
+# how far past the replicas' latest clock a fleet serve's arrivals start
+ARRIVAL_LEAD_S = 1.0
+
+
+def rebase_arrivals(fleet, reqs) -> None:
+    """Move arrival times relative to the serve onto the fleet's replicas'
+    wall clocks, ARRIVAL_LEAD_S past the latest of them. In the clocks'
+    past every arrival would be routed before any replica took a step, on
+    queues that read empty (a burst would land whole on r0); ahead of them,
+    each replica's first step jumps its clock to its first arrival and
+    takes in what was routed to it by then, so the router sees that queue
+    when it places the arrivals after it. The arrival waits skew the
+    clocks, not the wall (EngineBackend.advance_to), so the lead costs no
+    time."""
+    base = max(rep.now() for rep in fleet.replicas) + ARRIVAL_LEAD_S
+    for r in reqs:
+        r.arrival_s += base
+
+
 def measure_h2d(src, reps: int = 6) -> float:
     """Bytes/s of one-row copies from the pinned host tensor `src` (rows
     of one streamed layer, or any pinned rows) into HBM on a side stream,
@@ -158,12 +218,28 @@ def main(argv=None):
                          "(first_dense_layers=0, widths kept), the "
                          "homogeneous stack the engine streams")
     ap.add_argument("--pattern", choices=("sporadic", "bursty", "poisson",
-                                          "shared_prefix", "multiturn"),
+                                          "trace", "shared_prefix",
+                                          "multiturn"),
                     default="sporadic")
     ap.add_argument("--requests", type=int, default=2)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--max-len", type=int, default=128)
     ap.add_argument("--prompt-len", type=int, default=8)
+    ap.add_argument("--gap-s", type=float, default=2.0)
+    ap.add_argument("--rate-rps", type=float, default=1.0)
+    ap.add_argument("--arrival-trace", default=None,
+                    help="JSON arrival trace for --pattern trace: rows of "
+                         "[time_s, prompt_len, max_new_tokens]")
+    ap.add_argument("--turns", type=int, default=3,
+                    help="turns per conversation (--pattern multiturn)")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="fleet mode: N single-device replicas over one "
+                         "set of weight tensors behind the router, each "
+                         "its own backend and scheduler (the engine is "
+                         "not used: one engine cannot back N replicas)")
+    ap.add_argument("--router", default="prefix",
+                    choices=("prefix", "sticky", "random", "roundrobin"),
+                    help="fleet placement policy (--replicas > 1)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--device", default=None,
@@ -257,6 +333,13 @@ def main(argv=None):
     if hbm is None and dev.type == "cuda":
         hbm = weight_budget(cfg, batch=width, max_len=args.max_len,
                             free_bytes=torch.cuda.mem_get_info(dev)[0])
+    fleet_mode = args.replicas > 1
+    if fleet_mode:
+        if args.adapt or args.plan == "hetero":
+            raise SystemExit("--replicas serves the single-device path on "
+                             "every replica; --adapt and --plan hetero plan "
+                             "the engine")
+        hbm = None                      # no engine: the replicas share params
     plan = env = None
     if hbm is not None and (args.plan == "hetero" or args.adapt):
         rate = measure_h2d(torch.empty((2, 128 << 20), dtype=torch.uint8,
@@ -340,15 +423,24 @@ def main(argv=None):
                      page_size=args.page_size, planner=planner, device=dev)
     arrivals = cli_arrivals(args.pattern, args.requests, seed=args.seed,
                             prompt_len=args.prompt_len,
-                            max_new_tokens=args.max_new, gap_s=2.0,
-                            burst_size=srv.slots, rate_rps=1.0,
+                            max_new_tokens=args.max_new, gap_s=args.gap_s,
+                            burst_size=srv.slots, rate_rps=args.rate_rps,
                             n_templates=args.n_templates,
-                            prefix_len=args.prefix_len)
+                            prefix_len=args.prefix_len, turns=args.turns,
+                            trace=args.arrival_trace)
     # adaptation rides page-granular admission: note_kv_pages feeds the
     # planner, and the scheduler reclaims retier headroom before it preempts
     scfg = SchedulerConfig(kv_policy="paged", page_size=args.page_size) \
         if args.adapt else SchedulerConfig()
     reqs = requests_from_arrivals(arrivals, vocab_size=cfg.vocab_size)
+
+    def mk_slo():
+        from repro_torch.obs.slo import SLOEngine, default_targets
+        return SLOEngine(default_targets(ttft_p99_s=args.slo_ttft,
+                                         tpot_p50_s=args.slo_tpot))
+    if fleet_mode:
+        return _serve_fleet(args, cfg, params, srv, spec, reqs,
+                            mk_slo if args.slo else None, dev)
     backend = srv.make_backend()
     # flight recorder: installed before the scheduler is built (it takes
     # the tracer and binds its clock to the backend at construction)
@@ -360,9 +452,7 @@ def main(argv=None):
     try:
         sched = ContinuousBatchingScheduler(backend, scfg)
         if args.slo:
-            from repro_torch.obs.slo import SLOEngine, default_targets
-            slo = SLOEngine(default_targets(ttft_p99_s=args.slo_ttft,
-                                            tpot_p50_s=args.slo_tpot))
+            slo = mk_slo()
             sched.attach_slo(slo)
         if args.dash_interval > 0:
             from repro_torch.obs.dashboard import Dashboard
@@ -385,11 +475,7 @@ def main(argv=None):
         get_logger("repro_torch.launch.serve").info(
             f"trace: {args.trace} ({tracer.emitted} events, "
             f"{tracer.dropped} dropped)")
-    for r in sorted(done, key=lambda r: r.rid):
-        status = "REJECTED" if r.rejected else \
-            f"ttft {r.ttft_s:.2f}s total {r.latency_s:.2f}s " \
-            f"out[:8]={r.output[:8]}"
-        print(f"req {r.rid}: {status}")
+    _print_requests(done)
     report = summarize(done, pattern=args.pattern,
                        backend="engine" if engine else
                        ("paged-prefix" if args.prefix_cache else "fallback"),
@@ -400,6 +486,48 @@ def main(argv=None):
     print(json.dumps(doc, indent=2))
     if engine is not None:
         engine.close()
+    return 0
+
+
+def _print_requests(done):
+    for r in sorted(done, key=lambda r: r.rid):
+        status = "REJECTED" if r.rejected else \
+            f"ttft {r.ttft_s:.2f}s total {r.latency_s:.2f}s " \
+            f"out[:8]={r.output[:8]}"
+        print(f"req {r.rid}: {status}")
+
+
+def _serve_fleet(args, cfg, params, srv, spec, reqs, mk_slo, dev):
+    """--replicas N: make_fleet's replicas behind the router; prints one
+    line per request and the FleetReport's JSON."""
+    from repro_torch.obs.log import get_logger
+    from repro_torch.obs.trace import Tracer, set_tracer
+    # the tracer goes in before the replicas' schedulers take it
+    tracer = None
+    if args.trace:
+        tracer = Tracer()
+        set_tracer(tracer)
+    try:
+        fleet = make_fleet(cfg, params, replicas=args.replicas,
+                           n_slots=srv.slots, max_len=args.max_len,
+                           sampler=srv.sampler, spec=spec,
+                           prefix_cache=args.prefix_cache,
+                           prefill_chunk_tokens=args.prefill_chunk,
+                           page_size=args.page_size, router=args.router,
+                           seed=args.seed, slo=mk_slo, device=dev)
+        rebase_arrivals(fleet, reqs)
+        result = fleet.run(reqs)
+    finally:
+        if tracer is not None:
+            set_tracer(None)
+    if tracer is not None:
+        tracer.export(args.trace)
+        get_logger("repro_torch.launch.serve").info(
+            f"trace: {args.trace} ({tracer.emitted} events, "
+            f"{tracer.dropped} dropped)")
+    _print_requests(result.requests)
+    print(result.report(pattern=args.pattern,
+                        backend=f"fleet{args.replicas}").to_json())
     return 0
 
 

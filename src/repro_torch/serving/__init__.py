@@ -1,5 +1,5 @@
 """LIME-Serve in the port: traffic -> scheduler -> backend -> metrics."""
-from repro_torch.serving.backend import EngineBackend  # noqa: F401
+from repro_torch.serving.backend import EngineBackend, SimBackend  # noqa: F401
 from repro_torch.serving.metrics import (ServingReport, percentile,  # noqa: F401
                                          summarize)
 from repro_torch.serving.sampling import (SamplerConfig, filter_logits,  # noqa: F401

@@ -1,5 +1,21 @@
-"""Execution backend of the port (counterpart of
-``repro.serving.backend.EngineBackend``, single-device dense path).
+"""Execution backends of the port (counterpart of
+``repro.serving.backend``).
+
+One protocol, two substrates, as in the JAX package:
+
+  EngineBackend  the real thing on the card: the model's single-device
+                 path or the InterleavedEngine, real sampled tokens,
+                 wall-clock time, epoch batching (can_join_running False)
+  SimBackend     the discrete-event InterleavedPipelineSim on a CostEnv:
+                 virtual time, per-step micro-batch occupancy, the
+                 planner's and the KV-transfer protocol's effects, chunked
+                 mixed rounds, the spec acceptance model; continuous
+                 batching (can_join_running True). The JAX package's code,
+                 unchanged: it runs no array code, so on the same CostEnv
+                 and arrival stream both packages give equal timings and
+                 equal flight-recorder events. Fleet tests run their
+                 replicas on it (their clocks are virtual, so placement is
+                 reproducible run to run).
 
 The protocol the scheduler drives (duck-typed, as in the JAX package):
 
@@ -83,13 +99,15 @@ span); tracing adds no sync of its own.
 from __future__ import annotations
 
 import time
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import Family
 from repro_torch.core.capture import CapturedStep
+from repro_torch.core.cost_model import CostEnv
+from repro_torch.core.pipeline_sim import InterleavedPipelineSim
 from repro_torch.device import resolve_device
 from repro_torch.kvcache.allocator import BlockTable
 from repro_torch.kvcache.paged_decode import PagedDecodeCache
@@ -118,6 +136,436 @@ def refuse_encdec(cfg) -> None:
         raise NotImplementedError(ENCDEC_REFUSAL)
 
 
+# ============================================================================
+# Simulator backend
+# ============================================================================
+class SimBackend:
+    """Discrete-event substrate: prices each decode step by live occupancy.
+
+    Per-request KV accounting feeds the OnlinePlanner: every step passes
+    kv_tokens = ceil(Σ_active ctx_i / n_micro_env), the effective
+    per-stream token count under the Workload's n_micro scaling — so the
+    TS thresholds (paper Eq. 5) fire exactly when the *admitted* KV load
+    says they should, not on a fixed token loop.
+    """
+
+    can_join_running = True
+
+    def __init__(self, env: CostEnv, plan=None, *, n_slots: int = 0,
+                 use_planner: bool = True, use_kv_transfer: bool = True,
+                 prompt_tokens: int = 64, spec=None, adapt: bool = False,
+                 refit: bool = False, true_env: Optional[CostEnv] = None):
+        if plan is None:
+            from repro_torch.core.offline_scheduler import allocate
+            r = allocate(env, env.work.cfg.n_layers,
+                         n_emp=max(prompt_tokens, 1))
+            if not r.feasible:
+                raise ValueError(f"infeasible allocation: {r.reason}")
+            plan = r.plan
+        self.env = env
+        self.plan = plan
+        self.n_slots = n_slots or max(env.work.n_micro, 1)
+        self.sim = InterleavedPipelineSim(
+            env, plan, use_planner=use_planner,
+            use_kv_transfer=use_kv_transfer, prompt_tokens=prompt_tokens,
+            true_env=true_env)
+        # online re-fit (DESIGN.md §18): observe the sim's fetch/compute
+        # telemetry and fold measured drift back into the planned env
+        self.refit = None
+        if refit:
+            from repro_torch.tune.refit import OnlineRefit
+            self.refit = OnlineRefit(env)
+            self.sim.attach_refit(self.refit)
+        self._ctx: Dict[int, int] = {}        # slot -> prompt + generated
+        self._kv_pages = None                 # (pages_in_use, page_size)
+        # adaptation telemetry (DESIGN.md §13): planner (α, β) moves are
+        # reported in whole-layer equivalents; scheduler-driven reclaims
+        # (reclaim_kv_pages) force-advance the TS ladder and credit the
+        # freed bytes to the admission page pool. `adapt` gates the
+        # reclaim hook — with it off (default) admission pressure behaves
+        # exactly as the static plan (preempt, never retier).
+        self.adapt = adapt
+        self._pool = None
+        self._adapt = {"retier_events": 0, "layers_demoted": 0,
+                       "layers_promoted": 0, "hbm_returned_bytes": 0.0}
+        # speculative decoding (DESIGN.md §11): the simulator has no real
+        # tokens to verify, so a spec config prices each decode round as a
+        # (k+1)-query verify pass and draws per-slot accepted counts from
+        # the acceptance-rate model (each draft token independently
+        # accepted with prob spec.acceptance, stopping at the first
+        # rejection — the geometric shape real rejection sampling has).
+        # draft="resident" (DESIGN.md §14) scales that acceptance by the
+        # LIVE resident fraction — the plan's resident share minus
+        # whatever the TS ladder has demoted — and adapts draft depth per
+        # rung through a DepthController, so planner demotions visibly
+        # thin the self-draft exactly as they do on the real engine.
+        self.spec = spec
+        self._depth = None
+        if spec is not None:
+            from repro_torch.specdec import SpecStats
+            self._spec_rng = np.random.default_rng(spec.seed)
+            self._spec_stats = SpecStats()
+            if spec.draft == "resident":
+                total = max(plan.layers_total(), 1)
+                self._res_frac0 = min(
+                    sum(st.resident_total for st in plan.stages) / total,
+                    1.0)
+                if spec.adapt_k:
+                    from repro_torch.specdec import DepthController
+                    self._depth = DepthController(
+                        k_max=spec.k, prior=self._spec_acceptance())
+
+    # -- clock -------------------------------------------------------------------
+    def now(self) -> float:
+        return self.sim.now
+
+    def advance_to(self, t: float) -> None:
+        self.sim.advance_to(t)
+
+    # -- capacity ----------------------------------------------------------------
+    def kv_budget_tokens(self) -> Optional[int]:
+        """Fleet KV capacity in per-request tokens: aggregate memory left
+        after weights, divided by the per-token-per-sequence KV rate
+        (kv_bytes_per_token_layer covers the whole mb × n_micro set)."""
+        cfg = self.env.work.cfg
+        w = self.env.work
+        per_seq = w.kv_bytes_per_token_layer() \
+            / (max(w.mb, 1) * max(w.n_micro, 1))
+        rate = cfg.n_layers * per_seq
+        if rate <= 0:
+            return None                       # attention-free: KV is not a budget
+        agg = sum(d.mem_bytes for d in self.env.devices)
+        budget = max(agg - cfg.total_params() * 2, agg * 0.03)
+        return int(budget // rate)
+
+    def kv_bytes_per_token(self) -> float:
+        """Fleet KV bytes one context token costs one sequence (page
+        pricing for the paged scheduler's spill/fetch accounting)."""
+        cfg = self.env.work.cfg
+        w = self.env.work
+        return cfg.n_layers * w.kv_bytes_per_token_layer() \
+            / (max(w.mb, 1) * max(w.n_micro, 1))
+
+    # -- paged-KV hooks (DESIGN.md §10) ------------------------------------------
+    def note_kv_pages(self, pages_in_use: int, page_size: int) -> None:
+        """Scheduler callback: current page-granular occupancy. Attaches
+        the planner/KV-transfer accounting to *allocated* pages, so the TS
+        ladder (paper Eq. 5) fires on what admission actually holds."""
+        self._kv_pages = (pages_in_use, page_size)
+
+    def note_slo_pressure(self, pressure: float) -> None:
+        """Scheduler callback (DESIGN.md §17): forward SLO pressure
+        (1 - health) to the sim's OnlinePlanner so its TS thresholds
+        fire early while the serving layer is breaching."""
+        if self.sim.planner is not None:
+            self.sim.planner.note_slo_pressure(pressure)
+
+    def attach_page_pool(self, pool) -> None:
+        """Expose a PagePool to the simulator so Eq. 8 volumes move real
+        pages (core/kv_transfer.sync_pool) every step, and to the
+        adaptation path so retiered weight bytes grow its device tier."""
+        self.sim.attach_page_pool(pool)
+        self._pool = pool
+
+    # -- online memory adaptation (DESIGN.md §13) --------------------------------
+    def _planner_snapshot(self):
+        pl = self.sim.planner
+        return [(st.alpha, st.beta) for st in pl.states] if pl else None
+
+    def _note_planner_delta(self, before) -> None:
+        """Fold planner (α, β) moves since `before` into the adaptation
+        telemetry (whole-layer equivalents: a layer = 1 MHA + 1 MLP).
+        Gated on `adapt`: a static run's report keeps the documented
+        'zero when --adapt is off' contract even on workloads where the
+        sim's own TS ladder fires."""
+        pl = self.sim.planner
+        if not self.adapt or pl is None or before is None:
+            return
+        w = self.env.work
+        tr = get_tracer()
+        factor = max(self.plan.n_seg - 1, 1)
+        for dev, ((a0, b0), st) in enumerate(zip(before, pl.states)):
+            da, db = st.alpha - a0, st.beta - b0
+            if not (da or db):
+                continue
+            self._adapt["retier_events"] += 1
+            self._adapt["layers_demoted"] += max(max(da, db), 0)
+            self._adapt["layers_promoted"] += max(-min(da, db), 0)
+            self._adapt["hbm_returned_bytes"] += max(
+                (da * w.attn_block_bytes + db * w.mlp_block_bytes) * factor,
+                0.0)
+            if tr is not None:
+                tr.instant(tr_ev.RETIER, track=tr_ev.TRACK_KV,
+                           args={"dev": dev,
+                                 "demoted": max(max(da, db), 0),
+                                 "promoted": max(-min(da, db), 0)})
+
+    def _sim_step(self, **kw):
+        before = self._planner_snapshot()
+        trace = self.sim.step_once(**kw)
+        self._note_planner_delta(before)
+        tr = get_tracer()
+        if tr is not None:
+            # StepTrace -> trace events: sim and engine render identically
+            # (one "step" span per pipeline round on the "pipeline" track)
+            t1 = self.sim.now
+            tr.complete(tr_ev.STEP, ts=t1 - trace.latency,
+                        dur=trace.latency, track=tr_ev.TRACK_PIPELINE,
+                        args={"load_stall": trace.load_stall,
+                              "comm_time": trace.comm_time,
+                              "kv_moved_bytes": trace.kv_moved_bytes})
+            if trace.planner_fired:
+                tr.instant(tr_ev.PLANNER_FIRED, ts=t1,
+                           track=tr_ev.TRACK_PIPELINE)
+        return trace
+
+    def reclaim_kv_pages(self, n_pages: int) -> int:
+        """Scheduler pressure hook: force-advance the TS ladder (demote
+        blocks ahead of their occupancy thresholds) and return the freed
+        bytes as device KV pages. The simulator prices the added
+        per-segment load on every subsequent step — adaptation trades
+        steady-state load for preemption churn. Returns pages granted."""
+        pl = self.sim.planner
+        if not self.adapt or pl is None or self._pool is None:
+            return 0
+        pb = self._pool.cfg.page_bytes
+        if pb <= 0:
+            return 0
+        w = self.env.work
+        factor = max(self.plan.n_seg - 1, 1)
+        snap = [(st.alpha, st.beta, st.plan_idx) for st in pl.states]
+        adapt_snap = dict(self._adapt)
+        freed = 0.0
+        need = n_pages * pb
+        advanced = True
+        while freed < need and advanced:
+            advanced = False
+            for st in pl.states:
+                lad = pl.ladders[st.dev_idx]
+                if st.plan_idx >= len(lad):
+                    continue
+                step = lad[st.plan_idx]
+                da, db = step.alpha - st.alpha, step.beta - st.beta
+                gain = (da * w.attn_block_bytes
+                        + db * w.mlp_block_bytes) * factor
+                st.alpha, st.beta = step.alpha, step.beta
+                st.plan_idx += 1
+                advanced = True
+                if gain > 0:
+                    freed += gain
+                    self._adapt["retier_events"] += 1
+                    self._adapt["layers_demoted"] += max(max(da, db), 0)
+                    self._adapt["hbm_returned_bytes"] += gain
+                if freed >= need:
+                    break
+        pages = int(freed // pb)
+        if pages <= 0:
+            # nothing granted: roll the ladder (and its telemetry) back —
+            # the preemption happens anyway; paying extra per-segment
+            # load for zero pages would be pure loss
+            for st, (a, b, i) in zip(pl.states, snap):
+                st.alpha, st.beta, st.plan_idx = a, b, i
+            self._adapt = adapt_snap
+            return 0
+        self._pool.grow(pages)
+        tr = get_tracer()
+        if tr is not None:
+            tr.instant(tr_ev.RETIER, track=tr_ev.TRACK_KV,
+                       args={"forced": True, "pages": pages})
+        return pages
+
+    @property
+    def adapt_stats(self):
+        return dict(self._adapt)
+
+    def charge_transfer(self, nbytes: float) -> None:
+        """Preemption spill/fetch traffic: advances the virtual clock."""
+        self.sim.charge_transfer(nbytes)
+
+    # -- serving hooks -----------------------------------------------------------
+    @staticmethod
+    def _prefill_span(req) -> int:
+        # a recompute-resumed request re-prefills prompt + generated
+        return getattr(req, "prefill_tokens", None) or req.prompt_len
+
+    @staticmethod
+    def _prefill_q(req) -> int:
+        """Query positions the prefill pass actually computes: the span
+        minus whatever the radix prefix cache (or a spill that kept the
+        KV) already holds — Eq. 5-8 bytes and hops are priced for the
+        uncached suffix only (DESIGN.md §12)."""
+        span = SimBackend._prefill_span(req)
+        cached = getattr(req, "cached_tokens", 0)
+        return max(span - cached, 1)
+
+    def start_batch(self, reqs: Sequence) -> List[Optional[int]]:
+        out: List[Optional[int]] = []
+        for slot, r in enumerate(reqs):
+            self._ctx[slot] = self._prefill_span(r)
+        # prefill: one pipeline pass; each micro-batch carries its own
+        # uncached-suffix query count (attention still reads the full
+        # span, hence ctx = the longest context in the batch)
+        self._sim_step(ctx=max((self._prefill_span(r) for r in reqs),
+                                   default=1),
+                           n_micro=max(len(reqs), 1),
+                           kv_tokens=self._planner_tokens(),
+                           q_lens=[self._prefill_q(r) for r in reqs] or [1])
+        for slot, r in enumerate(reqs):
+            self._ctx[slot] += 1
+            out.append(None)                  # sim has no real token ids
+        return out
+
+    def join(self, slot: int, req) -> Optional[int]:
+        # mid-flight admission: the joiner's prefill rides one step at its
+        # own prompt span before it starts decoding with the others
+        span = self._prefill_span(req)
+        self._ctx[slot] = span
+        self._sim_step(ctx=max(span, 1), n_micro=1,
+                           kv_tokens=self._planner_tokens(),
+                           q_len=self._prefill_q(req))
+        self._ctx[slot] += 1
+        return None
+
+    # -- chunked prefill / mixed rounds (DESIGN.md §12) --------------------------
+    def attach_slot(self, slot: int, req, ctx0: int) -> None:
+        """Register a slot whose prompt will drain through decode_mixed
+        chunks; `ctx0` is the context already in KV (radix prefix hit or
+        a spill that kept the pages)."""
+        self._ctx[slot] = max(ctx0, 0)
+
+    def decode_mixed(self, work: Dict[int, tuple]):
+        """One mixed round: {slot: ("prefill", n_tokens, last_chunk) |
+        ("decode",)}. Every stream rides the same weight-stream — the
+        chunk's compute and hops scale with its q_len, decode streams
+        with 1 (or k+1 under speculation) — so a cold prompt no longer
+        stalls live decoders for a monolithic pass. Prefill slots emit
+        [None] (their first token) when the last chunk lands, [] before;
+        decode slots emit their committed round."""
+        if not work:
+            return {}
+        slots = sorted(work)
+        q_lens, out = [], {}
+        spec_slots = []
+        k = self._spec_k() if self.spec is not None else 0
+        for s in slots:
+            w = work[s]
+            if w[0] == "prefill":
+                q_lens.append(max(w[1], 1))
+            elif self.spec is not None:
+                q_lens.append(k + 1)
+                spec_slots.append(s)
+            else:
+                q_lens.append(1)
+        ctx = max(self._ctx[s] + (work[s][1] if work[s][0] == "prefill"
+                                  else 1) for s in slots)
+        self._sim_step(ctx=ctx, n_micro=len(slots),
+                           kv_tokens=self._planner_tokens(), q_lens=q_lens)
+        for s in slots:
+            w = work[s]
+            if w[0] == "prefill":
+                self._ctx[s] += w[1]
+                if w[2]:                      # last chunk: first token
+                    self._ctx[s] += 1
+                    out[s] = [None]
+                else:
+                    out[s] = []
+            elif s in spec_slots:
+                out[s] = [None] * self._spec_commit(s, k)
+            else:
+                self._ctx[s] += 1
+                out[s] = [None]
+        return out
+
+    def _demoted_layers(self) -> int:
+        """Whole-layer equivalents the TS ladder currently holds demoted
+        (the sim's retier rung; max(α, β) per device, the convention
+        _note_planner_delta reports in)."""
+        pl = self.sim.planner
+        if pl is None:
+            return 0
+        return sum(max(st.alpha, st.beta) for st in pl.states)
+
+    def _resident_frac(self) -> float:
+        """Live resident share: the plan's static fraction minus ladder
+        demotions."""
+        total = max(self.plan.layers_total(), 1)
+        return min(max(self._res_frac0 - self._demoted_layers() / total,
+                       0.0), 1.0)
+
+    def _spec_acceptance(self) -> float:
+        """Per-token acceptance of the model: flat for ngram/model drafts;
+        for the resident self-draft it scales with the live resident
+        fraction (a thinner draft stack proposes worse tokens)."""
+        if self.spec.draft != "resident":
+            return self.spec.acceptance
+        return min(max(self.spec.acceptance * self._resident_frac(),
+                       0.02), 0.98)
+
+    def _spec_k(self) -> int:
+        """Round depth: spec.k, or the DepthController's rung-adapted k
+        for the resident draft (rung = ladder-demoted layers)."""
+        if self._depth is None:
+            return self.spec.k
+        self._depth.note_rung(self._demoted_layers(),
+                              prior=self._spec_acceptance())
+        return self._depth.k()
+
+    def _spec_commit(self, s: int, k: Optional[int] = None) -> int:
+        """Draw one slot's committed count from the acceptance model and
+        advance its context (shared by decode_active and mixed rounds)."""
+        k = self.spec.k if k is None else k
+        a = self._spec_acceptance()
+        acc = 0
+        while acc < k and self._spec_rng.random() < a:
+            acc += 1
+        committed = acc + 1          # accepted prefix + correction/bonus
+        self._ctx[s] += committed
+        self._spec_stats.rounds += 1
+        self._spec_stats.drafted += k
+        self._spec_stats.accepted += acc
+        if self._depth is not None:
+            self._depth.note_round(k, acc)
+        return committed
+
+    def decode_active(self, slots: Sequence[int]):
+        if not slots:
+            return {}
+        ctx = max(self._ctx[s] for s in slots)
+        if self.spec is not None:
+            return self._decode_active_spec(slots, ctx)
+        self._sim_step(ctx=ctx, n_micro=len(slots),
+                           kv_tokens=self._planner_tokens())
+        for s in slots:
+            self._ctx[s] += 1
+        return {s: None for s in slots}
+
+    def _decode_active_spec(self, slots: Sequence[int], ctx: int):
+        """One speculative round: price a (k+1)-query verify pass, then
+        commit 1..k+1 tokens per slot from the acceptance model."""
+        k = self._spec_k()
+        self._sim_step(ctx=ctx, n_micro=len(slots),
+                           kv_tokens=self._planner_tokens(), q_len=k + 1)
+        return {s: [None] * self._spec_commit(s, k) for s in slots}
+
+    @property
+    def spec_stats(self):
+        return self._spec_stats.to_dict() if self.spec is not None else None
+
+    def release(self, slot: int) -> None:
+        self._ctx.pop(slot, None)
+
+    def _planner_tokens(self) -> int:
+        n_micro_env = max(self.env.work.n_micro, 1)
+        if self._kv_pages is not None:
+            pages, ps = self._kv_pages        # real page occupancy
+            return -(-(pages * ps) // n_micro_env)
+        total = sum(self._ctx.values())
+        return -(-total // n_micro_env)       # ceil-div
+
+
+# ============================================================================
+# Engine backend (real execution)
+# ============================================================================
 class EngineBackend:
     """Wall-clock backend over the model's single-device decode path, or
     over an InterleavedEngine.

@@ -25,18 +25,33 @@
               epoch backends (the model's cache fixes batch membership at
               prefill) drain a batch, then form the next.
 
+  prefix      with SchedulerConfig.prefix_cache (paged admission only) a
+              radix prefix cache over the admission pool: a matched
+              page-aligned prompt prefix forks copy-on-write into the
+              request's block table and only the uncached suffix is
+              prefilled; finished requests (and speculative commits with
+              real ids) donate their pages; cached pages are reclaimed
+              first under pool pressure. A real backend keeps its own
+              radix tree over its real KV pages instead (prefix_stats).
+  chunking    with SchedulerConfig.prefill_chunk_tokens, on backends that
+              expose decode_mixed (the simulator), prompts drain chunk by
+              chunk through mixed rounds beside the live decode streams.
+
 Speculative backends emit a list of committed tokens per round; paged
 growth reserves a whole round (k + 1 tokens). The backend's spec, retier
 and radix prefix-cache counters join the stats at the end of a run. The
 JAX scheduler's decisions are reproduced exactly (same admissions,
-preemptions, resumes and reclaims on the same stream), and so are its
-flight-recorder events (obs/trace: the request lifecycle on "req:<rid>",
-occupancy counters, reclaims), its SLO feeds (attach_slo) and the load
-signals a dashboard reads (queue_depth, in_flight, outstanding). What it
-also carries comes back with the slice that needs it: its own radix prefix
-cache over the admission pool and the chunked mixed rounds (only the
-simulator backend runs them) with the simulator, and the rest of the
-fleet's API (submit, free_kv_pages) with the fleet slice.
+preemptions, resumes, reclaims, prefix hits and chunks on the same
+stream), and so are its flight-recorder events (obs/trace: the request
+lifecycle on "req:<rid>", occupancy counters, reclaims), its SLO feeds
+(attach_slo) and the load signals a dashboard or the fleet router reads
+(queue_depth, in_flight, outstanding, free_kv_pages).
+
+The loop is a resumable state machine, as the JAX package's: begin()
+installs a run, step() runs one iteration (one admission wave or one
+decode round), submit() delivers an arrival mid-run, finish_run() does
+the drain-time accounting; serve() composes them. The fleet
+(repro_torch.fleet) co-steps N replica schedulers this way.
 
 The loop is clock-agnostic: `backend.now()` is whatever the backend says;
 an installed tracer's clock is bound to it at construction, so every
@@ -143,6 +158,14 @@ class SchedulerConfig:
     preempt: str = "spill"                   # paged: "spill" | "recompute"
     host_kv_budget_tokens: Optional[int] = None  # paged: spill-tier size
                                                  # (None -> device budget)
+    prefix_cache: bool = False               # radix KV reuse over the
+                                             # admission pool (needs
+                                             # kv_policy="paged" and
+                                             # token-bearing requests)
+    prefill_chunk_tokens: Optional[int] = None   # split prompt processing
+                                                 # into chunks that ride
+                                                 # mixed rounds with decode
+                                                 # (None = monolithic)
     hist_capacity: Optional[int] = None      # bounded-memory histograms
                                              # (obs.sketch reservoir of
                                              # this many samples; None =
@@ -189,9 +212,29 @@ class ContinuousBatchingScheduler:
         # reserves the whole round
         self._round_tokens = 1 + getattr(getattr(backend, "spec", None),
                                          "k", 0)
+        # radix prefix cache: shares the paged pool; matched prompt
+        # prefixes fork copy-on-write into fresh block tables and only the
+        # uncached suffix is prefilled
+        if config.prefix_cache and not self.paged:
+            raise ValueError("prefix_cache needs kv_policy='paged' "
+                             "(the radix tree shares the page pool)")
+        self.prefix = None
+        if config.prefix_cache and self.paged:
+            from repro_torch.prefixcache import RadixPrefixCache
+            self.prefix = RadixPrefixCache(self.mgr.pool)
+        # chunked prefill: prompts are processed prefill_chunk_tokens at a
+        # time in mixed rounds beside live decode streams, only on
+        # backends that expose decode_mixed (the simulator); epoch
+        # backends chunk inside their own prefill
+        self.chunk = config.prefill_chunk_tokens
+        self._mixed = getattr(backend, "decode_mixed", None) \
+            if self.chunk else None
+        self._fill: Dict[int, int] = {}   # rid -> prefill tokens remaining
         self.metrics = MetricsRegistry(hist_capacity=config.hist_capacity)
         for k in ("kv_pages_spilled", "kv_pages_fetched",
-                  "kv_migrated_bytes"):
+                  "kv_migrated_bytes", "prefix_lookups", "prefix_hits",
+                  "cached_tokens", "prefill_tokens_saved",
+                  "prefix_pages", "prefix_evicted_pages"):
             self.metrics.counter(k)
         self.metrics.gauge("peak_active")
         self.metrics.gauge("peak_kv_pages")
@@ -233,6 +276,17 @@ class ContinuousBatchingScheduler:
         return (fn() if fn else 0.0) * self.config.page_size
 
     # -- admission -------------------------------------------------------------
+    def _lookup(self, req: Request):
+        """Radix match for `req`'s prompt, capped below the last prompt
+        token (page-aligned) so at least one token is always prefilled.
+        Returns (shared page ids, matched token count)."""
+        if self.prefix is None or req.prompt is None or req.preempted:
+            # a resumed request re-enters with its own pages (spill) or a
+            # pending recompute span: forking would double-count
+            return [], 0
+        cap = (req.prompt_len - 1) // self.config.page_size
+        return self.prefix.match(req.prompt, max_pages=cap)
+
     def _admits(self, req: Request, active_count: int = 0) -> bool:
         if self.kv_budget is None:
             return True
@@ -240,6 +294,31 @@ class ContinuousBatchingScheduler:
             # watermark: keep one free page per already-resident request
             # (each wants another page within page_size steps)
             need = req.prefill_tokens + 1
+            if self.prefix is not None:
+                # a prefix hit needs pages for the uncached suffix only
+                pages, _ = self._lookup(req)
+                if self.mgr.can_admit_prefix(need, pages,
+                                             headroom_pages=active_count):
+                    return True
+                # pool pressure: cached pages go first (the cold
+                # requirement bounds the hit's actual shortfall)
+                short = self.mgr.pool.pages_for(need) \
+                    + active_count - self.mgr.pool.free_pages()
+                if short > 0 and self._evict_cached(short):
+                    pages, _ = self._lookup(req)   # eviction may have
+                    if self.mgr.can_admit_prefix(  # pruned the match
+                            need, pages, headroom_pages=active_count):
+                        return True
+                # then retier headroom, for the prefix requirement's
+                # shortfall (only the uncached suffix needs fresh pages)
+                pages, _ = self._lookup(req)
+                short = self.mgr.pool.pages_for(need) - len(pages) \
+                    + active_count - self.mgr.pool.free_pages()
+                if short > 0 and self._reclaim(short):
+                    pages, _ = self._lookup(req)
+                    return self.mgr.can_admit_prefix(
+                        need, pages, headroom_pages=active_count)
+                return False
             if self.mgr.can_admit(need, headroom_pages=active_count):
                 return True
             # retier headroom: before refusing, ask the backend to demote
@@ -267,17 +346,57 @@ class ContinuousBatchingScheduler:
                                  args={"pages": got, "asked": n_pages})
         return got
 
+    def _evict_cached(self, n_pages: int) -> int:
+        """Reclaim device-tier radix pages (the callers are short of
+        device capacity; host-tier cached leaves would free the wrong
+        tier)."""
+        if self.prefix is None:
+            return 0
+        from repro_torch.kvcache.pool import DEVICE
+        freed = self.prefix.evict(n_pages, tier=DEVICE)
+        self.metrics.set("prefix_evicted_pages", self.prefix.evicted_pages)
+        return freed
+
     def _on_admit(self, req: Request) -> None:
         if self.paged:
-            self.mgr.admit(req.rid, req.prefill_tokens + 1)
+            if self.prefix is not None:
+                pages, ctok = self._lookup(req)
+                moved = self.mgr.admit_with_prefix(
+                    req.rid, pages, ctok, req.prefill_tokens + 1)
+                self._charge(moved)
+                req.cached_tokens = ctok
+                # hit accounting per admission (the tree's own counters
+                # also see head-of-line re-checks)
+                self.metrics.inc("prefix_lookups")
+                self.metrics.inc("prefix_hits", int(ctok > 0))
+                self.metrics.inc("prefill_tokens_saved", ctok)
+            else:
+                self.mgr.admit(req.rid, req.prefill_tokens + 1)
         else:
             self._kv_in_use += req.kv_tokens
 
     def _on_finish(self, req: Request) -> None:
         if self.paged:
+            self._maybe_insert(req)
             self.mgr.release(req.rid)
         else:
             self._kv_in_use -= req.kv_tokens
+
+    def _maybe_insert(self, req: Request) -> None:
+        """Donate `req`'s committed pages to the radix tree (on finish and
+        at speculative commit boundaries), keyed by the tokens whose ids
+        are known: the prompt and any real emitted ids (the simulator
+        emits None placeholders, which cannot key a page)."""
+        if self.prefix is None or req.prompt is None:
+            return
+        toks = list(req.prompt)
+        for t in req.output:
+            if t is None:
+                break
+            toks.append(t)
+        table = self.mgr.table(req.rid)
+        self.prefix.insert(toks, table.pages,
+                           n_tokens=min(len(toks), table.tokens))
 
     def _oversized(self, req: Request) -> bool:
         """Can never be served, even on an idle backend. Paged capacity is
@@ -316,8 +435,8 @@ class ContinuousBatchingScheduler:
     def _grow_active(self, active: Dict[int, Request],
                      order: List[int], suspended: Deque[Request]) -> None:
         """Before a decode round every live request needs room for one more
-        round of tokens. On a dry pool, reclaim retier headroom for the
-        shortfall, then preempt latest-admitted victims until the
+        round of tokens. On a dry pool, evict cached radix pages, reclaim
+        retier headroom for the shortfall, then preempt latest-admitted victims until the
         extension fits; a request that cannot even self-extend after
         evicting everyone else suspends itself (defensive: _oversized()
         gates admission)."""
@@ -331,6 +450,10 @@ class ContinuousBatchingScheduler:
             while not self.mgr.extend(r.rid, grow_to):
                 need = self.mgr.pool.pages_for(grow_to) \
                     - self.mgr.pages_of(r.rid)
+                # unpinned radix-cached pages go first (they serve future
+                # hits, not a live decode), then retier headroom
+                if self._evict_cached(need):
+                    continue
                 # reclaim only the shortfall past the free pages: the
                 # gross requirement would over-demote resident layers
                 short = need - self.mgr.pool.free_pages()
@@ -424,7 +547,18 @@ class ContinuousBatchingScheduler:
         self._done: List[Request] = []
         self._shed: List[Request] = []
 
-    # -- live load signals (what a dashboard reads) ------------------------------
+    def submit(self, req: Request) -> None:
+        """Deliver one arrival into a running serve (fleet routing),
+        keeping `_pending` sorted by arrival time."""
+        p = self._pending
+        if not p or req.arrival_s >= p[-1].arrival_s:
+            p.append(req)
+            return
+        # out-of-order delivery: rebuild sorted (streams are small)
+        self._pending = deque(sorted(list(p) + [req],
+                                     key=lambda r: r.arrival_s))
+
+    # -- live load signals (what a dashboard and the router read) ----------------
     @property
     def queue_depth(self) -> int:
         """Requests accepted but not yet (re-)running."""
@@ -440,6 +574,21 @@ class ContinuousBatchingScheduler:
         """Everything submitted and not yet finished or shed."""
         return len(self._pending) + len(self._q) + len(self._susp) \
             + len(self._active)
+
+    def free_kv_pages(self) -> Optional[int]:
+        """Device-tier KV headroom in pages (None: not page-managed)."""
+        return self.mgr.pool.free_pages() if self.paged else None
+
+    @property
+    def has_live_work(self) -> bool:
+        """Anything past intake: a step() now does real work regardless
+        of the clock."""
+        return bool(self._q or self._susp or self._active)
+
+    @property
+    def next_pending_s(self) -> Optional[float]:
+        """Arrival time of the earliest not-yet-ingested request."""
+        return self._pending[0].arrival_s if self._pending else None
 
     def now(self) -> float:
         return self.backend.now()
@@ -506,6 +655,18 @@ class ContinuousBatchingScheduler:
             tr.instant(tr_ev.REQ_ADMIT, track=req_track(r.rid),
                        args={"resumed": kind == "suspended",
                              "cached_tokens": r.cached_tokens})
+        if self._mixed is not None:
+            # chunked prefill: the uncached span drains chunk by chunk
+            # through mixed rounds instead of one monolithic pass
+            fill_left = self._fill.get(r.rid, 0)
+            if kind == "suspended" and fill_left > 0 \
+                    and r.cached_tokens > 0:
+                # spill-resumed mid-prefill: the KV computed so far came
+                # back with the pages; only the remainder still rides
+                r.cached_tokens = max(r.prefill_tokens - fill_left, 0)
+            else:
+                self._fill[r.rid] = max(r.prefill_tokens
+                                        - r.cached_tokens, 0)
         return r
 
     def _finish_req(self, r: Request, slot: int, t: float) -> None:
@@ -567,6 +728,15 @@ class ContinuousBatchingScheduler:
                 self._reject(r)
                 return True
             self._order = list(range(len(batch)))
+            if self._mixed is not None:
+                # chunked: register the slots only; prompts drain through
+                # the mixed rounds below, a request's first token emitted
+                # when its last chunk lands
+                for slot, r in enumerate(batch):
+                    active[slot] = r
+                    self.backend.attach_slot(slot, r, r.cached_tokens)
+                self._note_occupancy(len(batch))
+                return True
             first = self.backend.start_batch(batch)
             t = self.backend.now()
             for slot, (r, tok) in enumerate(zip(batch, first)):
@@ -581,7 +751,23 @@ class ContinuousBatchingScheduler:
             self._note_occupancy(len(active))
             if not active:
                 return True       # everyone preempted (defensive)
-        emitted = self.backend.decode_active(sorted(active))
+        if self._mixed is not None:
+            # mixed round: prefilling slots consume one chunk each,
+            # decoding slots commit a round of tokens, all riding the same
+            # weight stream
+            work = {}
+            for slot in sorted(active):
+                r = active[slot]
+                rem = self._fill.get(r.rid, 0)
+                if rem > 0:
+                    n = min(self.chunk, rem)
+                    work[slot] = ("prefill", n, n == rem)
+                    self._fill[r.rid] = rem - n
+                else:
+                    work[slot] = ("decode",)
+            emitted = self._mixed(work)
+        else:
+            emitted = self.backend.decode_active(sorted(active))
         t = self.backend.now()
         for slot, toks in emitted.items():
             r = active.get(slot)
@@ -595,6 +781,14 @@ class ContinuousBatchingScheduler:
             for tok in toks:
                 if self._emit(r, slot, tok, t):
                     break
+        # speculative commit boundary: multi-token commits with real ids
+        # cross page boundaries mid-flight; donate completed pages now so
+        # concurrent same-prefix requests hit without waiting for a finish
+        if self.prefix is not None \
+                and getattr(self.backend, "spec", None) is not None:
+            for r in active.values():
+                if r.output:
+                    self._maybe_insert(r)
 
         # continuous batching: refill freed slots mid-flight
         if self.backend.can_join_running and active:
@@ -610,6 +804,11 @@ class ContinuousBatchingScheduler:
                 if slot in self._order:
                     self._order.remove(slot)
                 self._order.append(slot)
+                if self._mixed is not None:
+                    # chunked: the joiner's prompt drains through the
+                    # coming mixed rounds, no join pass
+                    self.backend.attach_slot(slot, r, r.cached_tokens)
+                    continue
                 self._emit(r, slot, self.backend.join(slot, r),
                            self.backend.now())
             self._note_occupancy(len(active))
@@ -631,7 +830,15 @@ class ContinuousBatchingScheduler:
             self.metrics.set("kv_pages_spilled", pool.spilled_pages)
             self.metrics.set("kv_pages_fetched", pool.fetched_pages)
             self.metrics.set("kv_migrated_bytes", pool.migrated_bytes)
-        for name in ("prefix_stats", "spec_stats", "adapt_stats"):
+        if self.prefix is not None:
+            self.metrics.set("cached_tokens", self.prefix.cached_tokens())
+            self.metrics.set("prefix_pages", self.prefix.n_pages)
+            self.metrics.set("prefix_evicted_pages",
+                             self.prefix.evicted_pages)
+            names = ("spec_stats", "adapt_stats")
+        else:                     # a real backend's own radix tree
+            names = ("prefix_stats", "spec_stats", "adapt_stats")
+        for name in names:
             stats = getattr(self.backend, name, None)
             if stats:             # radix hits, drafted/accepted, retier
                 self.metrics.update(stats)

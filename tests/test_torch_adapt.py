@@ -38,6 +38,7 @@ from repro_torch.launch import serve as launch  # noqa: E402
 from repro_torch.serving import (ContinuousBatchingScheduler,  # noqa: E402
                                  LimeServer, SchedulerConfig, summarize)
 from repro_torch.specdec import SpecConfig  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 MAX_LEN = 32
 MAX_NEW = 12

@@ -23,6 +23,7 @@ from repro.serving.scheduler import SchedulerConfig as JaxConfig
 from repro_torch.kvcache import HOST, PagedKVConfig, PagedKVManager, PagePool
 from repro_torch.serving.scheduler import ContinuousBatchingScheduler, Request
 from repro_torch.serving.scheduler import SchedulerConfig
+from _torch_threads import one_thread  # noqa: F401
 
 
 class StubBackend:

@@ -48,6 +48,7 @@ from repro_torch.kernels.decode_attention import multiquery as mq  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as da  # noqa: E402
 from repro_torch.kvcache.paged_decode import PagedDecodeCache  # noqa: E402
 from repro_torch.models import model as PM  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 
 class NoHostReads(TorchDispatchMode):

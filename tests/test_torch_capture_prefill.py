@@ -49,6 +49,7 @@ from repro_torch.core.capture import CapturedStep  # noqa: E402
 from repro_torch.kvcache.paged_decode import PagedDecodeCache  # noqa: E402
 from repro_torch.models import model as PM  # noqa: E402
 from test_torch_capture import FakeGraphs  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 B, S, MAX_LEN, ENC = 2, 12, 32, 6
 TINY = dict(d_model=32, n_heads=4, n_kv_heads=2, head_dim=8, d_ff=64,

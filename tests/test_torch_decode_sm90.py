@@ -17,6 +17,7 @@ import numpy as np  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as da  # noqa: E402
 from repro_torch.kernels.decode_attention import paged as pg  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 CSRC = ROOT / "src" / "repro_torch" / "csrc"

@@ -49,6 +49,7 @@ from repro_torch.launch import serve as launch  # noqa: E402
 from repro_torch.models import attention as PA  # noqa: E402
 from repro_torch.models import model as PM  # noqa: E402
 from repro_torch.serving import EngineBackend, LimeServer  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 
 def _port_prefill(pcfg, pp, flow, impl):

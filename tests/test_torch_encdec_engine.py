@@ -34,6 +34,7 @@ from _torch_parity import assert_cache_close, port_cfg  # noqa: E402
 from repro.core import engine as JE  # noqa: E402
 from repro_torch.core import engine as PE  # noqa: E402
 from repro_torch.models import model as PM  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 N_LAYERS = 4
 PLAN = PE.UniformPlan(1, 2, 1, 1)          # decoder layers 1 and 3 streamed

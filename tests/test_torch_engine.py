@@ -36,6 +36,7 @@ from repro_torch.core import engine as PE  # noqa: E402
 from repro_torch.core.cost_model import ExecutionPlan as PPlan  # noqa: E402
 from repro_torch.core.cost_model import StageAlloc as PStage  # noqa: E402
 from repro_torch.models import model as PM  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 # The engine equals the port's model bit for bit (below), so it drifts
 # from jit-compiled JAX exactly as the model does: XLA fuses across ops and

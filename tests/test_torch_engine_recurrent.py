@@ -48,6 +48,7 @@ from repro_torch.launch import serve as launch  # noqa: E402
 from repro_torch.models import model as PM  # noqa: E402
 from repro_torch.serving import LimeServer  # noqa: E402
 from repro_torch.specdec import SpecConfig  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 # The engine equals the port's model bit for bit (below), so it drifts from
 # jit-compiled JAX exactly as the model does (test_torch_engine.LOGIT_TOL:

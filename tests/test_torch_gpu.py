@@ -238,6 +238,71 @@ def test_traced_serve_on_the_card(cuda_device, monkeypatch):
     assert validate_chrome(to_chrome(tracer)) == []
 
 
+def test_fleet_on_the_card(cuda_device):
+    """The launcher's fleet on the card: two make_fleet replicas over one
+    set of smoke weights (radix prefix cache, page 8, prefill rounds of 8)
+    under the prefix router, 24 shared-prefix requests of two templates at
+    one instant (two equal-length epochs, then an unequal one, a template
+    a replica): every request served once, by the replica its template
+    went to; each replica's own steps launch kernels 2 (the unequal
+    epoch's flash prefill), 3 (decode) and 5 (prefill rounds) and nothing
+    of kernels 1 and 4, and the replicas' launches sum to the totals; the
+    weights are the one set; a second fleet serves the stream identically
+    (placement, router stats, tokens)."""
+    from repro_torch.launch.serve import make_fleet, rebase_arrivals
+    from repro_torch.serving import requests_from_arrivals
+    from repro_torch.serving.traffic import ArrivalEvent
+    cfg = get_smoke_config("llama3.3-70b")
+    params = M.init_params(cfg, torch.Generator(cuda_device).manual_seed(0))
+    lens = (32,) * 8 + (32, 30, 28, 26)
+    counters = ((fa, "launches"), (pg, "launches"), (mq, "paged_launches"),
+                (da, "launches"), (mq, "launches"))
+
+    def counts():
+        return [getattr(m, a) for m, a in counters]
+
+    def run():
+        fleet = make_fleet(cfg, params, replicas=2, n_slots=4, max_len=64,
+                           prefix_cache=True, prefill_chunk_tokens=8,
+                           page_size=8, router="prefix")
+        assert all(r.backend.params is params for r in fleet.replicas)
+        per = {r.name: [0] * len(counters) for r in fleet.replicas}
+        for rep in fleet.replicas:
+            def wrapped(_step=rep.step, _name=rep.name):
+                c0 = counts()
+                out = _step()
+                per[_name] = [a + c - b for a, b, c
+                              in zip(per[_name], c0, counts())]
+                return out
+            rep.step = wrapped
+        arr = [ArrivalEvent(0.0, lens[i // 2], 6, template_id=i % 2,
+                            template_len=24) for i in range(24)]
+        reqs = requests_from_arrivals(arr, vocab_size=cfg.vocab_size)
+        rebase_arrivals(fleet, reqs)
+        c0 = counts()
+        res = fleet.run(reqs)
+        torch.cuda.synchronize()
+        total = [c - b for b, c in zip(c0, counts())]
+        return fleet, res, per, total
+
+    fleet, res, per, total = run()
+    part = {n: sorted(r.rid for r in recs) for n, recs in res.per_replica.items()}
+    assert part == {"r0": list(range(0, 24, 2)), "r1": list(range(1, 24, 2))}
+    assert not res.shed and all(len(r.output) == 6 for r in res.requests)
+    assert fleet.router.stats["prefix_matched"] > 0
+    for name, p in per.items():
+        assert min(p[:3]) > 0 and p[3] == p[4] == 0, (name, p)
+    assert [sum(p[i] for p in per.values()) for i in range(len(counters))] \
+        == total
+    assert all(r.backend.prefix_stats["prefill_tokens_saved"] > 0
+               for r in fleet.replicas)
+    again = run()
+    assert dict(again[0].router.stats) == dict(fleet.router.stats)
+    assert {r.rid: r.output for r in again[1].requests} \
+        == {r.rid: r.output for r in res.requests}
+    assert again[2] == per
+
+
 def test_engine_streams_and_matches_model(cuda_device):
     """llama smoke, 4 layers, 2 chunks of 1 resident + 1 streamed layer
     (pinned host store, side-stream copies): decode and verify equal the

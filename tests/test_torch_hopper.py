@@ -13,6 +13,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import _launch  # noqa: E402
 from repro_torch.kernels.decode_attention import multiquery as mq  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 CSRC = ROOT / "src" / "repro_torch" / "csrc"

@@ -38,6 +38,7 @@ from _torch_cases import (BF16_REL, BF16_TOL, DECODE_CASES,  # noqa: E402
                           F32_TOL, FLASH_CASES, MQ_CASES, TORCH_DT,
                           decode_inputs, f32, flash_inputs, mq_inputs,
                           np_rand, rel_err, to_torch)
+from _torch_threads import one_thread  # noqa: E402,F401
 
 
 @pytest.mark.parametrize("case", FLASH_CASES,

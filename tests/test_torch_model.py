@@ -24,6 +24,7 @@ from repro.serving import sampling as JS  # noqa: E402
 from repro_torch.models import model as PM  # noqa: E402
 from repro_torch.models import modules as PMod  # noqa: E402
 from repro_torch.serving import sampling as PS  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 BF16_ULP = 2.0 ** -7      # relative spacing of bf16 values
 

@@ -63,6 +63,7 @@ from repro_torch.models import model as PM  # noqa: E402
 from repro_torch.models import moe as PMoE  # noqa: E402
 from repro_torch.serving import LimeServer  # noqa: E402
 from repro_torch.specdec import SpecConfig  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 MOE_ARCHS = ["deepseek-moe-16b", "kimi-k2-1t-a32b"]
 B, P, MAX_LEN = 2, 10, 32

@@ -2,7 +2,9 @@
 slo, critical_path, dashboard) against the JAX package's on identical
 inputs: the events of a seeded JAX simulator serve (paged admission, the
 sizes of test_obs.py) and synthetic request streams for the SLO engine
-(the windows of test_slo.py). Every output is compared for equality: the
+(the windows of test_slo.py); then the same serve on the port's own
+SimBackend and scheduler, whose events equal the JAX-sourced stream and
+read alike through the exporters, critical path and dashboard. Every output is compared for equality: the
 modules are framework-free copies, so nothing may drift."""
 import dataclasses
 import json
@@ -35,6 +37,7 @@ from repro_torch.obs import log as plog  # noqa: E402
 from repro_torch.obs import slo as pslo  # noqa: E402
 from repro_torch.obs import trace as ptr  # noqa: E402
 from repro_torch.serving import metrics as pmetrics  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 
 @pytest.fixture(scope="module")
@@ -54,6 +57,29 @@ def sim_events():
     evs = tr.events()
     assert any(e[jtr.EVT_NAME] == jtr.STEP for e in evs)
     return evs, tr.dropped
+
+
+@pytest.fixture(scope="module")
+def port_sim_events():
+    """The same serve on the port's own SimBackend and scheduler under the
+    port's tracer (the simulator substrate is ported): its events must be
+    the JAX-sourced stream, ts included."""
+    from repro_torch.configs import get_config as port_config
+    from repro_torch.core.cost_model import CostEnv as PEnv
+    from repro_torch.core.cost_model import Workload as PWork
+    from repro_torch.core.profiles import env_E3 as p_env_E3
+    from repro_torch.core.profiles import mbps as p_mbps
+    from repro_torch import serving as psv
+    cfg = port_config("llama2-13b")
+    env = PEnv(p_env_E3(), p_mbps(200), PWork(cfg, mb=1, ctx=64, n_micro=4))
+    arrivals = psv.cli_arrivals("bursty", 6, seed=0, prompt_len=64,
+                                max_new_tokens=8, gap_s=4.0, burst_size=4)
+    with ptr.tracing() as tr:
+        sched = psv.ContinuousBatchingScheduler(
+            psv.SimBackend(env, n_slots=4, prompt_tokens=64),
+            psv.SchedulerConfig(kv_policy="paged", page_size=16))
+        sched.serve(psv.requests_from_arrivals(arrivals))
+    return tr.events(), tr.dropped
 
 
 def _port_tracer(events, dropped=0):
@@ -328,3 +354,32 @@ def test_report_from_dict_equal(edit):
     assert _same(dataclasses.asdict(got), dataclasses.asdict(ref))
     assert warned["port"] == warned["jax"]
     assert bool(warned["port"]) == (d != _report_dict())
+
+
+# -- the same modules on the port's own simulator serve ----------------------
+def test_port_sim_serve_events_equal_jax_sourced(sim_events, port_sim_events):
+    assert port_sim_events == sim_events
+    names = {e[ptr.EVT_NAME] for e in port_sim_events[0]}
+    assert {ptr.STEP, ptr.STAGE_COMPUTE, ptr.ACT_HOP, ptr.REQ_SPAN} <= names
+
+
+def test_to_chrome_equal_on_port_sim_events(port_sim_events):
+    evs, dropped = port_sim_events
+    doc = pexp.to_chrome(_port_tracer(evs, dropped))
+    assert doc == jexp.to_chrome(_jax_tracer(evs, dropped))
+    assert pexp.validate_chrome(doc) == []
+
+
+def test_critical_path_equal_on_port_sim_events(port_sim_events):
+    evs, _ = port_sim_events
+    p, j = pcp.analyze(evs), jcp.analyze(evs)
+    assert p.to_dict() == j.to_dict()
+    assert p.to_dict()["n_rounds"] > 0 and len(p.to_dict()["requests"]) == 6
+    assert p.render(max_requests=4) == j.render(max_requests=4)
+
+
+def test_dashboard_equal_on_port_sim_events(port_sim_events):
+    evs, _ = port_sim_events
+    stream = _stream(1)
+    assert _same(_dash(pdash, pslo, ptr, evs, stream),
+                 _dash(jdash, jslo, jtr, evs, stream))

@@ -28,6 +28,7 @@ import numpy as np  # noqa: E402
 
 from _torch_parity import (assert_same_or_near_tie,  # noqa: E402
                            jax_params, port_cfg)
+from _torch_threads import one_thread  # noqa: E402,F401
 from repro.configs.registry import get_smoke_config  # noqa: E402
 from repro.obs import slo as jslo  # noqa: E402
 from repro.obs import trace as jtr  # noqa: E402
@@ -52,18 +53,6 @@ from test_torch_admission import _stream as arrivals  # noqa: E402
 
 MAX_NEW = 6
 PS = 8
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread for this module's small shapes: the suite runs
-    six workers on the host's cores, and with a thread a core in each the
-    tiny ops of these serves wait on each other (their serves took up to
-    100x their time alone in the parallel suite)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

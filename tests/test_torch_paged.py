@@ -50,6 +50,7 @@ from repro_torch.kvcache import pool as PP  # noqa: E402
 from repro_torch.kvcache.paged_decode import PagedDecodeCache  # noqa: E402
 from repro_torch.models import model as PM  # noqa: E402
 from repro_torch.prefixcache import radix as PR  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 
 def _torch_args(q, k, v, bt, ctx):

@@ -38,6 +38,7 @@ from repro_torch.core import online_planner as PO  # noqa: E402
 from repro_torch.core import profiles as PP  # noqa: E402
 from repro_torch.launch import serve as launch  # noqa: E402
 from repro_torch.serving.backend import EngineBackend  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 REL = 1e-12
 ARCHS = ("llama3.3-70b", "gemma3-1b")

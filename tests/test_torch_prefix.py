@@ -34,6 +34,7 @@ from repro_torch.launch import serve as launch  # noqa: E402
 from repro_torch.serving import (ContinuousBatchingScheduler,  # noqa: E402
                                  EngineBackend, LimeServer, SchedulerConfig,
                                  make_arrivals, requests_from_arrivals)
+from _torch_threads import one_thread  # noqa: E402,F401
 
 PROMPT, TEMPLATE, PS, CHUNK, MAX_NEW, MAX_LEN = 32, 24, 8, 8, 6, 64
 

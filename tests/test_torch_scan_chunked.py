@@ -42,6 +42,7 @@ from repro.models import ssm as JS  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import ops as wkv_ops  # noqa: E402
 from repro_torch.kernels.ssm_scan import ops as ssm_ops  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 CSRC = ROOT / "src" / "repro_torch" / "csrc"

@@ -17,6 +17,7 @@ from repro.configs.registry import get_smoke_config  # noqa: E402
 from repro.serving.server import LimeServer as JaxServer  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.serving import LimeServer  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 MAX_LEN, MAX_NEW = 32, 6
 

@@ -27,6 +27,7 @@ from repro_torch.serving import (ContinuousBatchingScheduler,  # noqa: E402
                                  LimeServer, SchedulerConfig)
 from repro_torch.specdec import (DepthController, SpecConfig,  # noqa: E402
                                  greedy_verify)
+from _torch_threads import one_thread  # noqa: E402,F401
 
 MAX_NEW = 6
 K = 3

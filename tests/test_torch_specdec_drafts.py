@@ -39,6 +39,7 @@ from repro_torch.specdec import (NgramDraft, ResidentDraft,  # noqa: E402
                                  default_resident_ids, greedy_verify,
                                  make_draft_provider, rejection_verify,
                                  target_probs, truncate_stack)
+from _torch_threads import one_thread  # noqa: E402,F401
 
 HIST = [3, 1, 4, 1, 5, 9, 2, 6, 5, 3, 5]
 KINDS = ("ngram", "model", "resident")

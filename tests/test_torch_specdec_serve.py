@@ -26,6 +26,7 @@ from repro_torch.serving import (ContinuousBatchingScheduler,  # noqa: E402
                                  EngineBackend, Request, SamplerConfig,
                                  SchedulerConfig)
 from repro_torch.specdec import SpecConfig  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 KINDS = ("ngram", "model", "resident")
 

@@ -41,6 +41,7 @@ from repro_torch.models import model as PM  # noqa: E402
 from repro_torch.models import ssm as PS  # noqa: E402
 from repro_torch.serving import LimeServer  # noqa: E402
 from repro_torch.specdec import SpecConfig  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 ARCH = "rwkv6-3b"
 BF16_ULP = 2.0 ** -7

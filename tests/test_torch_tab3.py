@@ -51,6 +51,7 @@ from repro_torch.launch import serve as launch  # noqa: E402
 from repro_torch.models import model as PM  # noqa: E402
 from repro_torch.serving import LimeServer  # noqa: E402
 from repro_torch.specdec import SpecConfig  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 NEW_ARCHS = ["llama2-13b", "qwen3-32b", "internlm2-1.8b", "codeqwen1.5-7b",
              "stablelm-12b", "pixtral-12b"]

@@ -18,6 +18,7 @@ import numpy as np  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.decode_attention import multiquery as mq  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as da  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 CSRC = ROOT / "src" / "repro_torch" / "csrc"
