@@ -149,6 +149,29 @@ Phases; any failure exits non-zero without the final ``ok`` line:
    per-replica launches, the FleetReport's TTFT p50 / p99 and decode
    ms/token (aggregate and per replica), prefix hit tokens per replica,
    HBM with one replica against two.
+2g. the measured-profile autotuner (repro_torch.tune): (a) measure_profile
+   times the card (a bf16 matmul of MEASURE_N, a MEASURE_MB-MiB fp32
+   scale, pinned H2D / D2H copies on a side stream; CUDA events), each
+   field printed with its CoV and its ratio to the typed H100_SXM, JAX's
+   n = 1024 matmul beside it; (b) run_sweep over all seven kernels at the
+   main path's shapes (the split count of kernels 1, 3, 4 and 5 over 1, 2,
+   4, 8 and the page size of 3 and 5 over 16-128; flash and the scans
+   timed at their one config), every candidate held to its plain version
+   (BF16_REL; the scans' output and state SCAN_REL), an illegal split
+   refused; the winners saved to a TuneCache in a temp dir and installed:
+   each split-count wrapper then launches once with the table's split
+   (the registry's record, bit-equal to that split passed explicitly), a
+   table split the kernel cannot take leaves the rule's, a forced
+   non-rule entry is launched, and decode and verify calls captured after
+   the install replay bit-equal to eager; (c) the 8-layer 70B through
+   launch.serve under a TUNE_BUDGET weight budget (Alg. 1 streams 5 of
+   8; --plan hetero --adapt --refit), untuned, with --measure
+   --profile-cache (the winners installed before any backend is built),
+   and from the cache alone: tokens equal the untuned serve's or differ
+   at a near tie, the tuned serves bit-equal, plans priced from the
+   measured profile, launch counts equal; the cached serve's streamed
+   layers' copies fed to note_load_timing, the re-fit's load_bw printed
+   beside the measured H2D rate.
 3a. the interleaved engine against the model on phase 2's weights, in a
    plan forced to stream (2 chunks of 2 resident + 2 streamed layers):
    decode and verify logits bit-equal to the model's kernel path (every
@@ -227,8 +250,8 @@ Phases; any failure exits non-zero without the final ``ok`` line:
    chunked-prefill pass (kernel 4's µs per call in each regime, the
    GEMMs' rate in the prefill round).
 3d. Alg. 1's plan on the engine, after 3b's engine is closed, depth cut
-   to ALG1_LAYERS (40) of the 80 layers with the weight budget scaled with
-   it (all 80 until PR 28; the cut pays for phase 2f): the launcher's
+   to ALG1_LAYERS (20) of the 80 layers with the weight budget scaled with
+   it (the cut pays for phases 2f and 2g): the launcher's
    hetero path (allocate_with_retry over the same CostEnv,
    n_emp = the prompt length; a relaxed memory scale fails the run), no
    retier headroom, exactly the plan's resident layers laid out; phase
@@ -243,7 +266,8 @@ Phases; any failure exits non-zero without the final ``ok`` line:
    Hopper bodies, a profiled serve, the reference re-serve within
    TAB3_LOGIT_REL_TOL; the reference's own noise floor read and held under
    TAB3_NOISE_FLOOR_MAX, planted prefill faults rejected); LLaMA-2-13B and
-   Qwen3-32B (all 64 layers) through Alg. 1's engine as phase 3d, at
+   Qwen3-32B (depth cut to 32 of its 64 layers, the budget halved with
+   it) through Alg. 1's engine as phase 3d, at
    TAB3_BUDGETS (about a third and a half of their layers streamed; every
    verify on the verify body at G 1 and G 8, every prefill round on the
    Hopper mainloop), LLaMA-2-13B's engine serving the batch once more with
@@ -376,12 +400,13 @@ SPEC_K = 4
 MAX_NEW_80 = 12           # tokens per request in phase 3b: >= 5 rounds at
                           # k = 4 only if drafts are mostly rejected
 RETIER_AT = ((2, +1), (4, -1))   # (after decode round, delta), bursty serve
-# phase 3d's depth cut: 40 of LLaMA-3.3-70B's 80 layers, the weight budget
-# scaled with it (Alg. 1 keeps 18 resident and streams 22 where it kept 38
-# and streamed 42 at 80). At 80 layers 3d took 125.3-158.8 s of PR 27's
-# calls, 41.9 s of it building the 71.9 GB pinned store; the cut pays for
-# phase 2f
-ALG1_LAYERS = 40
+# phase 3d's depth cut: 20 of LLaMA-3.3-70B's 80 layers, the weight budget
+# scaled with it (Alg. 1 keeps 8 resident and streams 12 where it kept 18
+# and 22 at 40, 38 and 42 at 80). On an H100 80GB HBM3 at 700 W, 3d took
+# 125.3-158.8 s at 80 layers, 41.9 s of it building the 71.9 GB pinned
+# store, and 68.9-83.5 s at 40; the cut to 40 paid for phase 2f, the cut
+# to 20 (with Qwen3-32B's in 3e) for phase 2g
+ALG1_LAYERS = 20
 PAGE = 64                 # KV page of the adaptive serve's admission
 BF16_PEAK = 989.4e12      # H100 SXM dense bf16 tensor FLOP/s (data sheet)
 
@@ -431,6 +456,16 @@ def library_time_ms(fn):
 
 def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def h2d_rate(src):
+    """Bytes/s of one-row copies from the pinned host tensor `src` (an
+    engine's store: one streamed layer a row) into HBM on a side stream,
+    the copies the engine's streamer issues: tune.measure's
+    measure_stream_bw, the port's one H2D measurement (the median of 6
+    copies, CUDA events)."""
+    from repro_torch.tune.measure import measure_stream_bw
+    return measure_stream_bw(src=src, reps=6)["h2d"][0]
 
 
 # ----------------------------------------------------------------------------
@@ -3051,6 +3086,557 @@ def fleet_phase(cfg, params, card):
     return total
 
 
+# ----------------------------------------------------------------------------
+# phase 2g: the measured-profile autotuner (tune/), 8 layers through the
+# launcher
+# ----------------------------------------------------------------------------
+MEASURE_N = 8192          # the profile's matmul: 1.1 TFLOP, ~1.4 ms at 790 TFLOP/s
+MEASURE_MB = 256          # the profile's scale and copies (MiB)
+MEASURE_REPS = 10
+SWEEP_REPS = 20           # device-timed calls a sweep candidate
+TUNE_BUDGET = 8e9         # the launcher's weight budget at 8 layers: Alg. 1
+                          # keeps 3 resident and streams 5
+TUNE_NEW = 8              # tokens per request in 2g's launcher serves
+TUNE_HEAD_DIM = 128       # LLaMA-3.3-70B's head dim: the serves' buckets
+TUNED_SPLIT = ("decode_attention", "paged_decode_attention",
+               "mq_decode_attention", "mq_paged_decode_attention")
+# the kernels line's rows at the sweep's shapes -> the sweep's kernel names
+SWEPT_AS = {"decode_attention": "decode_attention",
+            "flash_attention": "flash_attention",
+            "mq_decode_attention": "mq_decode_attention",
+            "paged_decode_attention": "paged_decode_attention",
+            "mq_paged_decode_attention@verify": "mq_paged_decode_attention",
+            "wkv_scan": "rwkv6_scan", "ssm_scan": "ssm_scan"}
+
+
+def measured_profile_check(card):
+    """(a) tune.measure's profile of the card against the typed H100_SXM:
+    each field, its CoV and its ratio; JAX's n = 1024 matmul beside the
+    card's n. Returns the profile."""
+    from repro_torch.core.profiles import H100_SXM
+    from repro_torch.tune.measure import device_kind, measure_flops, measure_profile
+    from repro_torch.tune.profiles import MEASURED_FIELDS
+    t0 = time.monotonic()
+    prof = measure_profile(device_kind(), H100_SXM, n=MEASURE_N, mb=MEASURE_MB,
+                           reps=MEASURE_REPS)
+    log(f"  measure_profile ({MEASURE_N}^3 bf16 matmul, {MEASURE_MB} MiB scale and "
+        f"pinned copies, {MEASURE_REPS} timed reps, CUDA events) in "
+        f"{time.monotonic() - t0:.1f} s: device_kind {prof.device_kind!r} [{card}]")
+    for f in MEASURED_FIELDS:
+        typed = getattr(H100_SXM, f)
+        val = getattr(prof, f)
+        if not (val > 0 and math.isfinite(val)):
+            raise AssertionError(f"measured {f} = {val}")
+        log(f"    {f:14s} {val:.4e}  CoV {prof.confidence[f]:.4f}  "
+            + (f"x{val / typed:.3f} of H100_SXM's {typed:.4e}" if typed > 0
+               else "H100_SXM types 0 (no write-back; host_bw = load_bw)"))
+    f1024, cov = measure_flops(n=1024, reps=MEASURE_REPS)
+    log(f"    flops at JAX's n = 1024: {f1024:.4e} (CoV {cov:.4f}), x"
+        f"{f1024 / H100_SXM.flops:.3f} of H100_SXM's [{card}]")
+    bad = prof.check_sane(H100_SXM)
+    log(f"    check_sane against H100_SXM (factor 3): {bad or 'every field within'}")
+    return prof
+
+
+def sweep_check(card, dk):
+    """(b) run_sweep over the seven kernels at the main path's shapes; every
+    candidate of every kernel held to its plain version (BF16_REL; the
+    scans' output and state SCAN_REL); an illegal split refused by the
+    registry. Returns (results, TuneCache of the winners)."""
+    from repro_torch.tune import TuneCache
+    from repro_torch.tune import sweep
+    cache = TuneCache()
+    t0 = time.monotonic()
+    results = sweep.run_sweep(cache=cache, device_kind=dk, reps=SWEEP_REPS)
+    log(f"  run_sweep, {SWEEP_REPS} device-timed calls a candidate (L2 flushed, "
+        f"enqueue hidden), in {time.monotonic() - t0:.1f} s [{card}]:")
+    for r in results:
+        log(f"    {r.kernel:26s} {r.bucket:11s} rule {r.default_cfg} "
+            f"{r.default_s * 1e6:8.2f} us, best {r.best_cfg} {r.best_s * 1e6:8.2f} us "
+            f"(x{r.speedup:.3f})")
+    t0 = time.monotonic()
+    n_checked = 0
+    for kernel in sweep.KERNELS:
+        run = sweep.runner(kernel)
+        moved = {}
+        for cfg in sweep.legal_candidates(kernel, run):
+            out, ref = run.run(cfg), run.plain(cfg)
+            if kernel in TUNED_SPLIT and cfg.get("page_size") == run.default.get("page_size"):
+                # how far a split moves the output from the rule's split
+                moved[cfg["n_split"]] = (out.float() - run.run(run.default).float()) \
+                    .abs().max().item()
+            if kernel in ("rwkv6_scan", "ssm_scan"):
+                for part, o, p in (("y", out[0], ref[0]), ("state", out[1], ref[1])):
+                    if rel_err(o, p) > SCAN_REL or not o.isfinite().all():
+                        raise AssertionError(f"{kernel} {cfg} {part}: rel_err "
+                                             f"{rel_err(o, p):.3e} > {SCAN_REL}")
+            elif rel_err(out, ref) > BF16_REL or not out.isfinite().all():
+                raise AssertionError(f"{kernel} {cfg}: rel_err {rel_err(out, ref):.3e} "
+                                     f"> {BF16_REL}")
+            n_checked += 1
+        if moved:
+            log(f"    {kernel}: max |out - out at the rule's split| by n_split "
+                f"(page {run.default.get('page_size', '-')}): "
+                f"{ {n: f'{d:.3e}' for n, d in sorted(moved.items())} }")
+    log(f"  every candidate against its plain version: {n_checked} calls within "
+        f"BF16_REL {BF16_REL:g} (scans: y and state within SCAN_REL {SCAN_REL:g}) in "
+        f"{time.monotonic() - t0:.1f} s")
+    run = sweep.runner("decode_attention")
+    try:
+        run.run({"n_split": 5})
+    except ValueError as e:
+        log(f"  an illegal split passed explicitly is refused: {e}")
+    else:
+        raise AssertionError("decode_attention took n_split=5 at 1024 slots")
+    return results, cache
+
+
+def installed_split_check(card, path):
+    """(b) the winners installed from the saved cache: each split-count
+    wrapper, called with no knob at the geometry its row was swept at (the
+    main path's B 4; a paged row's page size), launches once with the
+    table's split (the registry's record, and its output bit-equal to the
+    same split passed explicitly); a B 1 call of the same bucket keeps its
+    rule's split; a table entry the kernel cannot take leaves the rule's
+    split; a forced non-rule entry is launched as well; a decode and a
+    verify call captured after installing a split other than the rule's
+    replay bit-equal to the eager call at that split, off the rule's
+    output."""
+    import torch
+
+    from repro_torch.kernels import tuning
+    from repro_torch.tune import TuneCache
+    from repro_torch.tune import sweep
+    from repro_torch.tune.measure import device_kind
+    n = TuneCache.load(path).install(device_kind())
+    table = tuning.get_tuning_table()
+    log(f"  the winners saved to {os.path.basename(path)} and installed: {n} "
+        f"(kernel, bucket) entries {table}")
+    if n != len(TUNED_SPLIT):
+        raise AssertionError(f"installed {n} tuned configs, not {len(TUNED_SPLIT)}")
+    counters = kernel_counters()
+    for kernel in TUNED_SPLIT:
+        run = sweep.runner(kernel)
+        row = table[kernel][run.bucket]
+        if any(row.get(k) != v for k, v in run.at.items()):
+            raise AssertionError(f"{kernel}: row {row} not at the swept geometry {run.at}")
+        base = {"page_size": row["page_size"]} if "page_size" in row else {}
+        m, a = counters[kernel]
+        n0 = getattr(m, a)
+        out = run.run(base)
+        torch.cuda.synchronize()
+        _, _, split, source = tuning.last_lookup(kernel)
+        if getattr(m, a) != n0 + 1 or source != "table" or split != row["n_split"]:
+            raise AssertionError(f"{kernel}: launched {getattr(m, a) - n0} times with "
+                                 f"split {split} from the {source}, not the table's "
+                                 f"{row['n_split']}")
+        if not torch.equal(out, run.run(dict(base, n_split=split))):
+            raise AssertionError(f"{kernel}: the tuned call is not the explicit split's")
+        log(f"    {kernel}: one launch at the table's n_split {split} (rule "
+            f"{run.default['n_split']}; {row}), bit-equal to n_split={split} passed "
+            "explicitly")
+        if "page_size" in row and row["page_size"] != run.default["page_size"]:
+            run.run({"page_size": run.default["page_size"]})
+            got = tuning.last_lookup(kernel)
+            if got.source != "rule" or got.value != run.default["n_split"]:
+                raise AssertionError(f"{kernel}: a page {run.default['page_size']} "
+                                     f"pool took {got} from a page {row['page_size']} row")
+            log(f"    {kernel}: a page {run.default['page_size']} pool keeps its rule's "
+                f"n_split {got.value} (the row was timed at page {row['page_size']})")
+    for kernel in ("decode_attention", "mq_decode_attention"):
+        run = sweep.runner(kernel, {"B": 1})
+        out = run.run({})
+        got = tuning.last_lookup(kernel)
+        if got.source != "rule" or got.value != run.default["n_split"] \
+                or not torch.equal(out, run.run({"n_split": got.value})):
+            raise AssertionError(f"{kernel} at B 1: took {got} from a B 4 row")
+        log(f"    {kernel} at B 1 ({run.at}), same bucket: the rule's n_split "
+            f"{got.value}, not the B 4 row's {table[kernel][run.bucket]['n_split']}")
+    run = sweep.runner("decode_attention")
+    rule = run.default["n_split"]
+    try:
+        for value, source in ((5, "rule"), (2 if rule != 2 else 8, "table")):
+            tuning.set_tuning_table({"decode_attention":
+                                     {run.bucket: dict(run.at, n_split=value)}})
+            out = run.run({})
+            got = tuning.last_lookup("decode_attention")
+            if got.source != source or (source == "rule" and got.value != rule) \
+                    or (source == "table" and got.value != value):
+                raise AssertionError(f"table n_split {value}: launched {got}")
+            if not torch.equal(out, run.run({"n_split": got.value})):
+                raise AssertionError(f"table n_split {value}: output is not split "
+                                     f"{got.value}'s")
+            log(f"    a table entry n_split={value} at {run.bucket}: launched n_split "
+                f"{got.value} (from the {source})")
+    finally:
+        tuning.set_tuning_table(table)
+    # captures after an install of splits other than the rules'
+    forced = {}
+    for kernel in ("decode_attention", "mq_decode_attention"):
+        run = sweep.runner(kernel)
+        rule = run.default["n_split"]
+        forced[kernel] = {run.bucket: dict(run.at, n_split=2 if rule != 2 else 8)}
+    tuning.set_tuning_table(forced)
+    try:
+        for kernel in forced:
+            run = sweep.runner(kernel)
+            eager = run.run({})
+            split = tuning.last_lookup(kernel).value
+            if tuning.last_lookup(kernel).source != "table":
+                raise AssertionError(f"{kernel}: the forced split was not taken")
+            s = torch.cuda.Stream()
+            s.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(s):
+                run.run({})
+            torch.cuda.current_stream().wait_stream(s)
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g, stream=s):
+                static = run.run({})
+            static.zero_()
+            g.replay()
+            torch.cuda.synchronize()
+            if not torch.equal(static, eager) \
+                    or not torch.equal(eager, run.run({"n_split": split})):
+                raise AssertionError(f"{kernel}: the graph captured after the install "
+                                     f"does not replay the eager call at n_split {split}")
+            if torch.equal(static, run.run({"n_split": run.default["n_split"]})):
+                raise AssertionError(f"{kernel}: n_split {split} gave the rule's output")
+            log(f"    {kernel}: captured after installing n_split {split} (rule "
+                f"{run.default['n_split']}), replayed bit-equal to the eager call at "
+                f"{split} and off the rule's output")
+    finally:
+        tuning.set_tuning_table(table)
+
+
+def recorded_launch(argv):
+    """launch.serve.run(argv) with the engine's prompt passes' last logits
+    and every decode pass's logits recorded (fp32 copies, as served), the
+    position each decode pass starts from, the kernels' launches counted
+    and the split lookups (``tuning.lookup_counts``) taken, and the output
+    of every kernel 1 call made outside a capture (the captured decode
+    pass's eager warm-up: a layer each) with its ``weight_spread``.
+    Returns (run's dict, logits (T, mb, V), launches, decode positions,
+    lookups, [(kernel 1 output, weight spread)])."""
+    import torch
+
+    from repro_torch.core.engine import InterleavedEngine as E
+    from repro_torch.kernels import tuning
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.launch import serve as launcher
+    rec, pos, attn = [], [], []
+    decode = da.decode_attention
+
+    def attention(q, k, v, ids, p, **kw):
+        out = decode(q, k, v, ids, p, **kw)
+        if not torch.cuda.is_current_stream_capturing():
+            attn.append((out.clone(), weight_spread(q, k, ids, p)))
+        return out
+    orig = {name: getattr(E, name) for name in ("prefill", "prefill_partial",
+                                                "decode_requests")}
+
+    def recording(name):
+        def call(self, *a, **kw):
+            if name == "decode_requests":
+                pos.append(int(a[0]["pos"]))
+            out = orig[name](self, *a, **kw)
+            lg = out[0] if name == "decode_requests" else out[0][:, -1]
+            rec.append(lg[:, :self.cfg.vocab_size].float().clone())
+            return out
+        return call
+    zero_counts()
+    tuning.reset_lookups()
+    for name in orig:
+        setattr(E, name, recording(name))
+    da.decode_attention = attention
+    try:
+        res = launcher.run(argv)
+    finally:
+        for name, fn in orig.items():
+            setattr(E, name, fn)
+        da.decode_attention = decode
+    torch.cuda.synchronize()
+    return res, torch.stack(rec), read_counts(), pos, tuning.lookup_counts(), attn
+
+
+def weight_spread(q, k, ids, pos):
+    """How a decode call's softmax rows spread (fp64, from its q and
+    cache): (rows that put more than 2^-24 of their weight off their top
+    slot, rows, the median gap between a row's top two scores). A row
+    below 2^-24 sums the same fp32 values under any split."""
+    import torch
+    B, _, H, dh = q.shape
+    KV = k.shape[2]
+    sc = torch.einsum("bkgd,bskd->bkgs", q.reshape(B, KV, H // KV, dh).double(),
+                      k.double()) * dh ** -0.5
+    sc = sc.masked_fill(~((ids >= 0) & (ids <= pos)), float("-inf")).flatten(0, 2)
+    top = sc.topk(2, dim=-1).values
+    off = 1.0 - torch.softmax(sc, dim=-1).amax(-1)
+    return int((off > 2.0 ** -24).sum()), sc.shape[0], \
+        (top[:, 0] - top[:, 1]).median().item()
+
+
+def served_lookups(label, lookups, table, dh):
+    """Every split lookup of a launcher serve (``recorded_launch``) took the
+    installed table's split where a row of its bucket was swept at its
+    geometry, and the rule's elsewhere. Returns the lookups that took the
+    table's split, by kernel."""
+    from repro_torch.kernels import tuning
+    hits = {}
+    for (kernel, source, value, span, at), n in sorted(lookups.items()):
+        row = (table or {}).get(kernel, {}).get(tuning.shape_bucket(span, dh))
+        applies = bool(row) and all(row.get(k) == v for k, v in at)
+        if applies != (source == "table") \
+                or (applies and value != row["n_split"]):
+            raise AssertionError(f"{label}: {n} {kernel} lookups at span {span} "
+                                 f"{dict(at)} took n_split {value} from the {source}; "
+                                 f"the row there: {row}")
+        if applies:
+            hits[kernel] = hits.get(kernel, 0) + n
+        log(f"    {label}: {kernel} at span {span} {dict(at)}: n_split {value} from "
+            f"the {source}, {n} lookups")
+    return hits
+
+
+def split_probe(positions, card):
+    """Kernel 1 at the launcher serve's decode geometry (B 4, H 64 / KV 8 x
+    128, 1024 slots) with a cache filled up to each of the serve's decode
+    positions (random bf16, seed 0; later slots empty, id -1) and full:
+    how many outputs each legal split changes against the rule's split."""
+    import torch
+
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.tuning import split_legal
+    from repro_torch.tune import sweep
+    run = sweep.runner("decode_attention")
+    shape = sweep.DEFAULT_SHAPES["decode_attention"]
+    B, H, KV, dh, S = (shape[k] for k in ("B", "H", "KV", "dh", "span"))
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q = torch.randn((B, 1, H, dh), generator=g, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn((B, S, KV, dh), generator=g, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    rule = run.default["n_split"]
+    diff = {}
+    for p in sorted(set(positions)) + [S - 1]:
+        ids = torch.arange(S, dtype=torch.int32, device="cuda")
+        ids = torch.where(ids <= p, ids, torch.full_like(ids, -1))
+        pos = torch.tensor(p, dtype=torch.int32, device="cuda")
+        ref = da.decode_attention(q, k, v, ids, pos, n_split=rule)
+        for n in (1, 2, 4, 8):
+            if n != rule and split_legal(n, S):
+                out = da.decode_attention(q, k, v, ids, pos, n_split=n)
+                diff[(p, n)] = int((out != ref).sum())
+    log(f"  split probe, kernel 1 at B {B}, {S} slots: outputs (of {q.numel()}) that "
+        f"differ from the rule's n_split {rule}, by position/split: "
+        f"{ {f'{p}/{n}': d for (p, n), d in diff.items()} } [{card}]")
+    return diff
+
+
+def tuned_tokens_check(label, got, ref, lg_got, lg_ref):
+    """Served tokens of two launcher serves of one bursty batch: equal, or
+    the first divergence of each request a near tie (compare_greedy's
+    rule: the untuned serve's logit gap between the two picks within the
+    two serves' logit error there, both on the same prefix). Returns the
+    near ties."""
+    ties = 0
+    for i, (a, b) in enumerate(zip(got, ref)):
+        a, b = a.output, b.output
+        for lg, toks, who in ((lg_got, a, "tuned"), (lg_ref, b, "untuned")):
+            if lg[:, i].argmax(-1).tolist() != toks:
+                raise AssertionError(f"{label} req {i}: the recorded {who} logits do "
+                                     "not reproduce its served tokens")
+        t = next((t for t, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if t is None:
+            continue
+        gap = (lg_ref[t, i, b[t]] - lg_ref[t, i, a[t]]).item()
+        err = (lg_got[t, i] - lg_ref[t, i]).abs().max().item()
+        if gap > err:
+            raise AssertionError(f"{label} req {i}: token {t} differs from the untuned "
+                                 f"serve's outside a near tie (gap {gap:.4f} > err {err:.4f})")
+        log(f"    {label} req {i}: a near tie at {t} (gap {gap:.4f} <= err {err:.4f})")
+        ties += 1
+    return ties
+
+
+def launcher_tune_check(card, path):
+    """(c) the 8-layer 70B through launch.serve four times under a weight
+    budget that makes Alg. 1 stream (--plan hetero --adapt --refit): with
+    no tune cache (untuned: the H2D rate timed alone, the rules' splits),
+    with --measure --profile-cache (the sweep's winners installed before
+    any backend is built, the card measured and the profile saved), from
+    a copy of that cache whose decode row forces a split other than the
+    rule's (its lookups must take it; how far its kernel 1 outputs move
+    off the untuned serve's, and how spread the softmax rows they compute
+    are, is printed), and from the cache alone. Tokens equal
+    the untuned serve's or differ at a near tie; the two tuned serves
+    equal each other, their plans priced from the measured profile; launch
+    counts equal across the four. Every split
+    lookup of a tuned serve took the table's split where its row was swept
+    at the call's geometry (the serves' decode at B 4 and 1024 slots: at
+    least one), and the rule's elsewhere; the untuned serve's took the
+    rule's (``served_lookups``). ``split_probe`` reads how many outputs of
+    kernel 1 each split changes at the serve's decode positions. Then the
+    cached serve's engine's streamed-layer copies, timed, go through
+    EngineBackend.note_load_timing: the re-fit's load_bw beside the
+    measured H2D rate. Returns the main path's launches."""
+    import torch
+
+    from repro_torch.kernels import tuning
+    from repro_torch.tune import TuneCache, sweep
+    from repro_torch.tune.measure import device_kind
+    from repro_torch.tune.profiles import MEASURED_FIELDS
+    argv = ["--arch", "llama3.3-70b", "--layers", str(N_LAYERS), "--plan", "hetero",
+            "--adapt", "--refit", "--hbm-bytes", str(TUNE_BUDGET), "--pattern",
+            "bursty", "--requests", "4", "--prompt-len", str(PROMPT_LEN), "--max-len",
+            str(MAX_LEN), "--max-new", str(TUNE_NEW), "--page-size", str(PAGE)]
+    serves = {}
+    total = {}
+    positions = []
+    # the forced serve's cache: the saved one with the decode row at the
+    # serves' geometry set to a split other than the rule's there
+    forced = os.path.join(os.path.dirname(path), "forced.json")
+    rule = sweep.runner("decode_attention").default["n_split"]
+    split = 2 if rule != 2 else 8
+    for label, extra in (("untuned", []),
+                         ("measured", ["--measure", "--profile-cache", path]),
+                         ("forced", ["--profile-cache", forced]),
+                         ("cached", ["--profile-cache", path])):
+        tuning.set_tuning_table(None)
+        if label == "forced":
+            fc = TuneCache.load(path)
+            fc.get_kernel(device_kind(), "decode_attention",
+                          tuning.shape_bucket(MAX_LEN, TUNE_HEAD_DIM))["n_split"] = split
+            fc.save(forced)
+        t0 = time.monotonic()
+        res, lg, counts, positions, lookups, attn = recorded_launch(argv + extra)
+        wall = time.monotonic() - t0
+        done = sorted(res["done"], key=lambda r: r.rid)
+        env = res["env"].devices[0]
+        log(f"  launcher, {label}: {len(done)} requests x {TUNE_NEW} tokens in {wall:.1f} s "
+            f"(store, captures and serve); planned at load_bw {env.load_bw / 1e9:.2f} "
+            f"GB/s, flops {env.flops / 1e12:.1f} TFLOP/s, mem_bw {env.mem_bw / 1e12:.3f} "
+            f"TB/s; {res['installed']} tuned configs installed; decode passes from "
+            f"positions {positions}; launches { {k: v for k, v in counts.items() if v} }; "
+            f"TTFT p50 {res['report']['ttft_p50_s'] * 1e3:.1f} ms [{card}]")
+        hits = served_lookups(label, lookups, tuning.get_tuning_table(),
+                              TUNE_HEAD_DIM)
+        if label != "untuned" and not hits.get("decode_attention"):
+            raise AssertionError(f"{label}: no decode lookup took the table's split")
+        if label != "cached":
+            if res["engine"] is not None:
+                res["engine"].close()
+        serves[label] = (res, done, lg, counts, attn)
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        if label == "untuned" and (res["installed"] or res["measured"] is not None):
+            raise AssertionError("the untuned serve planned from a tune cache")
+        if label != "untuned":
+            m = res["measured"]
+            if m is None or res["installed"] != len(TUNED_SPLIT):
+                raise AssertionError(f"{label}: no measured profile or tuned configs")
+            for f in MEASURED_FIELDS:
+                if getattr(env, f) != getattr(m, f):
+                    raise AssertionError(f"{label}: planned {f} is not the measured one")
+    (res_u, done_u, lg_u, c_u, at_u), (res_m, done_m, lg_m, c_m, _), \
+        (res_c, done_c, lg_c, c_c, _) = serves["untuned"], serves["measured"], \
+        serves["cached"]
+    _, done_f, lg_f, c_f, at_f = serves["forced"]
+    if res_m["measured"].to_json(sort_keys=True) \
+            != res_c["measured"].to_json(sort_keys=True):
+        raise AssertionError("the cached serve's profile is not the one --measure saved")
+    if not (c_u == c_m == c_c == c_f) or c_u["decode_attention"] <= 0:
+        raise AssertionError(f"launch counts differ: {c_u}, {c_m}, {c_c}, {c_f}")
+    # the forced split reached the serve's kernel 1 launches: the decode
+    # pass's eager warm-up (a call a layer, before its capture) moves off
+    # the rule's outputs (split_probe: a split changes a few outputs a call)
+    ties = tuned_tokens_check("forced split vs untuned", done_f, done_u, lg_f, lg_u)
+    moved = [int((a != b).sum()) for (a, _), (b, _) in zip(at_f, at_u)]
+    if len(at_f) != len(at_u) or not at_u:
+        raise AssertionError(f"eager kernel 1 calls: {len(at_f)} forced, {len(at_u)} untuned")
+    # where the outputs did not move: how many softmax rows any split could move
+    log(f"  forced serve (decode row n_split {split} at the serves' geometry, rule "
+        f"{rule}; its captures and warm-ups took it, above): kernel 1 outputs that differ "
+        f"from the untuned serve's, by eager call (of {at_u[0][0].numel()}): {moved}; "
+        f"rows with more than 2^-24 of their weight off the top slot, of "
+        f"{at_u[0][1][1]}: {[w[0] for _, w in at_u]}, median top-2 score gap "
+        f"{[round(w[2], 1) for _, w in at_u]}; logits max |diff| "
+        f"{(lg_f - lg_u).abs().max().item():.4f}, "
+        f"{sum(a.output == b.output for a, b in zip(done_f, done_u))} of {len(done_u)} "
+        f"requests token-identical, {ties} near ties [{card}]")
+    if [r.output for r in done_m] != [r.output for r in done_c] \
+            or not torch.equal(lg_m, lg_c):
+        raise AssertionError("the measured and the cached serves differ")
+    ties = tuned_tokens_check("tuned vs untuned", done_c, done_u, lg_c, lg_u)
+    same = sum(a.output == b.output for a, b in zip(done_c, done_u))
+    log(f"  tuned serves against the untuned serve: {same} of {len(done_u)} requests "
+        f"token-identical, {ties} diverge at a near tie; logits max |diff| "
+        f"{(lg_c - lg_u).abs().max().item():.4f}; the measured and cached serves "
+        f"bit-equal")
+    split_probe(positions, card)
+    eng, be = res_c["engine"], res_c["backend"]
+    try:
+        rf = be.refit
+        if rf is None:
+            raise AssertionError("--refit with --adapt built no re-fit")
+        src = eng.store.data.flatten(0, 1)
+        buf = torch.empty_like(src[0], device="cuda")
+        side = torch.cuda.Stream()
+        row = buf.numel() * buf.element_size()
+        secs = []
+        for i in range(8):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            with torch.cuda.stream(side):
+                a.record(side)
+                buf.copy_(src[i % src.shape[0]], non_blocking=True)
+                b.record(side)
+            b.synchronize()
+            secs.append(a.elapsed_time(b) * 1e-3)
+            be.note_load_timing(0, row, secs[-1])
+        planned = res_c["measured"].load_bw
+        est = rf.drift(0)["load_bw"] * rf.env.devices[0].load_bw
+        log(f"  note_load_timing fed {len(secs)} copies of a streamed layer ({row / 1e9:.3f} GB, "
+            f"median {statistics.median(secs) * 1e3:.2f} ms = "
+            f"{row / statistics.median(secs) / 1e9:.2f} GB/s): the re-fit's load_bw "
+            f"{est / 1e9:.2f} GB/s beside the measured profile's H2D {planned / 1e9:.2f} "
+            f"GB/s ({len(rf.events)} re-fit events"
+            + (f": {[(e.field, round(e.planned / 1e9, 2), round(e.measured / 1e9, 2)) for e in rf.events]}"
+               if rf.events else ", within the 20% drift tolerance")
+            + f"; the planner's load_bw now {rf.env.devices[0].load_bw / 1e9:.2f} GB/s) [{card}]")
+    finally:
+        eng.close()
+        tuning.set_tuning_table(None)
+    return total
+
+
+def tune_phase(card):
+    """Phase 2g. Returns (main-path launches of the launcher serves, the
+    sweep's results)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.kernels import tuning
+    from repro_torch.tune.measure import device_kind
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 2g: the measured-profile autotuner on {device_kind()!r} [{card}]")
+    prof = measured_profile_check(card)
+    tmp = tempfile.mkdtemp(prefix="tune2g-")
+    try:
+        path = os.path.join(tmp, "tune_cache.json")
+        results, cache = sweep_check(card, device_kind())
+        cache.save(path)
+        installed_split_check(card, path)
+        tuning.set_tuning_table(None)
+        launches = launcher_tune_check(card, path)
+    finally:
+        tuning.set_tuning_table(None)
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, {r.kernel: r for r in results}
+
+
 PAIR_STEPS = 5            # steps of a captured-vs-eager pair check
 
 
@@ -3865,7 +4451,7 @@ def recurrent_engine_serve(arch, card):
     from repro_torch.configs import get_config
     from repro_torch.configs.base import Family
     from repro_torch.core.engine import InterleavedEngine
-    from repro_torch.launch.serve import HBM_FRAC, cost_env, measure_h2d
+    from repro_torch.launch.serve import HBM_FRAC, cost_env
     from repro_torch.models import model as M
     from repro_torch.serving import LimeServer, summarize
 
@@ -3885,7 +4471,7 @@ def recurrent_engine_serve(arch, card):
     torch.cuda.synchronize()
     n_res = len(eng.resident_layer_ids())
     streamed = (L - n_res) * eng.layer_bytes
-    rate = measure_h2d(eng.store.data.flatten(0, 1)) / 1e9
+    rate = h2d_rate(eng.store.data.flatten(0, 1)) / 1e9
     env = cost_env(cfg, budget, width=4, prompt_len=PROMPT_LEN, load_bw=rate * 1e9)
     env.evaluate(plan)
     log(f"phase 3f: {cfg.name} ({cfg.family.value}) at full width and all {L} layers "
@@ -4345,7 +4931,7 @@ def full_model_phase(card):
     from repro_torch.core.capture import CapturedStep
     from repro_torch.core.online_planner import OnlinePlanner
     from repro_torch.kernels.decode_attention import multiquery as mq
-    from repro_torch.launch.serve import HBM_FRAC, cost_env, hetero_plan, measure_h2d
+    from repro_torch.launch.serve import HBM_FRAC, cost_env, hetero_plan
     from repro_torch.kernels.decode_attention import ops as da
     from repro_torch.models import model as M
     from repro_torch.obs import Tracer, set_tracer
@@ -4407,7 +4993,7 @@ def full_model_phase(card):
         f"MemAvailable now {meminfo()['MemAvailable'] / 1e9:.2f} GB, HBM "
         f"allocated {torch.cuda.memory_allocated() / 1e9:.2f} GB")
     host_mem("after the tiers are built")
-    rate = measure_h2d(store.data.flatten(0, 1)) / 1e9
+    rate = h2d_rate(store.data.flatten(0, 1)) / 1e9
     log(f"  pinned H2D on a side stream: {rate:.2f} GB/s (one-layer copies of "
         f"{l_bytes / 1e9:.3f} GB) [{card}]")
     # the cost model on this card: the H100 profile at the weight budget's
@@ -4644,7 +5230,7 @@ def alg1_phase(card, cfg, params, budget, rate, prompts, phase="3d", ngram=False
     from repro_torch.core.engine import InterleavedEngine
     from repro_torch.kernels.decode_attention import multiquery as mq
     from repro_torch.kernels.decode_attention import ops as da
-    from repro_torch.launch.serve import HBM_FRAC, cost_env, hetero_plan, measure_h2d
+    from repro_torch.launch.serve import HBM_FRAC, cost_env, hetero_plan
     from repro_torch.serving import LimeServer, summarize
     from repro_torch.specdec import SpecConfig
 
@@ -4684,7 +5270,7 @@ def alg1_phase(card, cfg, params, budget, rate, prompts, phase="3d", ngram=False
     log(f"  tiers built in {time.monotonic() - t0:.1f} s: pinned "
         f"{eng.store.nbytes / 1e9:.2f} GB, HBM allocated "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB [{card}]")
-    rate_here = measure_h2d(eng.store.data.flatten(0, 1)) / 1e9
+    rate_here = h2d_rate(eng.store.data.flatten(0, 1)) / 1e9
     cost_env(cfg, budget, width=4, prompt_len=PROMPT_LEN,
              load_bw=rate_here * 1e9).evaluate(plan)
     log(f"  pinned H2D on a side stream from this store: {rate_here:.2f} GB/s (one-layer "
@@ -4768,9 +5354,12 @@ def _leaves(t):
 # Alg. 1's weight budgets on one H100 (the launcher's --hbm-bytes): LLaMA-
 # 2-13B's offloading plans are feasible at few budgets (one streamed layer
 # a segment fits its memory formula): 22e9 keeps 28 of 40 layers resident
-# and streams 12 (n_seg 12); Qwen3-32B at 40e9 keeps 36 of 64 and streams
-# 28 (27.3 GB pinned)
-TAB3_BUDGETS = (("llama2-13b", 22e9), ("qwen3-32b", 40e9))
+# and streams 12 (n_seg 12); Qwen3-32B, depth cut to 32 of its 64 layers
+# (at 64 its store of 27.3 GB and its passes took ~40 s of 3e; with 3d's
+# cut it pays for phase 2g), at 20e9 keeps 17 and streams 15
+# (14.6 GB pinned; at 64 layers 40e9 kept 36 and streamed 28). (arch,
+# layers, budget)
+TAB3_BUDGETS = (("llama2-13b", 40, 22e9), ("qwen3-32b", 32, 20e9))
 TAB3_CUT = 8               # StableLM-2-12B and Pixtral-12B: 8 of 40 layers
 # LLaMA-2-13B on the single-device path: 20 of 40 layers (all 40 took
 # ~125 s of 3e's 259.6 s when the script took 1307 s on the slow host of
@@ -4796,7 +5385,7 @@ PIXTRAL_PATCHES, PIXTRAL_TEXT, PIXTRAL_STEPS = 256, 256, 16
 
 def tab3_phase(card, rate):
     """Phase 3e: LLaMA-2-13B at TAB3_SINGLE of its 40 layers on the
-    single-device path; LLaMA-2-13B (all 40 layers) and Qwen3-32B (all
+    single-device path; LLaMA-2-13B (all 40 layers) and Qwen3-32B (32 of
     64) through Alg. 1's engine at TAB3_BUDGETS (H2D rate `rate` for the
     planning, phase 3b's);
     StableLM-2-12B (parallel blocks, head_dim 160) at 8 layers on the
@@ -4835,8 +5424,11 @@ def tab3_phase(card, rate):
     layer_errors(cfg, params, make_prompts(4, cfg.vocab_size, 0), card, cfg.name)
     del params
     fresh()
-    for arch, budget in TAB3_BUDGETS:
-        cfg = get_config(arch)
+    for arch, layers, budget in TAB3_BUDGETS:
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+        if layers < get_full_layers(cfg):
+            log(f"phase 3e: {arch} DEPTH CUT to {layers} of {get_full_layers(cfg)} "
+                f"layers, the weight budget {budget / 1e9:.0f} GB")
         got = alg1_phase(card, cfg, M.init_params_by_layer(cfg, seed=0), budget, rate,
                          make_prompts(4, cfg.vocab_size, 0), phase="3e",
                          ngram=arch == "llama2-13b")
@@ -5362,7 +5954,7 @@ def moe_engine_check(card):
 
     from repro_torch.configs import get_config
     from repro_torch.core.engine import InterleavedEngine, packed_layer_bytes, plan_for
-    from repro_torch.launch.serve import HBM_FRAC, cost_env, hetero_plan, measure_h2d
+    from repro_torch.launch.serve import HBM_FRAC, cost_env, hetero_plan
     from repro_torch.models import model as M
     from repro_torch.serving import LimeServer, summarize
     from repro_torch.serving.backend import EngineBackend
@@ -5381,7 +5973,7 @@ def moe_engine_check(card):
     eng.init_state(params)
     torch.cuda.synchronize()
     streamed = (L - n_res) * packed
-    rate = measure_h2d(eng.store.data.flatten(0, 1)) / 1e9
+    rate = h2d_rate(eng.store.data.flatten(0, 1)) / 1e9
     env = cost_env(cfg, MOE_ENGINE_HBM, width=4, prompt_len=PROMPT_LEN,
                    load_bw=rate * 1e9)
     env.evaluate(plan)
@@ -5890,7 +6482,7 @@ def encdec_engine_check(cfg, params, fe, toks, ref, lk, got, card):
     import torch
 
     from repro_torch.core.engine import InterleavedEngine
-    from repro_torch.launch.serve import HBM_FRAC, cost_env, measure_h2d
+    from repro_torch.launch.serve import HBM_FRAC, cost_env
     from repro_torch.models import model as M
     n, V, L, S_enc = fe.shape[0], cfg.vocab_size, cfg.n_layers, fe.shape[1]
     feed = ref[:, :-1]
@@ -5901,7 +6493,7 @@ def encdec_engine_check(cfg, params, fe, toks, ref, lk, got, card):
     torch.cuda.synchronize()
     n_res = len(eng.resident_layer_ids())
     streamed = (L - n_res) * eng.layer_bytes
-    rate = measure_h2d(eng.store.data.flatten(0, 1)) / 1e9
+    rate = h2d_rate(eng.store.data.flatten(0, 1)) / 1e9
     env = cost_env(cfg, budget, width=n, prompt_len=PROMPT_LEN, load_bw=rate * 1e9)
     env.evaluate(plan)
     log(f"  (b) the engine: --hbm-bytes {budget / 1e9:.3f} GB (x {HBM_FRAC}), plan_for "
@@ -6210,6 +6802,10 @@ def main() -> int:
         for k, n in fleet_phase(cfg8, params8, card).items():
             launches[k] = launches.get(k, 0) + n
         t = done("2f", t)
+        got, sweep_results = tune_phase(card)
+        for k, n in got.items():
+            launches[k] = launches.get(k, 0) + n
+        t = done("2g", t)
         engine_check_phase(cfg8, params8, card)
         t = done("3a", t)
         del params8
@@ -6322,6 +6918,14 @@ def main() -> int:
                 "launches": launches[name], "max_abs_err": r["max_abs_err"],
                 "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+            # phase 2g's sweep at this kernel's main shape: the rule's
+            # launch config and time against the winner's
+            sw = sweep_results.get(SWEPT_AS.get(name))
+            if sw is not None:
+                kernels[-1]["tuned"] = {
+                    "bucket": sw.bucket, "rule": sw.default_cfg,
+                    "rule_ms": sw.default_s * 1e3, "best": sw.best_cfg,
+                    "best_ms": sw.best_s * 1e3}
         line = {"kernels": kernels}
         if depth < 80:                   # a host-memory-forced depth cut
             line["engine_layers"] = {"served": depth, "of": 80}

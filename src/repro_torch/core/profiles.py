@@ -102,9 +102,13 @@ def env_lowmem(setting: int) -> List[DeviceProfile]:
 #            round of the same engine ran at 782-793 TFLOP/s;
 #   load_bw  44.77e9: pinned host -> HBM one-layer copies on a side stream
 #            (38.5-55.0 GB/s across machines).
-# mem_bytes and load_bw are replaced at run time by the measured weight
-# budget and H2D rate (launch/serve.py cost_env), as the JAX launcher
-# replaces its profile's fields with measured ones.
+# mem_bytes is replaced at run time by the weight budget, and load_bw by
+# the H2D rate that tune/measure.py's measure_stream_bw times (pinned host
+# rows copied into HBM on a side stream, CUDA events); with --measure or a
+# tune cache every timed field (flops, mem_bw, load_bw, load_write_bw,
+# host_bw) comes from tune/measure.py's measure_profile (launch/serve.py
+# cost_env), as the JAX launcher replaces its profile's fields with
+# measured ones.
 H100_SXM = DeviceProfile(
     name="h100-sxm5-80gb",
     mem_bytes=80e9,

@@ -29,7 +29,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import _launch, build
+from repro_torch.kernels import _launch, build, tuning
 from repro_torch.kernels.decode_attention.ops import (CLUSTER_MAX,
                                                       GLOBAL_WINDOW, NEG_INF,
                                                       _sm_count)
@@ -102,7 +102,7 @@ def split_count(B: int, Q: int, H: int, KV: int, S: int, sms: int) -> int:
     (64-row tile, kv head, batch) grid alone gives fewer than about two
     blocks per SM: about four blocks per SM, at most CLUSTER_MAX, each a
     whole number of the kernel's slot tiles. 1: unsplit."""
-    blocks = math.ceil(Q * (H // KV) / ROWS_PER_BLOCK) * KV * B
+    blocks = split_blocks("mma", B, Q, H, KV)
     if blocks >= 2 * sms:
         return 1
     want = min(CLUSTER_MAX, max(1, math.ceil(4 * sms / blocks)))
@@ -119,7 +119,33 @@ def n_splits(body: str, B: int, Q: int, H: int, KV: int, S: int,
     return 1 if body == "mainloop" else split_count(B, Q, H, KV, S, sms)
 
 
-def mq_decode_attention(q, k_cache, v_cache, pos_ids, pos, *, window=None):
+def split_blocks(body: str, B: int, Q: int, H: int, KV: int) -> int:
+    """The blocks a split multiplies: what ``n_splits``' rule reads
+    besides the slots and the SM count (B · KV for the verify body, the
+    row tiles times B · KV for the mma.sync body)."""
+    if body == "verify":
+        return B * KV
+    return math.ceil(Q * (H // KV) / ROWS_PER_BLOCK) * KV * B
+
+
+def tuned_split(kernel: str, body: str, S: int, dh: int, override,
+                rule: int, at=None) -> int:
+    """The split a call of `body` launches with: the mainloop's is 1 and
+    has no knob; the verify body takes splits of at least two tiles, the
+    mma.sync body of one (``tuning.resolve``: override, table, rule; `at`
+    the call's launch geometry)."""
+    if body == "mainloop":
+        if override not in (None, 1):
+            raise ValueError(f"{kernel}: the Hopper mainloop runs unsplit, "
+                             f"not n_split={override}")
+        return 1
+    tiles = 2 if body == "verify" else 1
+    return tuning.resolve(kernel, S, dh, "n_split", override, rule,
+                          lambda n: tuning.split_legal(n, S, tiles), at)
+
+
+def mq_decode_attention(q, k_cache, v_cache, pos_ids, pos, *, window=None,
+                        n_split=None):
     """q: (B, q_len, H, dh); k/v_cache: (B, S_c, KV, dh); pos_ids: (S_c,)
     int32; pos: the position of query 0, an int or a 0-d int32 tensor on
     q's device (``_launch.device_position``: the kernel reads it from
@@ -129,7 +155,9 @@ def mq_decode_attention(q, k_cache, v_cache, pos_ids, pos, *, window=None):
     CUDA graph: the prefill rounds' (mq_body "mainloop") TMA descriptors
     are kernel parameters, copied into the graph by value at capture, and
     encode addresses the graph keeps (q and out in its pool, the cache
-    in its scope), see ``csrc/attention_sm90.cuh``."""
+    in its scope), see ``csrc/attention_sm90.cuh``. n_split: the verify
+    and mma.sync bodies' split count (``tuning.split_legal``; the
+    mainloop runs unsplit); None: the tuned table's, else n_splits'."""
     global launches, hopper_launches, verify_sm90_launches
     if q.device.type == "cpu":
         return mq_decode_attention_plain(q, k_cache, v_cache, pos_ids, pos,
@@ -160,7 +188,10 @@ def mq_decode_attention(q, k_cache, v_cache, pos_ids, pos, *, window=None):
     pos = _launch.device_position("mq_decode_attention", pos, q.device)
     vec = _launch.vector_ok(dh, q, k_cache, v_cache)
     body = mq_body(Q, H // KV, dh, vec)
-    n_split = n_splits(body, B, Q, H, KV, S_c, _sm_count(q.device.index))
+    n_split = tuned_split("mq_decode_attention", body, S_c, dh, n_split,
+                          n_splits(body, B, Q, H, KV, S_c,
+                                   _sm_count(q.device.index)),
+                          {"blocks": split_blocks(body, B, Q, H, KV)})
     out = torch.empty_like(q)
     rc = build.load().repro_mq_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
@@ -202,11 +233,12 @@ def mq_paged_decode_attention_plain(q, k_pool, v_pool, block_tables,
 
 
 def mq_paged_decode_attention(q, k_pool, v_pool, block_tables, ctx_lens, *,
-                              window=None):
+                              window=None, n_split=None):
     """q: (B, q_len, H, dh); k/v_pool: (P, page_size, KV, dh);
     block_tables: (B, max_pages) int32; ctx_lens: (B,) int32 including the
     q_len new tokens -> (B, q_len, H, dh). CPU tensors take the plain
-    version; CUDA tensors launch the kernel or raise (bf16 only)."""
+    version; CUDA tensors launch the kernel or raise (bf16 only). n_split
+    as ``mq_decode_attention``'s."""
     global paged_launches, paged_hopper_launches, paged_verify_sm90_launches
     if q.device.type == "cpu":
         return mq_paged_decode_attention_plain(q, k_pool, v_pool,
@@ -235,8 +267,11 @@ def mq_paged_decode_attention(q, k_pool, v_pool, block_tables, ctx_lens, *,
     # the contiguous kernel's body and split of the same S = max_pages · ps
     # slots
     body = mq_body(Q, H // KV, dh, vec)
-    n_split = n_splits(body, B, Q, H, KV, max_pages * ps,
-                       _sm_count(q.device.index))
+    n_split = tuned_split(name, body, max_pages * ps, dh, n_split,
+                          n_splits(body, B, Q, H, KV, max_pages * ps,
+                                   _sm_count(q.device.index)),
+                          {"blocks": split_blocks(body, B, Q, H, KV),
+                           "page_size": ps})
     out = torch.empty_like(q)
     rc = build.load().repro_mq_paged_decode_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),

@@ -19,7 +19,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import _launch, build
+from repro_torch.kernels import _launch, build, tuning
 
 NEG_INF = -2.0e30
 GLOBAL_WINDOW = 2 ** 30
@@ -78,11 +78,14 @@ def takes_hopper_decode(dtype, dh: int, vec: int, G: int) -> bool:
         and dh <= HOPPER_MAX_HEAD_DIM and G <= HOPPER_MAX_GROUP
 
 
-def decode_attention(q, k_cache, v_cache, pos_ids, pos, *, window=None):
+def decode_attention(q, k_cache, v_cache, pos_ids, pos, *, window=None,
+                     n_split=None):
     """q: (B, 1, H, dh); k/v_cache: (B, S_c, KV, dh); pos_ids: (S_c,)
     int32; pos: int or 0-d int32 tensor on q's device (``_launch.
     device_position``) -> (B, 1, H, dh). CPU tensors take the plain
-    version; CUDA tensors launch the kernel or raise."""
+    version; CUDA tensors launch the kernel or raise. n_split: the split
+    count (``tuning.split_legal``); None: the tuned table's where it was
+    timed at this B · KV, else split_count's."""
     global launches, hopper_launches
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, pos_ids, pos,
@@ -105,7 +108,10 @@ def decode_attention(q, k_cache, v_cache, pos_ids, pos, *, window=None):
                          f"({S_c},) int32 tensor on {q.device}")
     pos = _launch.device_position("decode_attention", pos, q.device)
     window = GLOBAL_WINDOW if window is None else int(window)
-    n_split = split_count(B, KV, S_c, _sm_count(q.device.index))
+    n_split = tuning.resolve(
+        "decode_attention", S_c, dh, "n_split", n_split,
+        split_count(B, KV, S_c, _sm_count(q.device.index)),
+        lambda n: tuning.split_legal(n, S_c), at={"blocks": B * KV})
     vec = _launch.vector_ok(dh, q, k_cache, v_cache)
     out = torch.empty_like(q)
     rc = build.load().repro_decode_attention(

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _launch, build
+from repro_torch.kernels import _launch, build, tuning
 from repro_torch.kernels.decode_attention.ops import (GLOBAL_WINDOW, NEG_INF,
                                                       _sm_count, split_count,
                                                       takes_hopper_decode)
@@ -101,11 +101,11 @@ def check_tables(name, q, pool, block_tables, ctx_lens):
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_tables, ctx_lens, *,
-                           window=None):
+                           window=None, n_split=None):
     """q: (B, 1, H, dh); k/v_pool: (P, page_size, KV, dh); block_tables:
     (B, max_pages) int32; ctx_lens: (B,) int32 -> (B, 1, H, dh). CPU
     tensors take the plain version; CUDA tensors launch the kernel or
-    raise."""
+    raise. n_split as ``decode_attention``'s."""
     global launches, hopper_launches
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pool, v_pool, block_tables,
@@ -127,7 +127,12 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, ctx_lens, *,
     window = GLOBAL_WINDOW if window is None else int(window)
     max_pages = block_tables.shape[1]
     # the contiguous kernel's split of the same S = max_pages · ps slots
-    n_split = split_count(B, KV, max_pages * ps, _sm_count(q.device.index))
+    S = max_pages * ps
+    n_split = tuning.resolve(
+        name, S, dh, "n_split", n_split,
+        split_count(B, KV, S, _sm_count(q.device.index)),
+        lambda n: tuning.split_legal(n, S),
+        at={"blocks": B * KV, "page_size": ps})
     vec = _launch.vector_ok(dh, q, k_pool, v_pool)
     out = torch.empty_like(q)
     rc = build.load().repro_paged_decode_attention(

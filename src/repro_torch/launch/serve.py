@@ -88,6 +88,18 @@ model's entry points and the engine.
       --page-size 8 --pattern shared_prefix --n-templates 2 \
       --prefix-len 24 --prompt-len 32 --requests 8 --max-new 8
 
+  # the measured-profile autotuner: time the device (matmul, HBM scale, pinned
+  # copies both ways), save the profile to a tune cache, and plan Alg. 1
+  # and the OnlinePlanner from it; the cache's swept split counts
+  # (python -m repro_torch.tune.sweep --out PATH) are installed before
+  # any backend captures; a second launch plans from the cache alone:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.3-70b \
+      --smoke --layers 4 --device cpu --hbm-bytes 3.2e6 --adapt --refit \
+      --measure --profile-cache tune.json --pattern bursty --requests 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.3-70b \
+      --smoke --layers 4 --device cpu --hbm-bytes 3.2e6 --adapt --refit \
+      --profile-cache tune.json --pattern bursty --requests 4
+
 Prints one line per request, then the JSON ServingReport (with an "slo"
 section under --slo), or the FleetReport's JSON with --replicas > 1.
 """
@@ -104,25 +116,36 @@ HBM_FRAC = 0.92
 
 
 def cost_env(cfg, hbm_bytes: float, *, width: int, prompt_len: int,
-             load_bw: float = 0.0):
+             load_bw: float = 0.0, measured=None):
     """The one-card CostEnv the launcher plans with: the H100 profile
     with the weight budget's resident share (hbm_bytes · HBM_FRAC, the
-    bytes plan_for plans into; activations live in the rest) and, where
-    given, a measured H2D rate. One card has no network hop: activations
-    pass between segments in HBM, so bw_net is the HBM rate and the
-    per-message latency 0 (a segment's handoff costs nothing; load time
-    an idle compute stream cannot cover shows up as T_uncover)."""
+    bytes plan_for plans into; activations live in the rest) and the
+    card's timed rates from one source, where given: `measured`, a
+    MeasuredProfile (the tune cache's: its MEASURED_FIELDS replace the
+    typed ones; memory stays the enforced budget), or `load_bw`, an H2D
+    rate timed alone (``tune.measure.measure_stream_bw``). One card has no
+    network hop: activations pass between segments in HBM, so bw_net is
+    the HBM rate and the per-message latency 0 (a segment's handoff costs
+    nothing; load time an idle compute stream cannot cover shows up as
+    T_uncover)."""
     from repro_torch.core.cost_model import CostEnv, Workload
     from repro_torch.core.profiles import H100_SXM
-    dev = dataclasses.replace(H100_SXM, mem_bytes=hbm_bytes * HBM_FRAC,
-                              load_bw=load_bw or H100_SXM.load_bw)
+    from repro_torch.tune.profiles import MEASURED_FIELDS
+    if load_bw and measured is not None:
+        raise ValueError("cost_env: the timed rates come from one source, "
+                         "load_bw or measured")
+    timed = {f: getattr(measured, f) for f in MEASURED_FIELDS
+             if getattr(measured, f) > 0} if measured is not None \
+        else {"load_bw": load_bw} if load_bw else {}
+    dev = dataclasses.replace(H100_SXM, **timed,
+                              mem_bytes=hbm_bytes * HBM_FRAC)
     return CostEnv([dev], dev.mem_bw,
                    Workload(cfg, mb=width, ctx=prompt_len, n_micro=1),
                    net_latency=0.0)
 
 
 def hetero_plan(cfg, hbm_bytes: float, *, width: int, prompt_len: int,
-                n_emp: int, load_bw: float = 0.0):
+                n_emp: int, load_bw: float = 0.0, measured=None):
     """Alg. 1 (allocate_with_retry) over cost_env: returns (result, env,
     scale). A scale above 1 means the plan assumes more memory than the
     budget holds (the JAX launcher's relaxation ladder); the caller logs
@@ -131,7 +154,8 @@ def hetero_plan(cfg, hbm_bytes: float, *, width: int, prompt_len: int,
 
     def mk_env(scale):
         return cost_env(cfg, hbm_bytes * scale, width=width,
-                        prompt_len=prompt_len, load_bw=load_bw)
+                        prompt_len=prompt_len, load_bw=load_bw,
+                        measured=measured)
     r, env, scale = allocate_with_retry(mk_env, cfg.n_layers, n_emp=n_emp)
     if not r.feasible:
         raise SystemExit(f"hetero allocation infeasible: {r.reason}")
@@ -189,25 +213,7 @@ def rebase_arrivals(fleet, reqs) -> None:
         r.arrival_s += base
 
 
-def measure_h2d(src, reps: int = 6) -> float:
-    """Bytes/s of one-row copies from the pinned host tensor `src` (rows
-    of one streamed layer, or any pinned rows) into HBM on a side stream,
-    the copies the engine's streamer issues."""
-    import torch
-    buf = torch.empty_like(src[0], device="cuda")
-    side = torch.cuda.Stream()
-    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    with torch.cuda.stream(side):
-        buf.copy_(src[0], non_blocking=True)
-        a.record(side)
-        for i in range(reps):
-            buf.copy_(src[i % src.shape[0]], non_blocking=True)
-        b.record(side)
-    b.synchronize()
-    return reps * buf.numel() * buf.element_size() / (a.elapsed_time(b) * 1e-3)
-
-
-def main(argv=None):
+def _parse(argv):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
@@ -302,7 +308,40 @@ def main(argv=None):
     ap.add_argument("--dash-interval", type=float, default=0.0,
                     help="seconds between live dashboard snapshots on "
                          "stdout (0 = off; the backend's clock)")
-    args = ap.parse_args(argv)
+    ap.add_argument("--measure", action="store_true",
+                    help="measured-profile autotune: run the "
+                         "microbenchmark harness on this device and plan "
+                         "from timed FLOP/s, HBM and stream bandwidth "
+                         "instead of the typed profile; the profile "
+                         "persists to --profile-cache")
+    ap.add_argument("--profile-cache", default=None, metavar="PATH",
+                    help="tune-cache JSON (measured profiles + swept "
+                         "kernel split counts, keyed by device kind); "
+                         "loaded at startup (the tuned split counts are "
+                         "installed before any backend captures) and "
+                         "updated by --measure. Default: ~/.cache/"
+                         "repro_torch/tune_cache.json when --measure is set")
+    ap.add_argument("--refit", action="store_true",
+                    help="online re-fit (engine path with --adapt): build "
+                         "an OnlineRefit over the planner, which EWMA-"
+                         "tracks weight-load timings given to the backend's "
+                         "note_load_timing and rebuilds the planner's TS "
+                         "ladders when they drift >20%% from the planned "
+                         "model; the engine times none of its own copies, "
+                         "so in a plain serve nothing feeds it and it "
+                         "changes nothing")
+    return ap.parse_args(argv)
+
+
+def run(argv=None) -> dict:
+    """The launcher's serve: parses `argv`, tunes, plans, serves and
+    prints as ``main`` does, and returns what it served: {"done": the
+    requests, "report": the report's dict, "backend", "engine" (open:
+    the caller closes it), "env" (the CostEnv planned with, or None),
+    "measured" (the MeasuredProfile planned from, or None), "installed"
+    (tuned kernel configs installed)}; with --replicas {"fleet": the
+    FleetResult}."""
+    args = _parse(argv)
 
     import torch
 
@@ -322,6 +361,38 @@ def main(argv=None):
     from repro_torch.specdec import SpecConfig
 
     dev = resolve_device(args.device)
+    log = get_logger("repro_torch.launch.serve")
+    # the tune cache: its split counts are installed before any backend
+    # is built (a CUDA graph keeps the split it was captured with);
+    # --measure times the device and persists the profile
+    measured, installed = None, 0
+    if args.measure or args.profile_cache:
+        from repro_torch.core.profiles import H100_SXM
+        from repro_torch.tune import TuneCache, default_cache_path
+        from repro_torch.tune.measure import device_kind, measure_profile
+        cache_path = args.profile_cache or default_cache_path()
+        tune_cache = TuneCache.load(cache_path)
+        dk = device_kind(dev)
+        installed = tune_cache.install(dk)
+        if installed:
+            log.info(f"installed {installed} tuned kernel configs for {dk} "
+                     f"from {cache_path}")
+        measured = tune_cache.get_profile(dk)
+        if args.measure:
+            log.info("running microbenchmark harness (--measure)...")
+            # the card's sizes: a 8192^3 matmul and 256 MiB copies fill
+            # it; JAX's 1024 and 32 MiB on the CPU
+            card = dev.type == "cuda"
+            measured = measure_profile(dk, H100_SXM, n=8192 if card else 1024,
+                                       mb=256 if card else 32, device=dev)
+            tune_cache.put_profile(measured)
+            tune_cache.save(cache_path)
+            log.info(f"measured profile for {dk}: "
+                     f"flops={measured.flops:.3g} mem_bw={measured.mem_bw:.3g} "
+                     f"load_bw={measured.load_bw:.3g} -> {cache_path}")
+        elif measured is not None:
+            log.info(f"planning from cached measured profile for {dk} "
+                     f"(measured {measured.measured_at})")
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
@@ -342,15 +413,25 @@ def main(argv=None):
         hbm = None                      # no engine: the replicas share params
     plan = env = None
     if hbm is not None and (args.plan == "hetero" or args.adapt):
-        rate = measure_h2d(torch.empty((2, 128 << 20), dtype=torch.uint8,
-                                       pin_memory=True)) \
-            if dev.type == "cuda" else 0.0
+        # the measured profile, else the typed one with the H2D rate of
+        # pinned copies timed now
+        timed = measured
+        if timed is None and dev.type == "cuda":
+            from repro_torch.core.profiles import H100_SXM
+            from repro_torch.tune.measure import (device_kind,
+                                                  measure_stream_bw)
+            from repro_torch.tune.profiles import from_analytic
+            rate = measure_stream_bw(src=torch.empty(
+                (2, 128 << 20), dtype=torch.uint8, pin_memory=True),
+                reps=6, device=dev)["h2d"][0]
+            timed = from_analytic(H100_SXM, device_kind=device_kind(dev),
+                                  source="h2d", load_bw=rate)
         env = cost_env(cfg, hbm, width=width, prompt_len=args.prompt_len,
-                       load_bw=rate)
+                       measured=timed)
     if hbm is not None and args.plan == "hetero":
         r, env, scale = hetero_plan(
             cfg, hbm, width=width, prompt_len=args.prompt_len,
-            n_emp=args.max_len, load_bw=env.devices[0].load_bw)
+            n_emp=args.max_len, measured=timed)
         plan = r.plan
         if scale > 1.0:
             print(f"hetero allocation relaxed memory x{scale:.2f} for "
@@ -413,6 +494,9 @@ def main(argv=None):
     if args.prefix_cache and engine is not None:
         raise SystemExit("--prefix-cache shares pages of the single-device "
                          "paged pool; this model runs through the engine")
+    if args.refit and planner is None:
+        log.info("--refit needs an OnlinePlanner to rebuild (engine path "
+                 "with --adapt); ignoring")
     srv = LimeServer(cfg, params, engine=engine, max_len=args.max_len,
                      pattern="sporadic" if args.pattern == "sporadic"
                      else "bursty",
@@ -420,7 +504,8 @@ def main(argv=None):
                                            seed=args.seed),
                      spec=spec, prefix_cache=args.prefix_cache,
                      prefill_chunk_tokens=args.prefill_chunk,
-                     page_size=args.page_size, planner=planner, device=dev)
+                     page_size=args.page_size, planner=planner,
+                     refit=args.refit, device=dev)
     arrivals = cli_arrivals(args.pattern, args.requests, seed=args.seed,
                             prompt_len=args.prompt_len,
                             max_new_tokens=args.max_new, gap_s=args.gap_s,
@@ -439,8 +524,8 @@ def main(argv=None):
         return SLOEngine(default_targets(ttft_p99_s=args.slo_ttft,
                                          tpot_p50_s=args.slo_tpot))
     if fleet_mode:
-        return _serve_fleet(args, cfg, params, srv, spec, reqs,
-                            mk_slo if args.slo else None, dev)
+        return {"fleet": _serve_fleet(args, cfg, params, srv, spec, reqs,
+                                      mk_slo if args.slo else None, dev)}
     backend = srv.make_backend()
     # flight recorder: installed before the scheduler is built (it takes
     # the tracer and binds its clock to the backend at construction)
@@ -472,9 +557,8 @@ def main(argv=None):
             set_tracer(None)
     if tracer is not None:
         tracer.export(args.trace)
-        get_logger("repro_torch.launch.serve").info(
-            f"trace: {args.trace} ({tracer.emitted} events, "
-            f"{tracer.dropped} dropped)")
+        log.info(f"trace: {args.trace} ({tracer.emitted} events, "
+                 f"{tracer.dropped} dropped)")
     _print_requests(done)
     report = summarize(done, pattern=args.pattern,
                        backend="engine" if engine else
@@ -484,8 +568,15 @@ def main(argv=None):
     if slo is not None:
         doc["slo"] = slo.snapshot(sched.now())
     print(json.dumps(doc, indent=2))
-    if engine is not None:
-        engine.close()
+    return {"done": done, "report": doc, "backend": backend,
+            "engine": engine, "env": env, "measured": measured,
+            "installed": installed}
+
+
+def main(argv=None) -> int:
+    out = run(argv)
+    if out.get("engine") is not None:
+        out["engine"].close()
     return 0
 
 
@@ -528,7 +619,7 @@ def _serve_fleet(args, cfg, params, srv, spec, reqs, mk_slo, dev):
     _print_requests(result.requests)
     print(result.report(pattern=args.pattern,
                         backend=f"fleet{args.replicas}").to_json())
-    return 0
+    return result
 
 
 if __name__ == "__main__":

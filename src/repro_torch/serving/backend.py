@@ -594,8 +594,8 @@ class EngineBackend:
                  prompt_seed: int = 0, impl: str = "kernel", spec=None,
                  prefill_chunk_tokens: int = 0, paged: bool = False,
                  prefix_cache: bool = False, page_size: int = 64,
-                 cache_pages: int = 0, planner=None, capture: bool = True,
-                 device=None):
+                 cache_pages: int = 0, planner=None, refit: bool = False,
+                 capture: bool = True, device=None):
         refuse_encdec(cfg)
         self.cfg = cfg
         self.params = params
@@ -604,6 +604,15 @@ class EngineBackend:
         # scheduler's reclaims retier the live engine; demoted layers'
         # HBM is credited to the admission pool
         self.planner = planner
+        # online re-fit on the real engine: wall-clock weight-load timings
+        # go in through note_load_timing and fold drift back into the
+        # planner's CostEnv (nothing to re-fit without a planner)
+        self.refit = None
+        if refit and planner is not None:
+            from repro_torch.tune.refit import OnlineRefit
+            if not isinstance(planner.env.devices, list):
+                planner.env.devices = list(planner.env.devices)
+            self.refit = OnlineRefit(planner.env, planner)
         self._pool = None                 # admission PagePool (scheduler's)
         self._grants = []                 # reclaim-driven (stage, pages)
         self._reclaim_dry = False         # retier slots too small to grant
@@ -833,6 +842,18 @@ class EngineBackend:
         health): forward to the planner so its TS ladder fires early."""
         if self.planner is not None:
             self.planner.note_slo_pressure(pressure)
+
+    def note_load_timing(self, stage: int, nbytes: float,
+                         seconds: float) -> None:
+        """Wall-clock weight-load observation from the engine's streaming
+        path (a streamed stage's `nbytes` copied in `seconds`): feed the
+        online re-fit and let it rebuild the planner's ladders if the
+        measured bandwidth has drifted."""
+        if self.refit is None:
+            return
+        now = time.monotonic()
+        self.refit.observe_fetch(stage, nbytes, seconds, now=now)
+        self.refit.maybe_refit(now)
 
     def reclaim_kv_pages(self, n_pages: int) -> int:
         """Scheduler pressure hook: before preempting a request, demote

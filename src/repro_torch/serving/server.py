@@ -72,8 +72,9 @@ class LimeServer:
                  max_len: int = 512, sampler: SamplerConfig = SamplerConfig(),
                  pattern: str = "sporadic", impl: str = "kernel", spec=None,
                  prefix_cache: bool = False, prefill_chunk_tokens: int = 0,
-                 page_size: int = 64, planner=None, capture: bool = True,
-                 device=None, trace: Optional[str] = None,
+                 page_size: int = 64, planner=None, refit: bool = False,
+                 capture: bool = True, device=None,
+                 trace: Optional[str] = None,
                  trace_capacity: int = 1 << 16):
         self.cfg = cfg
         self.params = params
@@ -87,6 +88,7 @@ class LimeServer:
         self.prefill_chunk_tokens = prefill_chunk_tokens
         self.page_size = page_size
         self.planner = planner                # OnlinePlanner (engine only)
+        self.refit = refit                    # online re-fit of its CostEnv
         self.capture = capture                # False: eager steps
         # flight recorder: a path arms tracing for every serve_all()
         self.trace = trace
@@ -112,7 +114,7 @@ class LimeServer:
                 prefix_cache=self.prefix_cache and self.engine is None,
                 prefill_chunk_tokens=self.prefill_chunk_tokens,
                 page_size=self.page_size, planner=self.planner,
-                capture=self.capture, device=self.device)
+                refit=self.refit, capture=self.capture, device=self.device)
         return self._backend
 
     def serve_all(self) -> List[Request]:

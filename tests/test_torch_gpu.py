@@ -1900,3 +1900,97 @@ def test_captured_serves_replay_their_prefills(arch, kw, cuda_device):
         stats = srv.make_backend().graph_stats
     assert got[0] == got[1]
     assert stats["prefill_replays"] > 0 and stats["replays"] > 0
+
+
+# ----------------------------------------------------------------------------
+# the autotuner's split counts (kernels 1, 3, 4, 5) on the card
+# ----------------------------------------------------------------------------
+@pytest.mark.parametrize("kernel", ["decode_attention", "mq_decode_attention",
+                                    "paged_decode_attention",
+                                    "mq_paged_decode_attention"])
+def test_tuned_splits_vs_plain(kernel, cuda_device):
+    """Every split count (and page size) the sweep times at the main
+    path's shape, passed explicitly, within BF16_REL of the plain version
+    on the same inputs; one launch each; an illegal split refused."""
+    from repro_torch.kernels import tuning
+    from repro_torch.tune import sweep
+
+    r = sweep.runner(kernel, device=cuda_device)
+    mod = {"decode_attention": da, "mq_decode_attention": mq,
+           "paged_decode_attention": pg, "mq_paged_decode_attention": mq}
+    counter = "paged_launches" if kernel == "mq_paged_decode_attention" \
+        else "launches"
+    cands = sweep.legal_candidates(kernel, r)
+    assert {c["n_split"] for c in cands} == {1, 2, 4, 8}
+    for cfg in cands:
+        n0 = getattr(mod[kernel], counter)
+        out = r.run(cfg)
+        torch.cuda.synchronize()
+        assert getattr(mod[kernel], counter) == n0 + 1
+        assert tuning.last_lookup(kernel)[2:] == (cfg["n_split"], "override")
+        assert rel_err(out, r.plain(cfg)) <= BF16_REL, cfg
+    bad = dict(cands[0], n_split=5)
+    with pytest.raises(ValueError, match="n_split=5"):
+        r.run(bad)
+
+
+def test_tuned_split_installed_before_capture(cuda_device):
+    """A table installed before capture: the wrapper launches the tuned
+    split (the registry says so), a graph captured after the install
+    replays bit-equal to the eager call with that split, and a table
+    entry the kernel cannot take leaves the rule's split."""
+    from repro_torch.kernels import tuning
+    from repro_torch.tune import sweep
+
+    r = sweep.runner("decode_attention", device=cuda_device)
+    rule = r.default["n_split"]
+    tuned = 2 if rule != 2 else 8
+    saved = tuning.get_tuning_table()
+    try:
+        tuning.set_tuning_table({"decode_attention":
+                                 {r.bucket: dict(r.at, n_split=tuned)}})
+        eager = r.run({})
+        assert tuning.last_lookup("decode_attention")[2:] == (tuned, "table")
+        assert torch.equal(eager, r.run({"n_split": tuned}))
+        n0 = da.launches
+        g, out = _graph_of(lambda: r.run({}))
+        assert da.launches == n0 + 2          # warm-up and capture
+        out.zero_()
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+        tuning.set_tuning_table({"decode_attention":
+                                 {r.bucket: dict(r.at, n_split=5)}})
+        out = r.run({})
+        assert tuning.last_lookup("decode_attention")[2:] == (rule, "rule")
+        assert torch.equal(out, r.run({"n_split": rule}))
+    finally:
+        tuning.set_tuning_table(saved)
+
+
+@pytest.mark.parametrize("kernel", ["decode_attention", "mq_decode_attention"])
+def test_tuned_split_stays_at_its_batch(kernel, cuda_device):
+    """A row swept at the main path's B 4 (a split other than the rule's
+    there) launches at B 4 and reaches no B 1 call of the same bucket: B 1
+    launches its rule's split (8 on 132 SMs), bit-equal to that split
+    passed explicitly."""
+    from repro_torch.kernels import tuning
+    from repro_torch.tune import sweep
+
+    r4 = sweep.runner(kernel, device=cuda_device)
+    r1 = sweep.runner(kernel, {"B": 1}, device=cuda_device)
+    assert r1.bucket == r4.bucket and r1.at != r4.at
+    tuned = 2 if r4.default["n_split"] != 2 else 1
+    saved = tuning.get_tuning_table()
+    try:
+        tuning.set_tuning_table({kernel: {r4.bucket: dict(r4.at,
+                                                          n_split=tuned)}})
+        r4.run({})
+        assert tuning.last_lookup(kernel)[2:] == (tuned, "table")
+        out = r1.run({})
+        rule = r1.default["n_split"]
+        assert tuning.last_lookup(kernel)[2:] == (rule, "rule")
+        assert rule != tuned
+        assert torch.equal(out, r1.run({"n_split": rule}))
+    finally:
+        tuning.set_tuning_table(saved)
